@@ -1,0 +1,56 @@
+"""repro_torch.core — operator-level schedule autotuning on PyTorch.
+
+Public surface:
+  SearchSpace / State / Action            — the op-agnostic MDP protocol
+  GemmConfigSpace / TilingState           — the GEMM instance
+  ops.* (OpSpec / get_op / OPS)           — the operator registry
+  cost.*                                  — measured and analytical oracles
+  analysis.* (ScheduleAnalyzer, HopperSpec) — compile-free legality verdicts
+  tuners.*                                — G-BFS
+  TuningSession / Workload                — orchestration
+  TuningRecords / TrialJournal            — persisted best configs and trials
+"""
+
+from .analysis import (
+    ILLEGAL,
+    OK,
+    WASTEFUL,
+    AnalysisResult,
+    HopperSpec,
+    ScheduleAnalyzer,
+    analyzer_for_backend,
+    should_prune,
+)
+from .config_space import Action, GemmConfigSpace, TilingState
+from .cost import AnalyticalHopperCost, CostBackend, CountingCost, HopperTimedCost
+from .executor import LaneExecutor, LaneResult, SimulatedExecutor
+from .fault import PERMANENT_KINDS, TRANSIENT_KINDS, RetryPolicy, classify_error
+from .measure import MeasureEngine, MeasureOutcome, MeasureStats
+from .ops import OPS, OpSpec, get_op, op_names, register_op
+from .records import (
+    TrialJournal,
+    TuningRecords,
+    global_records,
+    parse_workload_key_generic,
+    set_global_records,
+    workload_key_for,
+)
+from .session import ArchTuneReport, TuningSession, Workload
+from .space import FactoredSearchSpace, SearchSpace, State, state_from_lists
+from .tuners import TUNERS, Budget, GBFSTuner, Trial, TuneResult, Tuner
+
+__all__ = [
+    "ILLEGAL", "OK", "WASTEFUL", "AnalysisResult", "HopperSpec",
+    "ScheduleAnalyzer", "analyzer_for_backend", "should_prune",
+    "Action", "GemmConfigSpace", "TilingState",
+    "AnalyticalHopperCost", "CostBackend", "CountingCost", "HopperTimedCost",
+    "LaneExecutor", "LaneResult", "SimulatedExecutor",
+    "PERMANENT_KINDS", "TRANSIENT_KINDS", "RetryPolicy", "classify_error",
+    "MeasureEngine", "MeasureOutcome", "MeasureStats",
+    "OPS", "OpSpec", "get_op", "op_names", "register_op",
+    "TrialJournal", "TuningRecords", "global_records",
+    "parse_workload_key_generic", "set_global_records", "workload_key_for",
+    "ArchTuneReport", "TuningSession", "Workload",
+    "FactoredSearchSpace", "SearchSpace", "State", "state_from_lists",
+    "TUNERS", "Budget", "GBFSTuner", "Trial", "TuneResult", "Tuner",
+]

@@ -1,0 +1,115 @@
+"""Operator registry — binds each tunable op to its search space, its
+analytical oracle, and how the measured backend runs its kernel.
+
+An :class:`OpSpec` names:
+
+* ``make_space``      — dims/depths -> :class:`~repro_torch.core.space.SearchSpace`
+* ``analytical_cost`` — the op's deterministic model
+* ``operands``        — ``(space, dtype, seed, device)`` -> operand tensors,
+  made on the device from a seeded ``torch.Generator``
+* ``kernel_run``      — ``(space, state, operands)`` -> output of the op's
+  hand-written kernel under that schedule (``ValueError`` when the kernel
+  refuses it)
+* ``default_state``   — ``(space, dtype)`` -> the state of the kernel's
+  heuristic config, or None — where a warm start with no donor begins
+
+Built-in ops: ``gemm``, the paper's tiled matrix multiply.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from .config_space import GemmConfigSpace, TilingState
+from .analysis import dtype_in_bytes
+from .space import SearchSpace, State
+
+__all__ = ["OpSpec", "OPS", "register_op", "get_op", "op_names"]
+
+
+@dataclasses.dataclass(frozen=True)
+class OpSpec:
+    """Everything the tuner stack needs to know about one operator."""
+
+    name: str
+    state_type: type
+    default_depths: tuple[int, ...]
+    make_space: Callable[..., SearchSpace]
+    analytical_cost: Callable[..., object]
+    operands: Callable[..., tuple]
+    kernel_run: Callable[..., torch.Tensor]
+    default_state: Callable[..., Optional[State]]
+
+
+OPS: dict[str, OpSpec] = {}
+
+
+def register_op(spec: OpSpec) -> None:
+    OPS[spec.name] = spec
+
+
+def get_op(name: str) -> OpSpec:
+    try:
+        return OPS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown op {name!r}; registered ops: {sorted(OPS)}"
+        ) from None
+
+
+def op_names() -> list[str]:
+    return sorted(OPS)
+
+
+def _gemm_space(dims: Sequence[int], depths: Sequence[int] = (), **kw) -> GemmConfigSpace:
+    m, k, n = dims
+    d_m, d_k, d_n = depths or (4, 2, 4)
+    return GemmConfigSpace(m, k, n, d_m, d_k, d_n, **kw)
+
+
+def _gemm_analytical(space, **kw):
+    from .cost.analytical import AnalyticalHopperCost
+
+    return AnalyticalHopperCost(space, **kw)
+
+
+def _gemm_operands(space: GemmConfigSpace, dtype: str, seed: int, device) -> tuple:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for shape in ((space.m, space.k), (space.k, space.n)):
+        x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        out.append(x.to(getattr(torch, dtype)))
+    return tuple(out)
+
+
+def _gemm_kernel_run(space: GemmConfigSpace, s: TilingState, operands) -> torch.Tensor:
+    from repro_torch.kernels.gemm import gemm_tiled, kernel_config_from_state
+
+    a, b = operands
+    return gemm_tiled(a, b, kernel_config_from_state(s))
+
+
+def _gemm_default_state(space: GemmConfigSpace, dtype: str) -> Optional[TilingState]:
+    from repro_torch.kernels.gemm import default_config, state_from_config
+
+    if (space.d_m, space.d_k, space.d_n) != (4, 2, 4):
+        return None
+    cfg = default_config(space.m, space.k, space.n, dtype_in_bytes(dtype))
+    return None if cfg is None else state_from_config(cfg, space.m, space.k, space.n)
+
+
+register_op(
+    OpSpec(
+        name="gemm",
+        state_type=TilingState,
+        default_depths=(4, 2, 4),
+        make_space=_gemm_space,
+        analytical_cost=_gemm_analytical,
+        operands=_gemm_operands,
+        kernel_run=_gemm_kernel_run,
+        default_state=_gemm_default_state,
+    )
+)

@@ -1,0 +1,352 @@
+"""Tuning sessions: run a tuner over one-or-many operator workloads
+through the batched measurement engine, persist the results, and report.
+
+``TuningSession`` is what ``launch/tune.py`` drives.  A
+:class:`Workload` names an op from the registry
+(``repro_torch.core.ops``) plus its dimension sizes.  The session owns
+the two persistence layers — the keep-best :class:`TuningRecords` table
+that ``kernels/ops.py`` consults at dispatch time, and the append-only
+:class:`TrialJournal` the :class:`~repro_torch.core.measure.MeasureEngine`
+serves repeat measurements from — and wires both into every search:
+
+* :meth:`tune_workload` builds a per-workload engine and can
+  **warm-start** the search from the best record of this workload or,
+  via the space's ``transplant``, from the nearest previously-tuned
+  shape of the same op;
+* :meth:`tune_arch` fans every distinct workload an architecture
+  executes through one shared budget pool and one
+  :class:`MeasureStats`.
+
+The default cost is :class:`~repro_torch.core.cost.HopperTimedCost`:
+candidates are timed on the card.  This is the JAX package's session
+without snapshot/resume, sharding and the learned filter.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import math
+from typing import Callable, Optional, Sequence
+
+from .cost import CostBackend
+from .fault import RetryPolicy
+from .measure import MeasureEngine, MeasureStats
+from .records import (
+    TrialJournal,
+    TuningRecords,
+    donor_distance,
+    parse_workload_key_generic,
+    workload_key_for,
+)
+from .space import SearchSpace, State
+from .tuners import TUNERS, Budget, TuneResult
+
+__all__ = ["Workload", "TuningSession", "ArchTuneReport"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    """One tunable operator instance: op name + dimension sizes (plus
+    nesting depths, defaulted from the op registry)."""
+
+    op: str
+    dims: tuple[int, ...]
+    dtype: str = "bfloat16"
+    depths: tuple[int, ...] = ()
+    label: str = ""
+
+    def __post_init__(self):
+        object.__setattr__(self, "dims", tuple(int(d) for d in self.dims))
+        if self.depths:
+            object.__setattr__(
+                self, "depths", tuple(int(d) for d in self.depths)
+            )
+        else:
+            from .ops import get_op  # lazy: ops imports cost modules
+
+            object.__setattr__(self, "depths", get_op(self.op).default_depths)
+
+    def space(self) -> SearchSpace:
+        from .ops import get_op
+
+        return get_op(self.op).make_space(self.dims, self.depths)
+
+    def key(self, backend: str) -> str:
+        return workload_key_for(self.op, self.dims, self.dtype, backend)
+
+
+@dataclasses.dataclass
+class ArchTuneReport:
+    """What ``tune_arch`` hands back: per-label results + engine totals."""
+
+    results: dict[str, TuneResult]
+    stats: MeasureStats
+    n_workers: int
+    n_unique_shapes: int
+    executor: str = "sim"  # lane executor the arch's engines measured through
+
+    @property
+    def total_trials(self) -> int:
+        return sum(r.n_trials for r in self.distinct_results())
+
+    @property
+    def total_clock_s(self) -> float:
+        return sum(r.clock_s for r in self.distinct_results())
+
+    def distinct_results(self) -> list[TuneResult]:
+        seen: set[int] = set()
+        out = []
+        for r in self.results.values():
+            if id(r) not in seen:
+                seen.add(id(r))
+                out.append(r)
+        return out
+
+
+def _default_cost_factory(space: SearchSpace) -> CostBackend:
+    """Time candidates on the card (raises where there is none)."""
+    from .cost import HopperTimedCost
+
+    return HopperTimedCost(space)
+
+
+class TuningSession:
+    def __init__(
+        self,
+        records: Optional[TuningRecords] = None,
+        cost_factory: Optional[Callable[[SearchSpace], CostBackend]] = None,
+        seed: int = 0,
+        verbose: bool = True,
+        journal: Optional[TrialJournal] = None,
+    ):
+        # NOTE: TuningRecords defines __len__, so an EMPTY store is falsy —
+        # `records or TuningRecords()` would silently drop it
+        self.records = records if records is not None else TuningRecords()
+        self.cost_factory = cost_factory or _default_cost_factory
+        self.seed = seed
+        self.verbose = verbose
+        # persistent measurement cache; None disables cross-session serving
+        self.journal = journal
+
+    # -- warm start ----------------------------------------------------------
+    def warm_start_state(
+        self,
+        wl: Workload,
+        space: SearchSpace,
+        backend_name: str,
+        fingerprint: Optional[str] = None,
+    ) -> Optional[State]:
+        """Initial state for a warm-started search: this workload's own
+        best record if one exists, else the best state of the nearest
+        previously-tuned shape of the *same op* transplanted into this
+        space, else the state of the kernel's heuristic config.  Donor
+        scans are scoped to the workload's op and dtype — a bf16-tuned
+        best must never seed an int8 search (the tile economics differ).
+        ``fingerprint`` scopes the journal search to entries measured
+        under the same backend settings (see ``measure_fingerprint``)."""
+        wkey = wl.key(backend_name)
+        s = self.records.lookup_state(wkey)
+        if s is not None and space.is_legitimate(s):
+            return s
+        # trailing non-factored dims (e.g. flash's head_dim) are workload
+        # identity: a donor tuned for a different value has different
+        # tile economics and must never seed this search
+        n_fixed = space.n_fixed_dims
+        donors: list[tuple[float, str, State]] = []
+        for key in self.records.keys():
+            parsed = parse_workload_key_generic(key)
+            if parsed is None or key == wkey:
+                continue
+            d = donor_distance(parsed, wl.op, wl.dims, dtype=wl.dtype,
+                               backend=backend_name, fixed_tail=n_fixed)
+            if d is None:
+                continue
+            src = self.records.lookup_state(key)
+            if src is None:
+                continue
+            donors.append((d, key, src))
+        if self.journal is not None:
+            jbackend = (
+                backend_name if fingerprint is None else f"{backend_name}?{fingerprint}"
+            )
+            near = self.journal.nearest(
+                wl.op, wl.dims, dtype=wl.dtype, backend=jbackend,
+                exclude=wkey if fingerprint is None else f"{wkey}?{fingerprint}",
+                fixed_tail=n_fixed,
+            )
+            if near is not None:
+                best = self.journal.best_state(near)
+                parsed = parse_workload_key_generic(near)
+                if best is not None and parsed is not None:
+                    d = donor_distance(parsed, wl.op, wl.dims,
+                                       fixed_tail=n_fixed)
+                    if d is not None:
+                        donors.append((d, near, best[0]))
+        for d, _key, src in sorted(donors, key=lambda t: (t[0], t[1])):
+            s = space.transplant(src)
+            if s is not None:
+                return s
+        # no donor: start from the kernel's heuristic config — the
+        # paper's untiled s0 is a state the Hopper kernel cannot launch
+        from .ops import get_op
+
+        return get_op(wl.op).default_state(space, wl.dtype)
+
+    # -- single workload -----------------------------------------------------
+    def tune_workload(
+        self,
+        wl: Workload,
+        tuner_name: str = "g-bfs",
+        budget: Optional[Budget] = None,
+        tuner_kwargs: Optional[dict] = None,
+        seed: Optional[int] = None,
+        n_workers: int = 1,
+        warm_start: bool = False,
+        engine: Optional[MeasureEngine] = None,
+        stats: Optional[MeasureStats] = None,
+        analyze: str = "off",
+        retry: Optional[RetryPolicy] = None,
+    ) -> TuneResult:
+        space = wl.space()
+        cost = self.cost_factory(space)
+        wkey = wl.key(cost.name)
+        if engine is not None and analyze != "off" and engine.analyze != analyze:
+            raise ValueError(
+                "analyze=... conflicts with the provided engine's analyze mode"
+            )
+        if engine is not None and retry is not None and retry.enabled and engine.retry != retry:
+            raise ValueError(
+                "retry=... conflicts with the provided engine's retry policy"
+            )
+        if engine is None:
+            engine = MeasureEngine(
+                cost,
+                n_workers=n_workers,
+                journal=self.journal,
+                workload_key=wkey,
+                stats=stats,
+                analyze=analyze,
+                retry=retry,
+            )
+        budget = budget or Budget(max_fraction=0.001)
+        tuner_cls = TUNERS[tuner_name]
+        kwargs = dict(tuner_kwargs or {})
+        if warm_start and "s0" not in kwargs:
+            s0 = self.warm_start_state(
+                wl, space, cost.name, fingerprint=cost.measure_fingerprint()
+            )
+            if s0 is not None and "s0" in inspect.signature(
+                tuner_cls.__init__
+            ).parameters:
+                kwargs["s0"] = s0
+        tuner = tuner_cls(space, cost, seed=self.seed if seed is None else seed,
+                          **kwargs)
+        result = tuner.tune(budget, engine=engine)
+        if result.best_state is not None and math.isfinite(result.best_cost):
+            self.records.update(
+                wkey,
+                result.best_state,
+                result.best_cost,
+                tuner_name,
+                result.n_trials,
+                extra={"label": wl.label, "n_workers": engine.n_workers},
+            )
+        if self.verbose:
+            print(
+                f"[tune] {wl.label or wkey} {tuner_name}: "
+                f"best={result.best_cost:.3e}s trials={result.n_trials} "
+                f"frac={result.fraction:.5f} wall={result.wall_s:.1f}s "
+                f"clock={result.clock_s:.1f}s workers={result.n_workers} "
+                f"cache_hit={result.cache_hit_rate:.2f}"
+            )
+        return result
+
+    # -- whole architecture --------------------------------------------------
+    def tune_arch(
+        self,
+        arch: Optional[str] = None,
+        shape: str = "train_4k",
+        tuner_name: str = "g-bfs",
+        budget: Optional[Budget] = None,
+        n_workers: int = 1,
+        warm_start: bool = False,
+        workloads: Optional[Sequence[Workload]] = None,
+        tuner_kwargs: Optional[dict] = None,
+        analyze: str = "off",
+        retry: Optional[RetryPolicy] = None,
+    ) -> ArchTuneReport:
+        """Tune every distinct workload an architecture executes through
+        one shared budget pool.
+
+        ``budget.max_trials`` / ``max_time_s`` are the TOTAL across the
+        arch — a hard ceiling: each remaining workload is allocated an
+        equal share of whatever is left, capped at the remainder
+        (``max_fraction`` stays per-workload).  Workloads with identical
+        ``(op, dims, dtype, depths)`` are tuned once and share the
+        result; all engines share the session journal and one
+        :class:`MeasureStats`."""
+        if workloads is None:
+            if arch is None:
+                raise ValueError("tune_arch needs an arch name or explicit workloads")
+            from repro_torch.launch.tune import workloads_for_arch  # lazy: avoids cycle
+
+            workloads = workloads_for_arch(arch, shape)
+        budget = budget or Budget(max_fraction=0.001)
+        stats = MeasureStats()
+        unique: dict[tuple, Workload] = {}
+        labels: dict[tuple, list[str]] = {}
+        for i, wl in enumerate(workloads):
+            shape_key = (wl.op, wl.dims, wl.dtype, wl.depths)
+            unique.setdefault(shape_key, wl)
+            labels.setdefault(shape_key, []).append(wl.label or f"wl{i}")
+        results: dict[str, TuneResult] = {}
+        left_trials = budget.max_trials
+        left_time = budget.max_time_s
+        n_left = len(unique)
+        try:
+            for shape_key, wl in unique.items():
+                if (left_trials is not None and left_trials <= 0) or (
+                    left_time is not None and left_time <= 0.0
+                ):
+                    break  # shared pool exhausted
+                alloc = Budget(
+                    max_trials=None
+                    if left_trials is None
+                    else min(left_trials, max(1, left_trials // n_left)),
+                    max_time_s=None if left_time is None else left_time / n_left,
+                    max_fraction=budget.max_fraction,
+                )
+                res = self.tune_workload(
+                    wl, tuner_name, alloc, tuner_kwargs,
+                    n_workers=n_workers, warm_start=warm_start, stats=stats,
+                    analyze=analyze, retry=retry,
+                )
+                if left_trials is not None:
+                    left_trials -= res.n_trials
+                if left_time is not None:
+                    left_time -= res.clock_s
+                n_left -= 1
+                for lbl in labels[shape_key]:
+                    results[lbl] = res
+        finally:
+            if self.journal is not None:
+                # drop the append descriptor between archs; the journal
+                # stays usable (record() reopens lazily)
+                self.journal.close()
+        report = ArchTuneReport(
+            results=results,
+            stats=stats,
+            n_workers=max(1, n_workers),
+            n_unique_shapes=len(unique),
+        )
+        if self.verbose:
+            print(
+                f"[tune-arch] {len(results)} workloads / "
+                f"{report.n_unique_shapes} distinct shapes: "
+                f"trials={report.total_trials} clock={report.total_clock_s:.1f}s "
+                f"workers={report.n_workers} executor={report.executor} "
+                f"cache_hit={stats.cache_hit_rate():.2f} "
+                f"lane_failures={stats.n_failures}"
+            )
+        return report

@@ -1,0 +1,263 @@
+"""The tiled GEMM kernel for Hopper, its plain PyTorch version, and the
+tuner <-> kernel contract.
+
+The kernel (``csrc/gemm.cu``, CUDA C++ for ``sm_90a``) replaces the
+Pallas TPU kernel ``repro/kernels/gemm.py:_gemm_kernel``.  It is built
+with ``nvcc`` into a shared library with a plain C interface the first
+time it is needed (into ``_build/`` beside this file, keyed by a hash
+of the source) and bound with ``ctypes``.
+
+:func:`gemm_tiled` is the wrapper: it checks device, dtype, shape,
+contiguity and the config (raising ``ValueError`` on what the kernel
+does not take), then launches the kernel on the current stream for CUDA
+tensors, or runs :func:`gemm_plain` — the same blocks, K slabs and f32
+accumulation in PyTorch — for CPU tensors.  Every kernel launch adds one
+to :data:`LAUNCHES` (keyed by ``(M, K, N)``).
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Optional
+
+import torch
+
+from repro_torch.core.analysis import HopperSpec, gemm_launch_error
+from repro_torch.core.config_space import TilingState
+
+__all__ = [
+    "KernelConfig",
+    "kernel_config_from_state",
+    "state_from_config",
+    "default_config",
+    "gemm_tiled",
+    "gemm_plain",
+    "build_kernel",
+    "LAUNCHES",
+    "reset_launches",
+]
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "gemm.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+#: kernel launches per ``(M, K, N)``: the wrapper adds one where it
+#: launches the kernel, and nowhere else
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    """CTA tile ``block_m x block_n`` with K slab ``block_k``, warp tile
+    ``sub_m x sub_n`` (0 = the whole block) and per-thread register tile
+    ``reg_m x reg_n``."""
+
+    block_m: int
+    block_k: int
+    block_n: int
+    sub_m: int = 0
+    sub_n: int = 0
+    reg_m: int = 1
+    reg_n: int = 1
+
+    def resolved(self) -> "KernelConfig":
+        return dataclasses.replace(
+            self, sub_m=self.sub_m or self.block_m, sub_n=self.sub_n or self.block_n
+        )
+
+    def validate(self, m: int, k: int, n: int, in_bytes: int = 2,
+                 spec: Optional[HopperSpec] = None) -> None:
+        """Raise ``ValueError`` unless the kernel can run this config on
+        an ``(m, k) @ (k, n)`` product: blocks divide the dims, and the
+        launch rule of ``repro_torch.core.analysis`` holds."""
+        c = self.resolved()
+        if min(c.block_m, c.block_k, c.block_n) < 1 or (
+            m % c.block_m or k % c.block_k or n % c.block_n
+        ):
+            raise ValueError(
+                f"blocks {(c.block_m, c.block_k, c.block_n)} do not divide "
+                f"dims {(m, k, n)}"
+            )
+        err = gemm_launch_error(
+            c.block_m, c.block_k, c.block_n, c.sub_m, c.sub_n, c.reg_m, c.reg_n,
+            in_bytes, spec, grid_m=m // c.block_m,
+        )
+        if err is not None:
+            raise ValueError(f"{err[0]}: {err[1]}")
+
+
+def kernel_config_from_state(s: TilingState) -> KernelConfig:
+    """Read a tuner state as a kernel config (see ``config_space``)."""
+    return KernelConfig(
+        block_m=s.block_m, block_k=s.block_k, block_n=s.block_n,
+        sub_m=s.sub_m, sub_n=s.sub_n, reg_m=s.reg_m, reg_n=s.reg_n,
+    )
+
+
+def state_from_config(cfg: KernelConfig, m: int, k: int, n: int) -> TilingState:
+    """The depth-(4, 2, 4) tuner state that reads back as ``cfg``."""
+    c = cfg.resolved()
+    return TilingState(
+        (m // c.block_m, c.block_m // c.sub_m, c.sub_m // c.reg_m, c.reg_m),
+        (k // c.block_k, c.block_k),
+        (n // c.block_n, c.block_n // c.sub_n, c.sub_n // c.reg_n, c.reg_n),
+    )
+
+
+def default_config(m: int, k: int, n: int, in_bytes: int = 2) -> Optional[KernelConfig]:
+    """Heuristic config when no tuning record exists, or None when the
+    kernel takes no config for these dims (then dispatch uses
+    ``torch.matmul``).  Prefers the classic SIMT shape: a 128x128 CTA of
+    256 threads, each holding an 8x8 register tile, in 32x64 warp tiles
+    of 4x8 threads, with a 32-deep K slab — shrinking where the dims do
+    not divide.  (The JAX package's TPU default picks blocks up to
+    256x512x256, whose slabs need far more than a CTA's 227 KB.)"""
+    for bm in (128, 64, 32, 16, 8):
+        for bn in (128, 64, 32, 16, 8):
+            for bk in (32, 16, 8):
+                for reg in (8, 4, 2, 1):
+                    rm, rn = min(reg, bm), min(reg, bn)
+                    cfg = KernelConfig(bm, bk, bn, min(bm, 4 * rm), min(bn, 8 * rn), rm, rn)
+                    try:
+                        cfg.validate(m, k, n, in_bytes)
+                    except ValueError:
+                        continue
+                    return cfg
+    return None
+
+
+# -- the plain version ---------------------------------------------------------
+
+
+def gemm_plain(a: torch.Tensor, b: torch.Tensor, config: KernelConfig) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch: the product of each ``bk``-deep
+    K slab in float32, accumulated slab by slab into an f32 accumulator,
+    cast to the input type at the end.  The CTA, warp and register tiles
+    partition the output without changing any element's arithmetic, so
+    they are folded into one product per slab."""
+    bk = config.block_k
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32, device=a.device)
+    a32, b32 = a.float(), b.float()
+    for k0 in range(0, a.shape[1], bk):
+        acc.addmm_(a32[:, k0:k0 + bk], b32[k0:k0 + bk])
+    return acc.to(a.dtype)
+
+
+# -- build and bind ------------------------------------------------------------
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    for cand in (
+        os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None,
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the GEMM kernel needs the CUDA toolkit")
+
+
+def build_kernel() -> tuple[ctypes.CDLL, str]:
+    """Compile ``csrc/gemm.cu`` for ``sm_90a`` (once per source hash) and
+    load it.  Returns the library and ptxas' resource report.  A failed
+    build raises."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
+        with open(_CSRC, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        so = os.path.join(_BUILD_DIR, f"libgemm_{digest}.so")
+        log = so + ".ptxas.txt"
+        if not os.path.exists(so):
+            fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so")
+            os.close(fd)
+            try:
+                proc = subprocess.run(
+                    [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v", "-o", tmp, _CSRC],
+                    capture_output=True, text=True,
+                )
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {_CSRC}:\n{proc.stderr}")
+                with open(log, "w") as f:
+                    f.write(proc.stderr)
+                os.replace(tmp, so)  # atomic publish
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        lib = ctypes.CDLL(so)
+        lib.repro_gemm.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+            + [ctypes.c_void_p]
+        )
+        lib.repro_gemm.restype = ctypes.c_int
+        lib.repro_gemm_max_threads.argtypes = [ctypes.c_int] * 3
+        lib.repro_gemm_max_threads.restype = ctypes.c_int
+        with open(log) as f:
+            _LIB = (lib, f.read())
+        return _LIB
+
+
+def kernel_max_threads(dtype: torch.dtype, reg_m: int, reg_n: int) -> int:
+    """The compiled instantiation's launch limit, as the card reports it
+    (must equal ``analysis.max_threads_for_reg_tile``)."""
+    lib, _ = build_kernel()
+    return lib.repro_gemm_max_threads(_DTYPE_CODE[dtype], reg_m, reg_n)
+
+
+# -- the wrapper ---------------------------------------------------------------
+
+
+def gemm_tiled(a: torch.Tensor, b: torch.Tensor, config: KernelConfig) -> torch.Tensor:
+    """``C = A @ B`` through the tiled kernel under ``config``: launched
+    on the card for CUDA tensors, the plain version for CPU tensors.
+    Raises ``ValueError`` on anything the kernel does not take, and
+    ``RuntimeError`` when a launch fails."""
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"gemm_tiled expects (M, K) @ (K, N), got {tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE:
+        raise ValueError(f"dtypes {a.dtype}/{b.dtype}: the kernel takes float32 or bfloat16 pairs")
+    if a.device != b.device:
+        raise ValueError(f"operands on {a.device} and {b.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("the kernel takes row-major contiguous operands")
+    (m, k), n = a.shape, b.shape[1]
+    cfg = config.resolved()
+    cfg.validate(m, k, n, a.element_size())
+    if a.device.type == "cpu":
+        return gemm_plain(a, b, cfg)
+    if a.device.type != "cuda":
+        raise ValueError(f"no kernel for device {a.device}")
+    lib, _ = build_kernel()
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_gemm(
+            _DTYPE_CODE[a.dtype], a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            m, k, n, cfg.block_m, cfg.block_k, cfg.block_n,
+            cfg.sub_m, cfg.sub_n, cfg.reg_m, cfg.reg_n, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"GEMM kernel launch failed (error {err}) for {cfg} at {(m, k, n)}")
+    LAUNCHES[(m, k, n)] += 1
+    return out
+

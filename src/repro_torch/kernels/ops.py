@@ -1,0 +1,220 @@
+"""Record-aware kernel dispatch — the bridge from tuning records to the
+GEMMs a model runs.
+
+``gemm(a, b)`` picks a kernel config for its shape:
+
+  1. the tuned record for the workload key (``records.workload_key_for``
+     under the policy's cost-backend namespace, written by
+     ``launch/tune.py``), unless the static analyzer calls it ILLEGAL;
+  2. else the kernel's heuristic :func:`~repro_torch.kernels.gemm.default_config`;
+  3. ``torch.matmul`` when no kernel config divides the shape (or the
+     dtype is one the kernel does not take) — a shape rule, counted as
+     ``"matmul"``, never a fallback after a failure.
+
+The lookup is memoized per ``(op, dims, dtype, backend)`` and dropped by
+:func:`set_kernel_policy` and by any records change (a records change
+listener).  :func:`dispatch_stats` counts, per op, which source drove
+each call.  ``gemm`` is differentiable: its ``torch.autograd.Function``
+computes ``dA = g Bᵀ`` and ``dB = Aᵀ g`` with the same kernel, each
+looked up under its own shape's key.
+
+Entry points run on the card: ``gemm`` takes ``device="cuda"`` unless
+the caller asks for ``device="cpu"`` (the plain version), and refuses
+operands that live elsewhere.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Optional
+
+import torch
+
+from repro_torch.core.records import add_change_listener, global_records, workload_key_for
+from .gemm import KernelConfig, default_config, gemm_tiled, kernel_config_from_state
+
+__all__ = [
+    "gemm",
+    "KernelPolicy",
+    "set_kernel_policy",
+    "kernel_policy",
+    "lookup_tuned_state",
+    "invalidate_dispatch_cache",
+    "dispatch_stats",
+    "reset_dispatch_stats",
+]
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+@dataclasses.dataclass
+class KernelPolicy:
+    cost_backend: str = "hopper_timed"  # records namespace to consult
+    #: ops that consult TuningRecords; others always use their heuristic
+    record_ops: tuple[str, ...] = ("gemm",)
+
+
+_POLICY = KernelPolicy()
+
+
+def kernel_policy() -> KernelPolicy:
+    return _POLICY
+
+
+def set_kernel_policy(policy: KernelPolicy) -> None:
+    global _POLICY
+    _POLICY = policy
+    invalidate_dispatch_cache()  # cost_backend / record_ops may differ
+
+
+# -- memoized record lookup ----------------------------------------------------
+
+_MISS = object()
+_CACHE_LOCK = threading.Lock()
+_DISPATCH_CACHE: dict[tuple, object] = {}
+_DISPATCH_STATS: dict[str, dict[str, int]] = {}
+_STAT_FIELDS = (
+    "records", "heuristic", "explicit", "matmul", "memo_hits",
+    "store_lookups", "static_reject",
+)
+
+
+def invalidate_dispatch_cache() -> None:
+    """Drop every memoized record lookup."""
+    with _CACHE_LOCK:
+        _DISPATCH_CACHE.clear()
+
+
+add_change_listener(invalidate_dispatch_cache)
+
+
+def _note(op: str, source: str) -> None:
+    with _CACHE_LOCK:
+        per_op = _DISPATCH_STATS.setdefault(op, dict.fromkeys(_STAT_FIELDS, 0))
+        per_op[source] += 1
+
+
+def dispatch_stats() -> dict[str, dict[str, int]]:
+    with _CACHE_LOCK:
+        return {op: dict(d) for op, d in _DISPATCH_STATS.items()}
+
+
+def reset_dispatch_stats() -> None:
+    with _CACHE_LOCK:
+        _DISPATCH_STATS.clear()
+
+
+def _static_reject_record(op: str, dims: tuple, dtype: str, st) -> bool:
+    """True when a tuned record cannot run on the kernel: the static
+    analyzer classifies it ILLEGAL for this workload (a stale record for
+    another shape, a corrupted state, or tiles the kernel cannot launch).
+    Failing to even build the space or analyzer also rejects: the
+    heuristic is always safe, a broken record never is."""
+    try:
+        from repro_torch.core.analysis import ScheduleAnalyzer, dtype_in_bytes
+        from repro_torch.core.ops import get_op
+
+        depths = tuple(len(r) for r in st.as_lists())
+        space = get_op(op).make_space(tuple(dims), depths)
+        analyzer = ScheduleAnalyzer(space, in_bytes=dtype_in_bytes(dtype))
+        return analyzer.analyze(st).illegal
+    except Exception:
+        return True
+
+
+def lookup_tuned_state(op: str, dims: tuple, dtype: str):
+    """Tuned schedule state for one op workload, or None (no record, or
+    a record the static analyzer rejects — counted as ``static_reject``).
+    Memoized per ``(op, dims, dtype, backend)`` until records change."""
+    if op not in _POLICY.record_ops:
+        return None
+    key = (op, tuple(dims), dtype, _POLICY.cost_backend)
+    with _CACHE_LOCK:
+        hit = _DISPATCH_CACHE.get(key, _MISS)
+    if hit is not _MISS:
+        _note(op, "memo_hits")
+        return hit
+    _note(op, "store_lookups")
+    st = global_records().lookup_state(
+        workload_key_for(op, tuple(dims), dtype, _POLICY.cost_backend)
+    )
+    if st is not None and _static_reject_record(op, dims, dtype, st):
+        _note(op, "static_reject")
+        st = None  # memoized as a miss: refused once per (shape, records)
+    with _CACHE_LOCK:
+        _DISPATCH_CACHE[key] = st
+    return st
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _kernel_config(m: int, k: int, n: int, dtype: torch.dtype,
+                   config: Optional[KernelConfig]) -> tuple[Optional[KernelConfig], str]:
+    """``(config, source)`` for one product: explicit, tuned record,
+    heuristic, or ``(None, "matmul")`` when the kernel takes none."""
+    if dtype not in _KERNEL_DTYPES:
+        return None, "matmul"
+    in_bytes = torch.empty((), dtype=dtype).element_size()
+    if config is not None:
+        cfg, src = config, "explicit"
+    else:
+        st = lookup_tuned_state("gemm", (m, k, n), _dtype_name(dtype))
+        if st is not None:
+            cfg, src = kernel_config_from_state(st), "records"
+        else:
+            cfg, src = default_config(m, k, n, in_bytes), "heuristic"
+    if cfg is None:
+        return None, "matmul"
+    try:
+        cfg.validate(m, k, n, in_bytes)
+    except ValueError:
+        return None, "matmul"
+    return cfg, src
+
+
+def _dispatch(a: torch.Tensor, b: torch.Tensor,
+              config: Optional[KernelConfig] = None) -> torch.Tensor:
+    """One 2-D product through the policy (no autograd)."""
+    (m, k), n = a.shape, b.shape[1]
+    cfg, src = _kernel_config(m, k, n, a.dtype, config)
+    _note("gemm", src)
+    if cfg is None:
+        return torch.matmul(a, b)
+    return gemm_tiled(a.contiguous(), b.contiguous(), cfg)
+
+
+class _Gemm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, config):
+        ctx.save_for_backward(a, b)
+        return _dispatch(a, b, config)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.contiguous()
+        # the backward products get their own tuned configs (shapes differ)
+        da = _dispatch(g, b.t().contiguous()) if ctx.needs_input_grad[0] else None
+        db = _dispatch(a.t().contiguous(), g) if ctx.needs_input_grad[1] else None
+        return da, db, None
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, config: Optional[KernelConfig] = None,
+         device="cuda") -> torch.Tensor:
+    """``a @ b`` through the dispatch policy (see module docstring).
+    Higher-rank ``a`` is flattened to 2-D and restored."""
+    if a.ndim < 2 or b.ndim != 2:
+        raise ValueError(f"gemm expects (.., K) @ (K, N), got {tuple(a.shape)} @ {tuple(b.shape)}")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("gemm runs on the card and none is present; pass device='cpu'")
+    if a.device.type != dev.type or b.device.type != dev.type:
+        raise ValueError(
+            f"operands on {a.device}/{b.device}, but gemm runs on {dev}"
+        )
+    lead, k, n = a.shape[:-1], a.shape[-1], b.shape[-1]
+    out = _Gemm.apply(a.reshape(-1, k), b, config)
+    return out.reshape(*lead, n)
