@@ -1,37 +1,72 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card: tune -> record ->
-dispatch for yi-6b's five GEMMs at full width, through the hand-written
-GEMM kernel.
+dispatch for yi-6b's five GEMMs and its prefill attention at full width,
+through the hand-written GEMM and flash-attention kernels, and yi-6b
+served at full width on the tuned records.
 
     python3 chip_smoke.py
 
 Phases (each prints its wall time):
 
-  1. build the kernel (``src/repro_torch/kernels/csrc/gemm.cu``, nvcc);
-  2. hold the kernel against its plain PyTorch version on small products
-     (several configs, f32 and bf16, and the autograd backward);
+  1. build both kernels (``src/repro_torch/kernels/csrc/*.cu``), and two
+     variants of the flash kernel with a planted fault (its source with one
+     line changed, built in a temporary directory), one nvcc per source,
+     all started together;
+  2. hold the GEMM kernel against its plain PyTorch version on small
+     products (several configs, f32 and bf16, and the autograd backward);
   3. tune the five yi-6b bf16 GEMMs (8192 tokens) with G-BFS on times
      measured on the card, each seeded from the kernel's heuristic state;
   4. rerun the tune CLI with ``--warm-start`` on the same records;
   5. reload the records and serve every tuned shape through ``gemm()``,
      checked against an f32 ``torch.matmul``;
-  6. hold the kernel under each tuned config against the plain version at
-     full width and time the kernel, the plain version and torch.matmul.
+  6. hold the GEMM kernel under each tuned config against the plain
+     version at full width and time the kernel, the plain version and
+     torch.matmul;
+  7. check the flash kernel: each instantiation's launch limit equals the
+     analyzer's, kernel vs plain on small shapes (several blocks, f32 and
+     bf16, causal and full, G in {1, 4, 8}, every head_dim), the wrapper
+     refuses indivisible blocks, and the bf16 limit refuses both planted
+     faults;
+  8. tune yi-6b's prefill attention (4096, 4096, 128) bf16 with G-BFS on
+     times measured on the card, seeded from the kernel's heuristic
+     blocks, then rerun ``tune --op flash --warm-start`` on the same
+     records;
+  9. serve yi-6b at full width (32 layers, random bf16 weights from a
+     seeded generator on the card) on the records of phases 3-4 and 8:
+     8 requests of ragged prompts in [2049, 4096], padded to the bucket
+     4096, 16 greedy tokens each; then trace one more prefill and three
+     decode steps with ``torch.profiler`` for the device time of each
+     kernel kind against CUDA events around the same call; then hold the
+     GEMM kernel, under the config dispatch chose, against an f32
+     ``torch.matmul`` at every shape the serve launched it on;
+ 10. hold the flash kernel under the served blocks against the plain
+     version on one layer's q/k/v (and see the limit refuse both planted
+     faults there), time the kernel, the plain version and
+     ``scaled_dot_product_attention`` (the yardstick, used nowhere in the
+     port), and hold the reduced yi-6b served on the card against the
+     same model on the CPU (plain versions).
 
-Launch counts are zeroed just before phase 3 and read just after phase 5
-(the CLI's launches, made in its own process, are added from its
-output).  Tolerances: float32 rtol 1e-4 / atol 8e-4, bfloat16 rtol 0.05 /
-atol 0.4 (the JAX package's GEMM kernel tests).  Exits non-zero on any
-failure; prints the kernels JSON line, then the device line last.
+Launch counts of each path are zeroed just before it and read just after:
+the GEMM path is phases 3-5, the flash path phases 8-9 (the CLIs'
+launches, made in their own processes, are added from their output).
+Tolerances: GEMM float32 rtol 1e-4 / atol 8e-4, bfloat16 rtol 0.05 /
+atol 0.4 (the JAX package's GEMM kernel tests); flash float32 rtol 2e-5 /
+atol 8e-5 (its flash kernel tests), bfloat16 rtol 1.6e-2 / atol 2e-3 (two
+bf16 rounding steps: kernel and plain version do the same f32 arithmetic
+in another order); the reduced model's logits rtol/atol 2e-4 (its port
+tests).  Exits non-zero
+on any failure; prints the kernels JSON line, then the device line last.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -40,12 +75,32 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
 TOL = {torch.float32: (1e-4, 8e-4), torch.bfloat16: (0.05, 0.4)}
+# kernel and plain version round the same f32 values to bf16, so outputs
+# differ by at most a rounding step (2^-7 relative, 0.0039 below 1); the
+# limit is two steps, far below a typical output at S = 4096 (about 0.02)
+FLASH_TOL = {torch.float32: (2e-5, 8e-5), torch.bfloat16: (1.6e-2, 2e-3)}
+FLASH_CU = os.path.join(SRC, "repro_torch", "kernels", "csrc", "flash_attention.cu")
+#: planted faults the bf16 flash limit must refuse: one line of the
+#: kernel's source, and what a variant built beside it has instead
+FAULTS = {
+    # the running accumulator is not rescaled when the row max grows
+    "no_rescale": ("acc[c] *= corr;", "acc[c] *= 1.0f;"),
+    # the last q block (the latest rows) stops one kv block short
+    "last_q_block_short": (
+        "const int last = causal ? min(n_kv, ((iq + 1) * bq + bkv - 1) / bkv) : n_kv;",
+        "const int last = (causal ? min(n_kv, ((iq + 1) * bq + bkv - 1) / bkv) : n_kv)"
+        " - (iq == gridDim.x - 1);",
+    ),
+}
 #: dense peak (ops/s) and memory rate (bytes/s) by card, from NVIDIA's data sheets
 PEAKS = {"PCIe": (756e12, 2.0e12), "H200": (989e12, 4.8e12), "default": (989e12, 3.35e12)}
 TUNE_TRIALS = 250  # total G-BFS pool over the five workloads (phase 3)
 # total pool of the warm-started CLI rerun (phase 4), which starts from
 # phase 3's records and serves every state phase 3 measured from the journal
 CLI_TRIALS = 100
+FLASH_TRIALS = 30  # G-BFS pool of the flash workload (phase 8)
+FLASH_CLI_TRIALS = 12
+SERVE_REQUESTS, SERVE_BUCKET, SERVE_TOKENS = 8, 4096, 16
 
 
 def phase(name: str, t0: float) -> None:
@@ -69,30 +124,82 @@ def timed_ms(fn, repeats: int, flush: torch.Tensor) -> float:
     return total / repeats
 
 
-def check_close(what: str, got: torch.Tensor, ref: torch.Tensor, dtype) -> float:
-    rtol, atol = TOL[dtype]
+def within(got: torch.Tensor, ref: torch.Tensor, dtype, tol=TOL) -> tuple[float, bool]:
+    """``(max abs error, whether got is finite, of ref's shape and within
+    the limit)``."""
+    rtol, atol = tol[dtype]
     got, ref = got.float(), ref.float()
     if got.shape != ref.shape or not torch.isfinite(got).all():
-        raise SystemExit(f"{what}: shape {tuple(got.shape)} or non-finite values")
-    err = (got - ref).abs().max().item()
-    if not torch.allclose(got, ref, rtol=rtol, atol=atol):
-        raise SystemExit(f"{what}: max abs err {err} outside rtol={rtol} atol={atol}")
+        return float("inf"), False
+    return (got - ref).abs().max().item(), torch.allclose(got, ref, rtol=rtol, atol=atol)
+
+
+def check_close(what: str, got: torch.Tensor, ref: torch.Tensor, dtype, tol=TOL) -> float:
+    err, ok = within(got, ref, dtype, tol)
+    if not ok:
+        raise SystemExit(f"{what}: max abs err {err} (shape {tuple(got.shape)}) outside "
+                         f"rtol={tol[dtype][0]} atol={tol[dtype][1]}")
     return err
+
+
+def fault_variant(name: str, out_dir: str):
+    """Build the flash kernel's source with the planted fault ``name``
+    into ``out_dir``; returns ``(library, ptxas report)``."""
+    from repro_torch.kernels.build import build_library
+
+    old, new = FAULTS[name]
+    with open(FLASH_CU) as f:
+        src = f.read()
+    if src.count(old) != 1:
+        raise RuntimeError(f"the line of fault {name} is not in the source once")
+    path = os.path.join(out_dir, f"flash_attention_{name}.cu")
+    with open(path, "w") as f:
+        f.write(src.replace(old, new))
+    return build_library(path, build_dir=out_dir)
+
+
+def refuse_faults(what: str, fault_libs: dict, q, k, v, blocks, ref) -> None:
+    """Launch each planted-fault variant on the operands the correct
+    kernel was checked on; the bf16 limit must refuse every one."""
+    from repro_torch.kernels.flash_attention import launch_with
+
+    for name, lib in fault_libs.items():
+        err, ok = within(launch_with(lib, q, k, v, *blocks), ref, torch.bfloat16, FLASH_TOL)
+        print(f"[fault] {what} blocks {blocks}: {name} max abs err {err} -> "
+              f"{'within the limit' if ok else 'refused'}", flush=True)
+        if ok:
+            raise SystemExit(f"the bf16 flash limit let the planted fault {name} pass ({what})")
+
+
+def run_cli(args: list[str]) -> str:
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cli = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                         env=env, cwd=HERE, timeout=600)
+    print(cli.stdout, end="")
+    if cli.returncode != 0:
+        raise SystemExit(f"{args[0]} failed ({cli.returncode}):\n{cli.stderr}")
+    return cli.stdout
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card is available")
     sys.path.insert(0, SRC)
+    import numpy as np
+
+    from repro_torch.configs.registry import get_arch
     from repro_torch.core import Budget, TrialJournal, TuningRecords, TuningSession
-    from repro_torch.core.analysis import max_threads_for_reg_tile
+    from repro_torch.core.analysis import flash_max_threads, max_threads_for_reg_tile
     from repro_torch.core.records import set_global_records
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels.gemm import (
         LAUNCHES, KernelConfig, build_kernel, default_config, gemm_plain,
         gemm_tiled, kernel_config_from_state, kernel_max_threads, state_from_config,
     )
-    from repro_torch.launch.tune import workloads_for_arch
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.launch.tune import flash_workloads_for_arch, workloads_for_arch
+    from repro_torch.models.api import Model
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32
     smi = subprocess.run(
@@ -100,6 +207,8 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
     name = torch.cuda.get_device_name(0)
     peak_ops, peak_bytes = next(
         (v for k, v in PEAKS.items() if k in name), PEAKS["default"]
@@ -111,13 +220,34 @@ def main() -> None:
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    # -- 1. build --------------------------------------------------------------
+    # -- 1. build both kernels and the planted faults, side by side ------------
     t0 = time.perf_counter()
-    _, ptxas = build_kernel()
-    spills = [l.strip() for l in ptxas.splitlines()
-              if "spill" in l and " 0 bytes spill stores" not in l]
-    print(f"[build] kernel built in {time.perf_counter() - t0:.1f}s; "
-          f"instantiations with spills: {len(spills)}")
+    fault_dir = tempfile.TemporaryDirectory()
+    builds: dict[str, tuple] = {}
+
+    def build(label, fn):
+        t = time.perf_counter()
+        try:
+            builds[label] = (fn(), time.perf_counter() - t)
+        except Exception as e:  # reported, and fatal, below
+            builds[label] = (e, time.perf_counter() - t)
+
+    jobs = [("gemm", build_kernel), ("flash", fa.build_kernel)] + [
+        (f"fault {name}", lambda name=name: fault_variant(name, fault_dir.name))
+        for name in FAULTS]
+    threads = [threading.Thread(target=build, args=a) for a in jobs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for label, (built, secs) in builds.items():
+        if isinstance(built, Exception):
+            raise SystemExit(f"[build] {label} kernel failed: {built}")
+        spills = [l.strip() for l in built[1].splitlines()
+                  if "spill" in l and " 0 bytes spill stores" not in l]
+        print(f"[build] {label} kernel built in {secs:.1f}s; "
+              f"instantiations with spills: {len(spills)}")
+    fault_libs = {name: fa.bind(builds[f"fault {name}"][0][0]) for name in FAULTS}
     phase("1 build", t0)
 
     # -- 2. kernel vs plain on small products ----------------------------------
@@ -158,7 +288,7 @@ def main() -> None:
     workloads = workloads_for_arch("yi-6b", "train_4k")
     with tempfile.TemporaryDirectory() as tmp:
         records_path = os.path.join(tmp, "yi-6b.json")
-        # -- main path: counts zeroed here, read after phase 5 -----------------
+        # -- GEMM main path: counts zeroed here, read after phase 5 ------------
         LAUNCHES.clear()
         ops.reset_dispatch_stats()
 
@@ -193,17 +323,10 @@ def main() -> None:
 
         # -- 4. the tune CLI, warm-started from the same records -------------------
         t0 = time.perf_counter()
-        env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
-        cli = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.tune", "--arch", "yi-6b",
-             "--shape", "train_4k", "--tuner", "g-bfs", "--warm-start",
-             "--max-trials", str(CLI_TRIALS), "--records", records_path],
-            capture_output=True, text=True, env=env, cwd=HERE, timeout=600,
-        )
-        print(cli.stdout, end="")
-        if cli.returncode != 0:
-            raise SystemExit(f"tune CLI failed ({cli.returncode}):\n{cli.stderr}")
-        cli_launches = json.loads(re.search(r"kernel_launches=(.*)", cli.stdout).group(1))
+        out = run_cli(["repro_torch.launch.tune", "--arch", "yi-6b", "--shape", "train_4k",
+                       "--tuner", "g-bfs", "--warm-start", "--max-trials", str(CLI_TRIALS),
+                       "--records", records_path])
+        cli_launches = json.loads(re.search(r"kernel_launches=(.*)", out).group(1))
         phase("4 tune CLI", t0)
 
         # -- 5. serve every tuned shape through gemm() from the records ------------
@@ -231,44 +354,312 @@ def main() -> None:
         phase("5 serve", t0)
         set_global_records(TuningRecords())
 
-    print(f"[launches] main path: {sum(launches.values())} kernel launches "
-          f"({sum(cli_launches.values())} in the CLI process)")
-    for label, (dims, _) in tuned.items():
-        if launches.get(dims, 0) == 0:
-            raise SystemExit(f"{label}: the kernel never launched on the main path")
+        print(f"[launches] GEMM path: {sum(launches.values())} kernel launches "
+              f"({sum(cli_launches.values())} in the CLI process)")
+        for label, (dims, _) in tuned.items():
+            if launches.get(dims, 0) == 0:
+                raise SystemExit(f"{label}: the kernel never launched on the main path")
 
-    # -- 6. full-width kernel vs plain, and times ----------------------------------
-    t0 = time.perf_counter()
-    kernels = []
-    for label, ((m, k, n), _) in tuned.items():
-        cfg = kernel_config_from_state(served[label])
-        a, b = rand((m, k), torch.bfloat16), rand((k, n), torch.bfloat16)
-        err = check_close(f"full-width {label}", gemm_tiled(a, b, cfg), gemm_plain(a, b, cfg),
-                          torch.bfloat16)
-        ms = timed_ms(lambda: gemm_tiled(a, b, cfg), 3, flush)
-        plain_ms = timed_ms(lambda: gemm_plain(a, b, cfg), 1, flush)
-        lib_ms = timed_ms(lambda: torch.matmul(a, b), 5, flush)
-        flops, nbytes = 2 * m * k * n, 2 * (m * k + k * n + m * n)
+        # -- 6. full-width kernel vs plain, and times ----------------------------------
+        t0 = time.perf_counter()
+        kernels = []
+        for label, ((m, k, n), _) in tuned.items():
+            cfg = kernel_config_from_state(served[label])
+            a, b = rand((m, k), torch.bfloat16), rand((k, n), torch.bfloat16)
+            err = check_close(f"full-width {label}", gemm_tiled(a, b, cfg), gemm_plain(a, b, cfg),
+                              torch.bfloat16)
+            ms = timed_ms(lambda: gemm_tiled(a, b, cfg), 3, flush)
+            plain_ms = timed_ms(lambda: gemm_plain(a, b, cfg), 1, flush)
+            lib_ms = timed_ms(lambda: torch.matmul(a, b), 5, flush)
+            flops, nbytes = 2 * m * k * n, 2 * (m * k + k * n + m * n)
+            bound_ms = 1e3 * max(flops / peak_ops, nbytes / peak_bytes)
+            kernels.append({
+                "name": f"gemm[{label}]", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/gemm.cu",
+                "replaces": "src/repro/kernels/gemm.py:96",
+                "launches": launches.get((m, k, n), 0), "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "operations" if flops / peak_ops >= nbytes / peak_bytes else "bytes",
+                "library_ms": lib_ms,
+            })
+            print(f"[time] {label} {(m, k, n)} {cfg}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"roofline={bound_ms / ms:.4f} tflops={flops / ms / 1e9:.2f}", flush=True)
+            del a, b
+            torch.cuda.empty_cache()
+        phase("6 full-width check and times", t0)
+
+        # -- 7. the flash kernel: launch limits, kernel vs plain, refusals -------------
+        t0 = time.perf_counter()
+        for dtype in (torch.float32, torch.bfloat16):
+            for hd in (16, 32, 64, 128):
+                got = fa.kernel_max_threads(dtype, hd)
+                if got != flash_max_threads(hd):
+                    raise SystemExit(f"flash launch limit {got} for {dtype} hd={hd} "
+                                     f"disagrees with the analyzer ({flash_max_threads(hd)})")
+        n_checked, worst = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+        for dtype in (torch.float32, torch.bfloat16):
+            for hd in (16, 32, 64, 128):
+                for g in (1, 4, 8):
+                    q = rand((2, 256, 2 * g, hd), dtype)
+                    k, v = rand((2, 256, 2, hd), dtype), rand((2, 256, 2, hd), dtype)
+                    for causal in (True, False):
+                        for bq, bkv in ((16, 16), (32, 64), (64, 32), (64, 128), (128, 16)):
+                            if fa.flash_launch_error(bq, bkv, hd, q.element_size()) is not None:
+                                continue
+                            out = fa.flash_attention(q, k, v, bq, bkv, causal)
+                            ref = fa.flash_attention_plain(q, k, v, bq, bkv, causal)
+                            err = check_close(f"flash {dtype} hd={hd} G={g} causal={causal} "
+                                              f"blocks=({bq},{bkv})", out, ref, dtype, FLASH_TOL)
+                            worst[dtype] = max(worst[dtype], err)
+                            n_checked += 1
+        q = rand((1, 100, 4, 64), torch.bfloat16)
+        k = rand((1, 100, 2, 64), torch.bfloat16)
+        before = sum(fa.LAUNCHES.values())
+        try:
+            fa.flash_attention(q, k, k, 64, 64)
+        except ValueError as e:
+            print(f"[check] indivisible blocks refused: {e}")
+        else:
+            raise SystemExit("the flash wrapper took blocks that do not divide the sequence")
+        if sum(fa.LAUNCHES.values()) != before:
+            raise SystemExit("a refused flash call launched the kernel")
+        torch.cuda.synchronize()
+        print(f"[check] {n_checked} flash kernel/plain cases agree; max abs err "
+              f"f32={worst[torch.float32]} bf16={worst[torch.bfloat16]}")
+        q = rand((2, 256, 16, 128), torch.bfloat16)
+        k, v = rand((2, 256, 2, 128), torch.bfloat16), rand((2, 256, 2, 128), torch.bfloat16)
+        refuse_faults("q (2, 256, 16, 128)", fault_libs, q, k, v, (32, 32),
+                      fa.flash_attention_plain(q, k, v, 32, 32))
+        phase("7 flash kernel vs plain", t0)
+
+        # -- flash main path: counts zeroed here, read after phase 9 -----------------
+        fa.LAUNCHES.clear()
+
+        # -- 8. tune the prefill attention, then the CLI on the same records ----------
+        t0 = time.perf_counter()
+        (fwl,) = flash_workloads_for_arch("yi-6b", "train_4k")
+        sq, skv, hd = fwl.dims
+        fspace = fwl.space()
+        records = TuningRecords(records_path)
+        with TrialJournal(records_path + ".journal.jsonl") as journal:
+            session = TuningSession(records, journal=journal, verbose=True)
+            s0 = fa.state_from_blocks(*fa.default_blocks(sq, skv, hd), sq, skv)
+            res = session.tune_workload(fwl, "g-bfs", Budget(max_trials=FLASH_TRIALS),
+                                        tuner_kwargs={"s0": s0})
+        if res.best_state is None:
+            raise SystemExit(f"{fwl.label}: no finite trial")
+        print(f"[tuned] {fwl.label} {fwl.dims}: best={res.best_state.as_lists()} "
+              f"(blocks {res.best_state.block_q}x{res.best_state.block_kv}) "
+              f"kernel_ms={res.best_cost * 1e3:.4f} seed_ms={res.trials[0].cost * 1e3:.4f} "
+              f"trials={res.n_trials} (timed on q (1, {sq}, {fspace.heads}, {hd}), "
+              f"k/v (1, {skv}, {fspace.kv_heads}, {hd}))", flush=True)
+        out = run_cli(["repro_torch.launch.tune", "--op", "flash", "--arch", "yi-6b",
+                       "--tuner", "g-bfs", "--warm-start", "--fraction", "1.0",
+                       "--max-trials", str(FLASH_CLI_TRIALS), "--records", records_path])
+        flash_cli = json.loads(re.search(r"flash_launches=(.*)", out).group(1))
+        phase("8 tune flash", t0)
+
+        # -- 9. serve yi-6b at full width on the records -------------------------------
+        t0 = time.perf_counter()
+        cfg = get_arch("yi-6b")
+        model = Model(cfg, device="cuda")
+        params = model.init_params(generator=torch.Generator(device=dev).manual_seed(0))
+        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        set_global_records(TuningRecords(records_path))
+        blocks = ops.flash_schedule(sq, skv, hd, "bfloat16")
+        print(f"[serve] yi-6b weights: {n_bytes / 1e9:.2f} GB bf16; served flash blocks "
+              f"{blocks}", flush=True)
+        rng = np.random.default_rng(0)
+        lens = rng.integers(SERVE_BUCKET // 2 + 1, SERVE_BUCKET + 1, SERVE_REQUESTS)
+        lens[0] = SERVE_BUCKET
+        prompts = np.zeros((SERVE_REQUESTS, SERVE_BUCKET), np.int64)
+        for i, n in enumerate(lens):
+            prompts[i, :n] = rng.integers(0, cfg.vocab_size, n)
+        engine = ServeEngine(cfg, params, max_batch=SERVE_REQUESTS,
+                             max_len=SERVE_BUCKET + SERVE_TOKENS,
+                             prompt_buckets=[SERVE_BUCKET], device="cuda")
+        ops.reset_dispatch_stats()
+        gemm_before, flash_before = collections.Counter(LAUNCHES), sum(fa.LAUNCHES.values())
+        tokens = engine.generate(prompts, SERVE_TOKENS, prompt_lens=lens)
+        timing = engine.last_timing
+        stats = ops.dispatch_stats()
+        serve_flash = sum(fa.LAUNCHES.values()) - flash_before
+        served_gemms = sorted(d for d in LAUNCHES if LAUNCHES[d] > gemm_before[d])
+        print(f"[serve] {SERVE_REQUESTS} requests, prompt lengths {lens.tolist()} -> bucket "
+              f"{timing['prompt_bucket']}, {SERVE_TOKENS} tokens each: "
+              f"prefill_s={timing['prefill_s']:.4f} decode_s={timing['decode_s']:.4f} "
+              f"tok_s={SERVE_REQUESTS * SERVE_TOKENS / (timing['prefill_s'] + timing['decode_s']):.2f}")
+        print(f"[serve] dispatch_stats={stats}")
+        print(f"[serve] GEMM dispatch split: records={stats['gemm']['records']} "
+              f"heuristic={stats['gemm']['heuristic']} matmul={stats['gemm']['matmul']}; "
+              f"GEMM kernel launches={sum(LAUNCHES.values()) - sum(gemm_before.values())}; "
+              f"flash kernel launches={serve_flash}")
+        print(f"[serve] sample tokens: {tokens[0][:8].tolist()}")
+        if stats["flash"]["records"] != cfg.n_layers or stats["flash"]["heuristic"] != 0:
+            raise SystemExit(f"flash dispatch {stats['flash']}: expected {cfg.n_layers} "
+                             f"records per prefill call and no heuristic")
+        if serve_flash < cfg.n_layers:
+            raise SystemExit(f"the flash kernel launched {serve_flash} times in the serve")
+        if tokens.shape != (SERVE_REQUESTS, SERVE_TOKENS) or not (
+                (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+            raise SystemExit(f"served tokens of shape {tokens.shape} outside [0, vocab)")
+        flash_launches = sum(fa.LAUNCHES.values()) + sum(flash_cli.values())
+        print(f"[launches] flash path: {flash_launches} kernel launches "
+              f"({sum(flash_cli.values())} in the CLI process)")
+        # where the time goes: one more prefill and 3 decode steps, traced
+        dev_lens = torch.from_numpy(lens).to(dev)
+        with torch.inference_mode():
+            (logits, cache), _ = profile_split("prefill", lambda: model.prefill(
+                params, {"tokens": torch.from_numpy(prompts).to(dev)},
+                SERVE_BUCKET + SERVE_TOKENS, last_idx=dev_lens - 1))
+            cache.update(valid_len=dev_lens, prefill_len=SERVE_BUCKET)
+            tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+
+            def decode3():
+                for _ in range(3):
+                    model.decode_step(params, cache, tok)
+
+            profile_split("3 decode steps", decode3)
+        del engine, params, logits, cache
+        torch.cuda.empty_cache()
+        # every product the serve launched, under the config dispatch chose
+        for m, k_, n in served_gemms:
+            gcfg, src = ops.kernel_config(m, k_, n, torch.bfloat16)
+            a, b_ = rand((m, k_), torch.bfloat16), rand((k_, n), torch.bfloat16)
+            err = check_close(f"served gemm {(m, k_, n)} {gcfg}", gemm_tiled(a, b_, gcfg),
+                              torch.matmul(a.float(), b_.float()), torch.bfloat16)
+            print(f"[check] served gemm {(m, k_, n)} ({src}) {gcfg}: max abs err {err}")
+            del a, b_
+            torch.cuda.empty_cache()
+        phase("9 serve yi-6b", t0)
+
+        # -- 10. full-width flash vs plain, times, and the reduced model vs CPU --------
+        t0 = time.perf_counter()
+        b, h, kvh = SERVE_REQUESTS, cfg.n_heads, cfg.n_kv_heads
+        q = rand((b, sq, h, hd), torch.bfloat16)
+        k, v = rand((b, skv, kvh, hd), torch.bfloat16), rand((b, skv, kvh, hd), torch.bfloat16)
+        ref = fa.flash_attention_plain(q, k, v, *blocks)
+        err = check_close(f"full-width flash {blocks}", fa.flash_attention(q, k, v, *blocks),
+                          ref, torch.bfloat16, FLASH_TOL)
+        refuse_faults(f"q {tuple(q.shape)}", fault_libs, q, k, v, blocks, ref)
+        del ref
+        ms = timed_ms(lambda: fa.flash_attention(q, k, v, *blocks), 3, flush)
+        plain_ms = timed_ms(lambda: fa.flash_attention_plain(q, k, v, *blocks), 1, flush)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib_ms = timed_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 5, flush)
+        flops = 4 * b * h * hd * sq * (sq + 1) // 2  # the causal triangle's products
+        nbytes = 2 * b * sq * (2 * h + 2 * kvh) * hd  # q, k, v read and o written once
         bound_ms = 1e3 * max(flops / peak_ops, nbytes / peak_bytes)
         kernels.append({
-            "name": f"gemm[{label}]", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/gemm.cu",
-            "replaces": "src/repro/kernels/gemm.py:96",
-            "launches": launches.get((m, k, n), 0), "max_abs_err": err,
+            "name": f"flash_attention[{fwl.label}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:34",
+            "launches": flash_launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if flops / peak_ops >= nbytes / peak_bytes else "bytes",
             "library_ms": lib_ms,
         })
-        print(f"[time] {label} {(m, k, n)} {cfg}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
-              f"roofline={bound_ms / ms:.4f} tflops={flops / ms / 1e9:.2f}", flush=True)
-        del a, b
+        print(f"[time] flash q {tuple(q.shape)} k/v {tuple(k.shape)} blocks {blocks}: "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} roofline={bound_ms / ms:.4f} "
+              f"tflops={flops / ms / 1e9:.2f} max_abs_err={err}", flush=True)
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
-    phase("6 full-width check and times", t0)
+        set_global_records(TuningRecords())
+        check_reduced_model_against_cpu(Model, get_arch, np)
+        phase("10 full-width flash check, times, reduced model vs CPU", t0)
+    fault_dir.cleanup()
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def profile_split(label: str, fn):
+    """Run ``fn`` once under ``torch.profiler`` and print the device time
+    of its kernels by kind (the GEMM kernel, the flash kernel, the rest)
+    beside the span of CUDA events recorded around the same call, and
+    the host's wall time of the call (both taken inside the trace, so
+    neither includes the profiler's own start and teardown); the idle
+    share is the part of the event span in which no kernel ran.  Returns
+    ``(fn(), split)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    span_ms = start.elapsed_time(end)
+    split = {"gemm": 0.0, "flash": 0.0, "other": 0.0}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = ("gemm" if "gemm_tiled" in ev.name else
+                "flash" if "flash_fwd" in ev.name else "other")
+        split[kind] += ev.time_range.elapsed_us() / 1e3
+    busy = sum(split.values())
+    shares = " ".join(f"{k}_ms={v:.2f} ({v / busy:.1%} of busy)" for k, v in split.items())
+    print(f"[profile] {label}: wall_ms={wall_ms:.2f} event_span_ms={span_ms:.2f} "
+          f"device_busy_ms={busy:.2f} idle_share={1 - busy / span_ms:.4f} {shares}", flush=True)
+    return out, split
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def check_reduced_model_against_cpu(Model, get_arch, np) -> None:
+    """The reduced yi-6b (f32, 2 layers, hd 16) through the kernels on the
+    card against the same weights through the plain versions on the CPU
+    (which the CPU tests hold against the JAX package): prefill of a
+    right-padded 128-token bucket (flash under the heuristic blocks) and
+    two decode steps."""
+    cfg = get_arch("yi-6b").reduced()
+    card, cpu = Model(cfg, device="cuda"), Model(cfg, device="cpu")
+    params = cpu.init_params(seed=0)
+    params_card = _map(params, lambda t: t.to("cuda"))
+    lens = np.array([128, 97, 70, 128, 65, 100, 111, 80])
+    rng = np.random.default_rng(1)
+    toks = np.zeros((8, 128), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    out = {}
+    for label, model, p in (("card", card, params_card), ("cpu", cpu, params)):
+        d = model.device
+        logits, cache = model.prefill(p, {"tokens": torch.from_numpy(toks).to(d)}, 136,
+                                      last_idx=torch.from_numpy(lens - 1).to(d))
+        cache.update(valid_len=torch.from_numpy(lens).to(d), prefill_len=128)
+        steps = [logits]
+        tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+        for _ in range(2):
+            logits, cache = model.decode_step(p, cache, tok)
+            steps.append(logits)
+            tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+        out[label] = [s.cpu() for s in steps]
+    worst = 0.0
+    for i, (got, ref) in enumerate(zip(out["card"], out["cpu"])):
+        if not torch.isfinite(got).all() or not torch.allclose(got, ref, rtol=2e-4, atol=2e-4):
+            raise SystemExit(f"reduced yi-6b step {i}: card and CPU disagree "
+                             f"(max abs err {(got - ref).abs().max().item()})")
+        worst = max(worst, (got - ref).abs().max().item())
+    print(f"[check] reduced yi-6b on the card matches the CPU plain path "
+          f"(prefill + 2 decode steps, max abs err {worst})")
+
+
+def _map(tree, fn):
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 if __name__ == "__main__":

@@ -3,6 +3,7 @@
 Public surface:
   SearchSpace / State / Action            — the op-agnostic MDP protocol
   GemmConfigSpace / TilingState           — the GEMM instance
+  FlashAttnConfigSpace / FlashScheduleState — the flash-attention instance
   ops.* (OpSpec / get_op / OPS)           — the operator registry
   cost.*                                  — measured and analytical oracles
   analysis.* (ScheduleAnalyzer, HopperSpec) — compile-free legality verdicts
@@ -22,8 +23,15 @@ from .analysis import (
     should_prune,
 )
 from .config_space import Action, GemmConfigSpace, TilingState
-from .cost import AnalyticalHopperCost, CostBackend, CountingCost, HopperTimedCost
+from .cost import (
+    AnalyticalHopperCost,
+    CostBackend,
+    CountingCost,
+    FlashAnalyticalHopperCost,
+    HopperTimedCost,
+)
 from .executor import LaneExecutor, LaneResult, SimulatedExecutor
+from .flash_space import FlashAttnConfigSpace, FlashScheduleState
 from .fault import PERMANENT_KINDS, TRANSIENT_KINDS, RetryPolicy, classify_error
 from .measure import MeasureEngine, MeasureOutcome, MeasureStats
 from .ops import OPS, OpSpec, get_op, op_names, register_op
@@ -43,7 +51,9 @@ __all__ = [
     "ILLEGAL", "OK", "WASTEFUL", "AnalysisResult", "HopperSpec",
     "ScheduleAnalyzer", "analyzer_for_backend", "should_prune",
     "Action", "GemmConfigSpace", "TilingState",
-    "AnalyticalHopperCost", "CostBackend", "CountingCost", "HopperTimedCost",
+    "FlashAttnConfigSpace", "FlashScheduleState",
+    "AnalyticalHopperCost", "CostBackend", "CountingCost",
+    "FlashAnalyticalHopperCost", "HopperTimedCost",
     "LaneExecutor", "LaneResult", "SimulatedExecutor",
     "PERMANENT_KINDS", "TRANSIENT_KINDS", "RetryPolicy", "classify_error",
     "MeasureEngine", "MeasureOutcome", "MeasureStats",

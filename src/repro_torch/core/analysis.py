@@ -1,12 +1,13 @@
 """Static schedule analysis — compile-free legality verdicts over
-:class:`~repro_torch.core.space.SearchSpace` states, for the Hopper GEMM
-kernel (``repro_torch/kernels/csrc/gemm.cu``).
+:class:`~repro_torch.core.space.SearchSpace` states, for the Hopper
+kernels (``repro_torch/kernels/csrc/gemm.cu`` and ``flash_attention.cu``).
 
-One rule decides what the kernel can launch, and every layer shares it:
-the kernel wrapper's config check (``KernelConfig.validate``), the
-measured and analytical cost backends, the measurement engine's
-pre-filter, and record-aware dispatch's static-reject guard.  So the
-analyzer's ILLEGAL verdicts and the kernel's refusals cannot drift apart.
+One rule per kernel decides what it can launch, and every layer shares
+it: the kernel wrapper's check (``KernelConfig.validate``,
+``flash_attention``), the measured and analytical cost backends, the
+measurement engine's pre-filter, and record-aware dispatch's
+static-reject guard.  So the analyzer's ILLEGAL verdicts and the
+kernels' refusals cannot drift apart.
 
 Verdict lattice (``AnalysisResult.verdict``):
 
@@ -19,13 +20,18 @@ Verdict lattice (``AnalysisResult.verdict``):
     no instantiation for, a block below the kernel's minimum, a thread
     count that is not whole warps or exceeds the register-capped limit
     of its instantiation, operand slabs over the shared-memory budget,
-    or a CTA grid taller than CUDA's ``gridDim.y`` limit.
+    or a CTA grid taller than CUDA's ``gridDim.y`` limit;
+  * *flash launch* (:func:`flash_launch_error`): a dtype or head_dim the
+    kernel has no instantiation for, a block below 16 or not a multiple
+    of 16, threads over the instantiation's limit, Q/K/V/P tiles over
+    the shared-memory budget, or a grid taller than ``gridDim.y``.
 
 ``WASTEFUL`` — launchable but dominated (advisory unless noted):
 
-  * ``degenerate``: a 1x1 register tile — every shared-memory operand
-    load feeds a single FMA, the SIMT kernel's worst corner;
-  * ``under_fill``: fewer CTAs than the card has SMs.
+  * ``degenerate``: a 1x1 GEMM register tile — every shared-memory
+    operand load feeds a single FMA, the SIMT kernel's worst corner;
+  * ``under_fill``: fewer CTAs than the card has SMs (for flash, over
+    the space's ``heads`` query heads).
 
 ``OK`` — no static objection.
 
@@ -50,6 +56,11 @@ __all__ = [
     "gemm_smem_bytes",
     "gemm_launch_error",
     "max_threads_for_reg_tile",
+    "FLASH_HEAD_DIMS",
+    "flash_threads_per_row",
+    "flash_max_threads",
+    "flash_smem_bytes",
+    "flash_launch_error",
     "dtype_in_bytes",
 ]
 
@@ -161,14 +172,14 @@ def gemm_launch_error(
     return None
 
 
-def _gemm_state_launch_error(s, in_bytes: int, spec: HopperSpec):
+def _gemm_state_launch_error(space, s, in_bytes: int, spec: HopperSpec):
     return gemm_launch_error(
         s.block_m, s.block_k, s.block_n, s.sub_m, s.sub_n, s.reg_m, s.reg_n,
         in_bytes, spec, grid_m=s.grid[0],
     )
 
 
-def _gemm_waste(s, spec: HopperSpec) -> Optional[tuple[str, str]]:
+def _gemm_waste(space, s, spec: HopperSpec) -> Optional[tuple[str, str]]:
     if s.reg_m == 1 and s.reg_n == 1:
         return ("degenerate",
                 "1x1 register tile: one FMA per shared-memory operand load")
@@ -178,9 +189,96 @@ def _gemm_waste(s, spec: HopperSpec) -> Optional[tuple[str, str]]:
     return None
 
 
+# -- the flash-attention kernel (kernels/csrc/flash_attention.cu) --------------
+
+#: head_dim values the kernel is instantiated for
+FLASH_HEAD_DIMS = (16, 32, 64, 128)
+#: the kernel's smallest block along q and kv; blocks are multiples of it
+#: (whole warps, float4 rows of the P tile, whole keys per thread)
+FLASH_MIN_BLOCK = 16
+_FLASH_PAD = 4  # floats of padding per shared-memory row
+
+
+def flash_threads_per_row(head_dim: int) -> int:
+    """Threads that share one query row (``threads_per_row`` in the
+    kernel)."""
+    return 8 if head_dim >= 32 else 4
+
+
+def flash_max_threads(head_dim: int) -> int:
+    """Thread limit of the kernel instantiation for one head_dim — its
+    ``__launch_bounds__``."""
+    return 512 if head_dim >= 128 else 1024
+
+
+def flash_smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
+    """Shared memory of one CTA: the Q tile and the K and V tiles, staged
+    as f32 whatever the input type, with padded rows, plus the f32 P tile
+    of staged logits.  The accumulator, running max and sum live in
+    registers."""
+    ld = head_dim + _FLASH_PAD
+    return 4 * (block_q * ld + 2 * block_kv * ld + block_q * (block_kv + _FLASH_PAD))
+
+
+def flash_launch_error(
+    block_q: int, block_kv: int, head_dim: int,
+    in_bytes: int = 2, spec: Optional[HopperSpec] = None, grid_y: int = 1,
+) -> Optional[tuple[str, str]]:
+    """``(reason, detail)`` when the flash kernel cannot launch these
+    blocks, else None.  ``grid_y`` is batch x query heads.  THE legality
+    rule of the kernel."""
+    spec = spec or HopperSpec()
+    if in_bytes not in (2, 4):
+        return ("dtype", f"{in_bytes}-byte inputs: the kernel takes bfloat16 or float32")
+    if head_dim not in FLASH_HEAD_DIMS:
+        return ("head_dim",
+                f"head_dim {head_dim}: the kernel is instantiated for "
+                f"{list(FLASH_HEAD_DIMS)}")
+    if min(block_q, block_kv) < FLASH_MIN_BLOCK:
+        return ("block_below_minimum",
+                f"blocks ({block_q}, {block_kv}) are below the kernel's "
+                f"minimum {FLASH_MIN_BLOCK}")
+    if block_q % FLASH_MIN_BLOCK or block_kv % FLASH_MIN_BLOCK:
+        return ("block_alignment",
+                f"blocks ({block_q}, {block_kv}) are not multiples of "
+                f"{FLASH_MIN_BLOCK}")
+    threads = block_q * flash_threads_per_row(head_dim)
+    if threads % spec.warp_size:
+        return ("partial_warp",
+                f"{threads} threads per CTA is not a whole number of warps")
+    cap = flash_max_threads(head_dim)
+    if threads > cap:
+        return ("threads_over_limit",
+                f"{threads} threads per CTA exceeds {cap}, the register-capped "
+                f"limit for head_dim {head_dim}")
+    smem = flash_smem_bytes(block_q, block_kv, head_dim)
+    if smem > spec.smem_per_block:
+        return ("smem_overflow",
+                f"Q/K/V/P tiles take {smem} B of shared memory, over the "
+                f"{spec.smem_per_block} B budget")
+    if grid_y > spec.max_grid_y:
+        return ("grid_too_large",
+                f"{grid_y} batch x head rows exceed gridDim.y <= {spec.max_grid_y}")
+    return None
+
+
+def _flash_state_launch_error(space, s, in_bytes: int, spec: HopperSpec):
+    return flash_launch_error(
+        s.block_q, s.block_kv, space.head_dim, in_bytes, spec, grid_y=space.heads,
+    )
+
+
+def _flash_waste(space, s, spec: HopperSpec) -> Optional[tuple[str, str]]:
+    ctas = s.n_q_blocks * space.heads
+    if ctas < spec.num_sms:
+        return ("under_fill", f"{ctas} CTAs for {spec.num_sms} SMs")
+    return None
+
+
 #: op -> (launch rule, waste rule); ops without one get structural checks only
 _RULES: dict[str, tuple[Callable, Callable]] = {
     "gemm": (_gemm_state_launch_error, _gemm_waste),
+    "flash": (_flash_state_launch_error, _flash_waste),
 }
 
 
@@ -243,10 +341,10 @@ class ScheduleAnalyzer:
         if self._rules is None:
             return _OK_RESULT
         launch, waste = self._rules
-        err = launch(s, self.in_bytes, self.spec)
+        err = launch(self.space, s, self.in_bytes, self.spec)
         if err is not None:
             return AnalysisResult(ILLEGAL, err[0], err[1])
-        w = waste(s, self.spec)
+        w = waste(self.space, s, self.spec)
         if w is not None:
             return AnalysisResult(WASTEFUL, w[0], w[1])
         return _OK_RESULT

@@ -1,12 +1,13 @@
 """Measured cost on the card — the main path's oracle.
 
 :class:`HopperTimedCost` times the op's hand-written kernel (the
-registry's ``kernel_run`` binding; ``kernels/csrc/gemm.cu`` for GEMM)
-under each schedule state, as the paper times candidates on real
-hardware:
+registry's ``kernel_run`` binding; ``kernels/csrc/gemm.cu`` for GEMM,
+``kernels/csrc/flash_attention.cu`` for flash) under each schedule
+state, as the paper times candidates on real hardware:
 
-* operands live on the card, made once per backend from a seeded
-  generator;
+* operands live on the card, made when the backend is built from a
+  seeded generator (for flash, one sequence of the space's head
+  layout); their shapes are part of ``measure_fingerprint``;
 * one untimed warm-up launch, then ``n_repeats`` launches, each timed
   with CUDA events, with the 50 MB L2 flushed before each so every
   launch starts from device memory; the cost is their mean in seconds;
@@ -23,7 +24,6 @@ gate is needed between lanes.
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 
@@ -64,14 +64,10 @@ class HopperTimedCost(CostBackend):
         self.spec = HopperSpec.for_device(self.device)
         self.analyzer = ScheduleAnalyzer(space, self.spec, self.in_bytes)
         self._opspec = get_op(self.op)
-        self._operands: Optional[tuple] = None
+        self._operands = self._opspec.operands(space, dtype, seed, self.device)
         self._flush = torch.empty(_L2_FLUSH_BYTES, dtype=torch.uint8, device=self.device)
 
     def _run(self, s: State) -> None:
-        if self._operands is None:
-            self._operands = self._opspec.operands(
-                self.space, self.dtype, self.seed, self.device
-            )
         self._opspec.kernel_run(self.space, s, self._operands)
 
     def cost(self, s: State) -> float:
@@ -95,10 +91,12 @@ class HopperTimedCost(CostBackend):
 
     def measure_fingerprint(self) -> str:
         # the card and the software stack change every measured value;
-        # seed fixes the operand contents
+        # seed fixes the operand contents, the shapes what is timed
+        shapes = ",".join("x".join(map(str, t.shape)) for t in self._operands)
         return (
             f"r{self.n_repeats}|{self.dtype}|seed{self.seed}"
             f"|{torch.cuda.get_device_name(self.device)}"
             f"|torch{torch.__version__}|cuda{torch.version.cuda}"
+            f"|operands={shapes}"
             + self.space_fingerprint()
         )

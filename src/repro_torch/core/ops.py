@@ -13,7 +13,8 @@ An :class:`OpSpec` names:
 * ``default_state``   — ``(space, dtype)`` -> the state of the kernel's
   heuristic config, or None — where a warm start with no donor begins
 
-Built-in ops: ``gemm``, the paper's tiled matrix multiply.
+Built-in ops: ``gemm``, the paper's tiled matrix multiply, and ``flash``,
+blocked causal attention.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from .config_space import GemmConfigSpace, TilingState
 from .analysis import dtype_in_bytes
+from .config_space import GemmConfigSpace, TilingState
+from .flash_space import FlashAttnConfigSpace, FlashScheduleState
 from .space import SearchSpace, State
 
 __all__ = ["OpSpec", "OPS", "register_op", "get_op", "op_names"]
@@ -111,5 +113,69 @@ register_op(
         operands=_gemm_operands,
         kernel_run=_gemm_kernel_run,
         default_state=_gemm_default_state,
+    )
+)
+
+
+# ---------------------------------------------------------------------------
+# flash — blocked causal attention
+# ---------------------------------------------------------------------------
+
+
+def _flash_space(dims: Sequence[int], depths: Sequence[int] = (), **kw) -> FlashAttnConfigSpace:
+    seq_q, seq_kv, head_dim = dims
+    d_q, d_kv = depths or (2, 2)
+    return FlashAttnConfigSpace(seq_q, seq_kv, head_dim, d_q, d_kv, **kw)
+
+
+def _flash_analytical(space, **kw):
+    from .cost.flash_analytical import FlashAnalyticalHopperCost
+
+    return FlashAnalyticalHopperCost(space, **kw)
+
+
+def _flash_operands(space: FlashAttnConfigSpace, dtype: str, seed: int, device) -> tuple:
+    """One sequence of the space's ``heads`` query heads on ``kv_heads``
+    kv heads — the arch's layout, where the JAX package times a single
+    ``(seq, hd)`` head, whose 64 CTAs at bq = 64 would leave half of 132
+    SMs idle and reward small blocks for filling the card rather than
+    for the served shape."""
+    heads, kv_heads = space.heads, space.kv_heads
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for seq, h in ((space.seq_q, heads), (space.seq_kv, kv_heads), (space.seq_kv, kv_heads)):
+        x = torch.randn((1, seq, h, space.head_dim), generator=gen, device=device,
+                        dtype=torch.float32)
+        out.append(x.to(getattr(torch, dtype)))
+    return tuple(out)
+
+
+def _flash_kernel_run(space: FlashAttnConfigSpace, s: FlashScheduleState,
+                      operands) -> torch.Tensor:
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = operands
+    return flash_attention(q, k, v, s.block_q, s.block_kv, causal=space.causal)
+
+
+def _flash_default_state(space: FlashAttnConfigSpace, dtype: str) -> Optional[FlashScheduleState]:
+    from repro_torch.kernels.flash_attention import default_blocks, state_from_blocks
+
+    if (space.d_q, space.d_kv) != (2, 2):
+        return None
+    blocks = default_blocks(space.seq_q, space.seq_kv, space.head_dim, dtype_in_bytes(dtype))
+    return None if blocks is None else state_from_blocks(*blocks, space.seq_q, space.seq_kv)
+
+
+register_op(
+    OpSpec(
+        name="flash",
+        state_type=FlashScheduleState,
+        default_depths=(2, 2),
+        make_space=_flash_space,
+        analytical_cost=_flash_analytical,
+        operands=_flash_operands,
+        kernel_run=_flash_kernel_run,
+        default_state=_flash_default_state,
     )
 )

@@ -48,16 +48,20 @@ __all__ = ["Workload", "TuningSession", "ArchTuneReport"]
 @dataclasses.dataclass(frozen=True)
 class Workload:
     """One tunable operator instance: op name + dimension sizes (plus
-    nesting depths, defaulted from the op registry)."""
+    nesting depths, defaulted from the op registry, and extra
+    ``make_space`` kwargs such as flash's head layout, which shape what
+    is measured but not the workload key)."""
 
     op: str
     dims: tuple[int, ...]
     dtype: str = "bfloat16"
     depths: tuple[int, ...] = ()
     label: str = ""
+    space_kwargs: tuple[tuple[str, object], ...] = ()
 
     def __post_init__(self):
         object.__setattr__(self, "dims", tuple(int(d) for d in self.dims))
+        object.__setattr__(self, "space_kwargs", tuple(sorted(dict(self.space_kwargs).items())))
         if self.depths:
             object.__setattr__(
                 self, "depths", tuple(int(d) for d in self.depths)
@@ -70,7 +74,7 @@ class Workload:
     def space(self) -> SearchSpace:
         from .ops import get_op
 
-        return get_op(self.op).make_space(self.dims, self.depths)
+        return get_op(self.op).make_space(self.dims, self.depths, **dict(self.space_kwargs))
 
     def key(self, backend: str) -> str:
         return workload_key_for(self.op, self.dims, self.dtype, backend)
@@ -283,7 +287,7 @@ class TuningSession:
         arch — a hard ceiling: each remaining workload is allocated an
         equal share of whatever is left, capped at the remainder
         (``max_fraction`` stays per-workload).  Workloads with identical
-        ``(op, dims, dtype, depths)`` are tuned once and share the
+        ``(op, dims, dtype, depths, space_kwargs)`` are tuned once and share the
         result; all engines share the session journal and one
         :class:`MeasureStats`."""
         if workloads is None:
@@ -297,7 +301,7 @@ class TuningSession:
         unique: dict[tuple, Workload] = {}
         labels: dict[tuple, list[str]] = {}
         for i, wl in enumerate(workloads):
-            shape_key = (wl.op, wl.dims, wl.dtype, wl.depths)
+            shape_key = (wl.op, wl.dims, wl.dtype, wl.depths, wl.space_kwargs)
             unique.setdefault(shape_key, wl)
             labels.setdefault(shape_key, []).append(wl.label or f"wl{i}")
         results: dict[str, TuneResult] = {}

@@ -20,11 +20,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
+import functools
 import threading
 from typing import Optional
 
@@ -32,6 +28,8 @@ import torch
 
 from repro_torch.core.analysis import HopperSpec, gemm_launch_error
 from repro_torch.core.config_space import TilingState
+
+from .build import build_library
 
 __all__ = [
     "KernelConfig",
@@ -45,8 +43,6 @@ __all__ = [
     "reset_launches",
 ]
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "gemm.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches per ``(M, K, N)``: the wrapper adds one where it
@@ -116,6 +112,7 @@ def state_from_config(cfg: KernelConfig, m: int, k: int, n: int) -> TilingState:
     )
 
 
+@functools.lru_cache(maxsize=None)
 def default_config(m: int, k: int, n: int, in_bytes: int = 2) -> Optional[KernelConfig]:
     """Heuristic config when no tuning record exists, or None when the
     kernel takes no config for these dims (then dispatch uses
@@ -123,7 +120,9 @@ def default_config(m: int, k: int, n: int, in_bytes: int = 2) -> Optional[Kernel
     256 threads, each holding an 8x8 register tile, in 32x64 warp tiles
     of 4x8 threads, with a 32-deep K slab — shrinking where the dims do
     not divide.  (The JAX package's TPU default picks blocks up to
-    256x512x256, whose slabs need far more than a CTA's 227 KB.)"""
+    256x512x256, whose slabs need far more than a CTA's 227 KB.)
+    Memoized: at M = 8 the search refuses over 200 candidates before it
+    finds one, and decode asks once per product per step."""
     for bm in (128, 64, 32, 16, 8):
         for bn in (128, 64, 32, 16, 8):
             for bk in (32, 16, 8):
@@ -161,18 +160,6 @@ _LIB = None
 _LIB_LOCK = threading.Lock()
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    for cand in (
-        os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None,
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the GEMM kernel needs the CUDA toolkit")
-
-
 def build_kernel() -> tuple[ctypes.CDLL, str]:
     """Compile ``csrc/gemm.cu`` for ``sm_90a`` (once per source hash) and
     load it.  Returns the library and ptxas' resource report.  A failed
@@ -181,30 +168,7 @@ def build_kernel() -> tuple[ctypes.CDLL, str]:
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
-        with open(_CSRC, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        so = os.path.join(_BUILD_DIR, f"libgemm_{digest}.so")
-        log = so + ".ptxas.txt"
-        if not os.path.exists(so):
-            fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so")
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                     "-Xptxas", "-v", "-o", tmp, _CSRC],
-                    capture_output=True, text=True,
-                )
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed on {_CSRC}:\n{proc.stderr}")
-                with open(log, "w") as f:
-                    f.write(proc.stderr)
-                os.replace(tmp, so)  # atomic publish
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        lib = ctypes.CDLL(so)
+        lib, log = build_library("gemm.cu")
         lib.repro_gemm.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
             + [ctypes.c_void_p]
@@ -212,8 +176,7 @@ def build_kernel() -> tuple[ctypes.CDLL, str]:
         lib.repro_gemm.restype = ctypes.c_int
         lib.repro_gemm_max_threads.argtypes = [ctypes.c_int] * 3
         lib.repro_gemm_max_threads.restype = ctypes.c_int
-        with open(log) as f:
-            _LIB = (lib, f.read())
+        _LIB = (lib, log)
         return _LIB
 
 

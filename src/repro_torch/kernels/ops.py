@@ -1,5 +1,5 @@
 """Record-aware kernel dispatch — the bridge from tuning records to the
-GEMMs a model runs.
+GEMMs and the attention a model runs.
 
 ``gemm(a, b)`` picks a kernel config for its shape:
 
@@ -10,6 +10,11 @@ GEMMs a model runs.
   3. ``torch.matmul`` when no kernel config divides the shape (or the
      dtype is one the kernel does not take) — a shape rule, counted as
      ``"matmul"``, never a fallback after a failure.
+
+``models/common.attention_dispatch`` asks :func:`flash_schedule` for the
+tuned ``(block_q, block_kv)`` of a long self-attention, in the same
+order: tuned record, then the kernel's heuristic blocks, then plain
+attention when no block the kernel launches divides the sequence.
 
 The lookup is memoized per ``(op, dims, dtype, backend)`` and dropped by
 :func:`set_kernel_policy` and by any records change (a records change
@@ -31,15 +36,19 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.analysis import dtype_in_bytes, flash_launch_error
 from repro_torch.core.records import add_change_listener, global_records, workload_key_for
 from .gemm import KernelConfig, default_config, gemm_tiled, kernel_config_from_state
 
 __all__ = [
     "gemm",
+    "kernel_config",
     "KernelPolicy",
     "set_kernel_policy",
     "kernel_policy",
     "lookup_tuned_state",
+    "flash_schedule",
+    "note_dispatch",
     "invalidate_dispatch_cache",
     "dispatch_stats",
     "reset_dispatch_stats",
@@ -52,7 +61,7 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 class KernelPolicy:
     cost_backend: str = "hopper_timed"  # records namespace to consult
     #: ops that consult TuningRecords; others always use their heuristic
-    record_ops: tuple[str, ...] = ("gemm",)
+    record_ops: tuple[str, ...] = ("gemm", "flash")
 
 
 _POLICY = KernelPolicy()
@@ -75,7 +84,7 @@ _CACHE_LOCK = threading.Lock()
 _DISPATCH_CACHE: dict[tuple, object] = {}
 _DISPATCH_STATS: dict[str, dict[str, int]] = {}
 _STAT_FIELDS = (
-    "records", "heuristic", "explicit", "matmul", "memo_hits",
+    "records", "heuristic", "explicit", "matmul", "plain", "memo_hits",
     "store_lookups", "static_reject",
 )
 
@@ -89,7 +98,11 @@ def invalidate_dispatch_cache() -> None:
 add_change_listener(invalidate_dispatch_cache)
 
 
-def _note(op: str, source: str) -> None:
+def note_dispatch(op: str, source: str) -> None:
+    """Count one dispatch decision for ``op``: ``source`` is
+    ``records``, ``heuristic`` or ``explicit`` (a kernel config), or
+    ``matmul``/``plain`` (no kernel takes the shape), plus the lookup
+    counters ``memo_hits``, ``store_lookups`` and ``static_reject``."""
     with _CACHE_LOCK:
         per_op = _DISPATCH_STATS.setdefault(op, dict.fromkeys(_STAT_FIELDS, 0))
         per_op[source] += 1
@@ -133,35 +146,58 @@ def lookup_tuned_state(op: str, dims: tuple, dtype: str):
     with _CACHE_LOCK:
         hit = _DISPATCH_CACHE.get(key, _MISS)
     if hit is not _MISS:
-        _note(op, "memo_hits")
+        note_dispatch(op, "memo_hits")
         return hit
-    _note(op, "store_lookups")
+    note_dispatch(op, "store_lookups")
     st = global_records().lookup_state(
         workload_key_for(op, tuple(dims), dtype, _POLICY.cost_backend)
     )
     if st is not None and _static_reject_record(op, dims, dtype, st):
-        _note(op, "static_reject")
+        note_dispatch(op, "static_reject")
         st = None  # memoized as a miss: refused once per (shape, records)
     with _CACHE_LOCK:
         _DISPATCH_CACHE[key] = st
     return st
 
 
-def _dtype_name(dtype: torch.dtype) -> str:
+def flash_schedule(seq_q: int, seq_kv: int, head_dim: int, dtype: str,
+                   grid_y: int = 1) -> Optional[tuple[int, int]]:
+    """Tuned ``(block_q, block_kv)`` for one flash-attention workload, or
+    None when no record fits.  A record the kernel cannot launch is
+    refused by the static guard, and again (counted as ``static_reject``)
+    when it cannot launch at the served grid of ``grid_y`` = batch x
+    query heads; blocks must tile the sequences exactly."""
+    st = lookup_tuned_state("flash", (seq_q, seq_kv, head_dim), dtype)
+    if st is None:
+        return None
+    try:
+        bq, bkv = st.block_q, st.block_kv
+    except AttributeError:  # a foreign record under a flash key
+        return None
+    if bq < 1 or bkv < 1 or seq_q % bq or seq_kv % bkv:
+        return None
+    if flash_launch_error(bq, bkv, head_dim, dtype_in_bytes(dtype), grid_y=grid_y):
+        note_dispatch("flash", "static_reject")
+        return None
+    return bq, bkv
+
+
+def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def _kernel_config(m: int, k: int, n: int, dtype: torch.dtype,
-                   config: Optional[KernelConfig]) -> tuple[Optional[KernelConfig], str]:
-    """``(config, source)`` for one product: explicit, tuned record,
-    heuristic, or ``(None, "matmul")`` when the kernel takes none."""
+def kernel_config(m: int, k: int, n: int, dtype: torch.dtype,
+                  config: Optional[KernelConfig] = None) -> tuple[Optional[KernelConfig], str]:
+    """``(config, source)`` that :func:`gemm` dispatches one product
+    under: explicit, tuned record, heuristic, or ``(None, "matmul")``
+    when the kernel takes none.  Counts only the record lookup."""
     if dtype not in _KERNEL_DTYPES:
         return None, "matmul"
     in_bytes = torch.empty((), dtype=dtype).element_size()
     if config is not None:
         cfg, src = config, "explicit"
     else:
-        st = lookup_tuned_state("gemm", (m, k, n), _dtype_name(dtype))
+        st = lookup_tuned_state("gemm", (m, k, n), dtype_name(dtype))
         if st is not None:
             cfg, src = kernel_config_from_state(st), "records"
         else:
@@ -179,8 +215,8 @@ def _dispatch(a: torch.Tensor, b: torch.Tensor,
               config: Optional[KernelConfig] = None) -> torch.Tensor:
     """One 2-D product through the policy (no autograd)."""
     (m, k), n = a.shape, b.shape[1]
-    cfg, src = _kernel_config(m, k, n, a.dtype, config)
-    _note("gemm", src)
+    cfg, src = kernel_config(m, k, n, a.dtype, config)
+    note_dispatch("gemm", src)
     if cfg is None:
         return torch.matmul(a, b)
     return gemm_tiled(a.contiguous(), b.contiguous(), cfg)

@@ -1,14 +1,18 @@
-"""Offline GEMM autotuning on the card — the paper's technique as a
+"""Offline kernel autotuning on the card — the paper's technique as a
 command.
 
-Extracts every distinct GEMM workload the arch executes at the given
-shape (qkv / attn-out / ffn / lm-head, see ``ArchConfig.gemm_workloads``),
-tunes them through one shared measurement engine and trial budget
-(``TuningSession.tune_arch``), and writes the best configs to a
+``--op gemm`` (the default) extracts every distinct GEMM workload the
+arch executes at the given shape (qkv / attn-out / ffn / lm-head, see
+``ArchConfig.gemm_workloads``); ``--op flash`` tunes the arch's causal
+self-attention ``(seq, seq, head_dim)``.  Workloads are tuned through
+one shared measurement engine and trial budget
+(``TuningSession.tune_arch``), and the best schedules are written to a
 TuningRecords JSON that ``kernels/ops.py`` serves at dispatch time::
 
   python -m repro_torch.launch.tune --arch yi-6b --shape train_4k \\
       --tuner g-bfs --max-trials 40 --records records/yi-6b.json --warm-start
+  python -m repro_torch.launch.tune --op flash --arch yi-6b \\
+      --max-trials 20 --records records/yi-6b.json --warm-start
 
 ``--cost hopper`` (the default) times each candidate's kernel on the
 card with CUDA events; ``--cost analytical`` uses the deterministic H100
@@ -26,21 +30,22 @@ import argparse
 import collections
 import contextlib
 import json
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.registry import get_arch, get_shape
 from repro_torch.core import (
-    AnalyticalHopperCost,
     Budget,
     HopperTimedCost,
     TrialJournal,
     TuningRecords,
     TuningSession,
     Workload,
+    get_op,
 )
 from repro_torch.core.tuners import TUNERS
-from repro_torch.kernels.gemm import LAUNCHES
+from repro_torch.kernels import flash_attention, gemm
 
 
 def _pad_dim(x: int) -> int:
@@ -77,10 +82,38 @@ def workloads_for_arch(arch_name: str, shape_name: str,
     return out
 
 
+def flash_workloads_for_arch(arch_name: Optional[str], shape_name: str,
+                             max_seq: int = 8192) -> list[Workload]:
+    """Flash-attention workload list: the arch's causal self-attention
+    shape ``(seq, seq, head_dim)`` at the given shape, timed on one
+    sequence of the arch's query and kv heads, or a default 4k/128 shape
+    on one head when no arch is named."""
+    shape = get_shape(shape_name)
+    seq = _pad_dim(min(shape.seq_len, max_seq))
+    if arch_name is None:
+        head_dim, dtype, label, heads = 128, "bfloat16", f"flash/s{seq}", {}
+    else:
+        cfg = get_arch(arch_name)
+        head_dim = cfg.resolved_head_dim
+        dtype = cfg.compute_dtype
+        label = f"{arch_name}/flash_s{seq}"
+        heads = {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads or cfg.n_heads}
+    return [Workload("flash", (seq, seq, head_dim), dtype=dtype, label=label,
+                     space_kwargs=heads)]
+
+
+def _launch_counts(counter: collections.Counter, before: collections.Counter) -> dict:
+    return {"x".join(map(str, dims)): n - before[dims]
+            for dims, n in sorted(counter.items()) if n > before[dims]}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True,
-                    help="architecture whose GEMMs to tune")
+    ap.add_argument("--op", default="gemm", choices=["gemm", "flash"],
+                    help="which kernel's schedules to tune")
+    ap.add_argument("--arch", default=None,
+                    help="architecture whose workloads to tune "
+                         "(required for --op gemm)")
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--tuner", default="g-bfs", choices=sorted(TUNERS))
     ap.add_argument("--fraction", type=float, default=0.001)
@@ -111,7 +144,12 @@ def main(argv=None) -> None:
     if args.cost == "hopper" and device.type != "cuda":
         ap.error("--cost hopper times the kernel on the card: it needs --device cuda")
 
-    workloads = workloads_for_arch(args.arch, args.shape)
+    if args.op == "gemm":
+        if args.arch is None:
+            ap.error("--op gemm needs --arch (whose GEMMs to tune)")
+        workloads = workloads_for_arch(args.arch, args.shape)
+    else:
+        workloads = flash_workloads_for_arch(args.arch, args.shape)
     journal_path = args.journal
     if journal_path is None:
         journal_path = args.records + ".journal.jsonl"
@@ -122,14 +160,15 @@ def main(argv=None) -> None:
             return HopperTimedCost(space, n_repeats=3, seed=args.seed, device=device)
     else:
         def cost_factory(space):
-            return AnalyticalHopperCost(space, n_repeats=1)
+            return get_op(space.op).analytical_cost(space, n_repeats=1)
 
     records = TuningRecords(args.records)
     session = TuningSession(
         records, cost_factory=cost_factory, seed=args.seed, journal=journal
     )
     budget = Budget(max_fraction=args.fraction, max_trials=args.max_trials)
-    launches0 = collections.Counter(LAUNCHES)
+    gemm0 = collections.Counter(gemm.LAUNCHES)
+    flash0 = collections.Counter(flash_attention.LAUNCHES)
     with journal if journal is not None else contextlib.nullcontext():
         report = session.tune_arch(
             workloads=workloads,
@@ -145,9 +184,9 @@ def main(argv=None) -> None:
         f"trials_avoided={report.stats.trials_avoided} "
         f"lane_failures={report.stats.n_failures})"
     )
-    launches = {"x".join(map(str, dims)): n - launches0[dims]
-                for dims, n in sorted(LAUNCHES.items()) if n > launches0[dims]}
-    print(f"[tune] kernel_launches={json.dumps(launches)}")
+    print(f"[tune] kernel_launches={json.dumps(_launch_counts(gemm.LAUNCHES, gemm0))}")
+    print(f"[tune] flash_launches="
+          f"{json.dumps(_launch_counts(flash_attention.LAUNCHES, flash0))}")
 
 
 if __name__ == "__main__":

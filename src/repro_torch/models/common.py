@@ -1,0 +1,184 @@
+"""Shared model building blocks, on tensors with an explicit device.
+
+Params are nested dicts of tensors, laid out as the JAX package's
+(``(d_in, d_out)`` weights).  Every dense projection goes through
+``repro_torch.kernels.ops.gemm`` (the hand-written GEMM kernel under the
+tuned or heuristic config), and long causal self-attention through
+:func:`attention_dispatch` (the hand-written flash kernel under the tuned
+or heuristic blocks).  Norms and softmax run in f32; matmul inputs stay
+in the configured compute dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ops import gemm
+
+__all__ = [
+    "dense",
+    "rmsnorm",
+    "layernorm",
+    "norm_apply",
+    "rope_freqs",
+    "apply_rope",
+    "attention_dispatch",
+    "causal_attention",
+    "decode_attention",
+    "mlp_act",
+]
+
+
+def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
+    y = gemm(x, p["w"], device=x.device.type)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    # statistics in f32, cast back to the compute dtype before the scale
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = (xf * torch.rsqrt(var + eps)).to(x.dtype)
+    return y * p["scale"].to(x.dtype)
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    y = y * p["scale"].to(x.dtype)
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
+
+
+def norm_apply(p: dict, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
+    return layernorm(p, x, eps) if kind == "layernorm" else rmsnorm(p, x, eps)
+
+
+# -- positions ----------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    angles = positions[..., :, None, None].float() * freqs  # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- attention ----------------------------------------------------------------
+
+
+def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0:
+        return logits
+    return cap * torch.tanh(logits / cap)
+
+
+def _group_q(q: torch.Tensor, kv: int) -> torch.Tensor:
+    """(B,S,H,hd) -> (B,S,KV,G,hd): GQA queries grouped by KV head, so
+    attention contracts against the original K/V without repeating them."""
+    b, s, h, hd = q.shape
+    return q.reshape(b, s, kv, h // kv, hd)
+
+
+def attention_dispatch(q, k, v, softcap: float = 0.0,
+                       chunk_threshold: int = 2048) -> torch.Tensor:
+    """Causal self-attention.  Sequences longer than ``chunk_threshold``
+    (with no softcap) run the flash kernel: under the **tuned**
+    ``(block_q, block_kv)`` when ``launch/tune.py --op flash`` recorded
+    one for this ``(seq_q, seq_kv, head_dim, dtype)`` workload (see
+    ``kernels/ops.flash_schedule``), else under the kernel's heuristic
+    blocks.  Where no block the kernel launches divides the sequence —
+    a shape rule, counted as ``plain`` — and for short sequences, plain
+    :func:`causal_attention`."""
+    from repro_torch.kernels.flash_attention import default_blocks, flash_attention
+    from repro_torch.kernels.ops import dtype_name, flash_schedule, note_dispatch
+
+    b, s, h, hd = q.shape
+    sk = k.shape[1]
+    if softcap == 0.0 and s > chunk_threshold:
+        blocks = flash_schedule(s, sk, hd, dtype_name(q.dtype), grid_y=b * h)
+        source = "records"
+        if blocks is None:
+            blocks = default_blocks(s, sk, hd, q.element_size(), grid_y=b * h)
+            source = "heuristic"
+        if blocks is not None:
+            note_dispatch("flash", source)
+            return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), *blocks)
+        note_dispatch("flash", "plain")
+    return causal_attention(q, k, v, softcap=softcap)
+
+
+def causal_attention(q, k, v, softcap: float = 0.0) -> torch.Tensor:
+    """Attention without a repeated K/V.  q: (B,S,H,hd), k/v: (B,Sk,KV,hd).
+    The causal mask is offset by ``Sk - Sq``, as the JAX package's is."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qg = _group_q(q, kv)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
+    logits = _softcap(logits * (1.0 / math.sqrt(hd)), softcap)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(sk - sq)
+    logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(b, sq, h, hd)
+
+
+def decode_attention(q, k_cache, v_cache, length, softcap: float = 0.0,
+                     valid_len: Optional[torch.Tensor] = None,
+                     prefix_len: Optional[int] = None) -> torch.Tensor:
+    """Single-position attention over a cache (no K/V repeat).
+
+    q: (B,1,H,hd); k/v_cache: (B,S_max,KV,hd); ``length``: valid prefix.
+    With bucket-padded prefill (prompts right-padded to ``prefix_len``),
+    cache positions in ``[valid_len[b], prefix_len)`` hold pad-token K/V
+    and are masked out per sequence; positions at or beyond
+    ``prefix_len`` are decode appends, governed by ``length`` alone."""
+    b, sq, h, hd = q.shape
+    kv = k_cache.shape[2]
+    qg = _group_q(q, kv)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache).float()
+    logits = _softcap(logits * (1.0 / math.sqrt(hd)), softcap)
+    pos = torch.arange(k_cache.shape[1], device=q.device)
+    mask = (pos < length)[None, None, None, None, :]
+    if valid_len is not None:
+        real = (pos[None, :] < valid_len[:, None]) | (pos[None, :] >= prefix_len)
+        mask = mask & real[:, None, None, None, :]
+    logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_cache)
+    return out.reshape(b, sq, h, hd)
+
+
+# -- MLP activations -------------------------------------------------------------
+
+
+def mlp_act(kind: str, x: torch.Tensor, gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if kind in ("swiglu", "geglu"):
+        if gate is None:
+            raise ValueError(f"{kind} needs a gate")
+        act = F.silu(gate) if kind == "swiglu" else F.gelu(gate, approximate="tanh")
+        return act * x
+    if kind == "squared_relu":
+        r = F.relu(x)
+        return r * r
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {kind}")

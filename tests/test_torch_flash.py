@@ -1,0 +1,383 @@
+"""The port's flash attention (plain version on the CPU, CUDA kernel on the
+card), its search space, launch rule, analytical model and tuning, held
+against the JAX package: the same numpy-seeded inputs go through the
+reference Pallas kernel in interpret mode and through the port, at the
+reference's tolerances (float32 2e-5, bfloat16 0.05; atol 4x)."""
+
+import hashlib
+import math
+import random
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import TrialJournal as RefJournal
+from repro.core import TuningRecords as RefRecords
+from repro.core import TuningSession as RefSession
+from repro.core.cost.base import CostBackend as RefBackend
+from repro.core.cost.flash_analytical import FlashAnalyticalCost as RefFlashCost
+from repro.core.flash_space import FlashAttnConfigSpace as RefSpace
+from repro.core.session import Workload as RefWorkload
+from repro.core.tuners import Budget as RefBudget
+from repro.core.tuners import GBFSTuner as RefGBFS
+from repro.kernels.flash_attention import flash_attention as ref_flash
+from repro.launch.tune import flash_workloads_for_arch as ref_flash_workloads
+from repro_torch.core import Budget, TrialJournal, TuningRecords, TuningSession, Workload
+from repro_torch.core.analysis import (
+    FLASH_HEAD_DIMS,
+    ScheduleAnalyzer,
+    flash_launch_error,
+    flash_max_threads,
+    flash_smem_bytes,
+    should_prune,
+)
+from repro_torch.core.cost.base import CostBackend
+from repro_torch.core.cost.flash_analytical import FlashAnalyticalHopperCost
+from repro_torch.core.flash_space import FlashAttnConfigSpace, FlashScheduleState
+from repro_torch.core.ops import get_op
+from repro_torch.core.tuners import GBFSTuner
+from repro_torch.kernels.flash_attention import (
+    LAUNCHES,
+    default_blocks,
+    flash_attention,
+    flash_attention_plain,
+    state_from_blocks,
+)
+from repro_torch.launch.tune import flash_workloads_for_arch
+
+DTYPES = [("float32", 2e-5), ("bfloat16", 0.05)]
+
+
+def _qkv(b, s, h, kv, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, hd)).astype(np.float32),
+            rng.standard_normal((b, s, kv, hd)).astype(np.float32),
+            rng.standard_normal((b, s, kv, hd)).astype(np.float32))
+
+
+def _both(arrays, dtype):
+    return ([jnp.asarray(a, dtype) for a in arrays],
+            [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays])
+
+
+def _close(got: torch.Tensor, ref, tol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=tol, atol=tol * 4)
+
+
+# -- the kernel's arithmetic ---------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize(
+    "shape",
+    # the reference kernel test's shapes (tests/test_flash_kernel.py)
+    [(2, 128, 8, 2, 16), (1, 256, 4, 4, 32), (2, 64, 8, 8, 16), (1, 128, 16, 4, 8)],
+    ids=str,
+)
+def test_plain_matches_reference_kernel(shape, dtype, tol):
+    b, s, h, kv, hd = shape
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(b, s, h, kv, hd), dtype)
+    ref = ref_flash(jq, jk, jv, block_q=64, block_k=64, interpret=True)
+    out = flash_attention_plain(tq, tk, tv, min(64, s), min(64, s))
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    _close(out, ref, tol)
+
+
+@pytest.mark.parametrize("bq,bkv,g,seed", [
+    (16, 16, 1, 0), (16, 64, 2, 1), (32, 16, 4, 2), (64, 32, 1, 3),
+    (32, 32, 2, 4), (64, 64, 4, 5), (16, 32, 4, 6), (64, 16, 2, 7),
+])
+def test_block_sweep_matches_reference(bq, bkv, g, seed):
+    """Any (block_q, block_kv) tiling computes the reference's attention —
+    the tunability contract (the reference's hypothesis sweep, as cases)."""
+    arrays = _qkv(1, 128, 2 * g, 2, 16, seed)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "float32")
+    ref = ref_flash(jq, jk, jv, block_q=bq, block_k=bkv, interpret=True)
+    np.testing.assert_allclose(flash_attention_plain(tq, tk, tv, bq, bkv).numpy(),
+                               np.asarray(ref), rtol=2e-5, atol=1e-4)
+    # the wrapper takes these blocks and, on CPU tensors, is the plain version
+    np.testing.assert_array_equal(flash_attention(tq, tk, tv, bq, bkv).numpy(),
+                                  flash_attention_plain(tq, tk, tv, bq, bkv).numpy())
+
+
+@pytest.mark.parametrize("hd", FLASH_HEAD_DIMS)
+def test_non_causal_matches_reference(hd):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 64, 4, 2, hd), "float32")
+    ref = ref_flash(jq, jk, jv, block_q=32, block_k=32, causal=False, interpret=True)
+    _close(flash_attention(tq, tk, tv, 32, 32, causal=False), ref, 2e-5)
+
+
+def test_indivisible_blocks_raise():
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 100, 4, 2, 16), "float32")
+    with pytest.raises(ValueError):
+        ref_flash(jq, jk, jv, block_q=64, block_k=64, interpret=True)
+    with pytest.raises(ValueError):
+        flash_attention_plain(tq, tk, tv, 64, 64)
+    with pytest.raises(ValueError):
+        flash_attention(tq, tk, tv, 64, 64)
+
+
+def test_wrapper_refusals():
+    _, (q, k, v) = _both(_qkv(1, 64, 4, 2, 16), "float32")
+    with pytest.raises(ValueError):
+        flash_attention(q.half(), k.half(), v.half(), 32, 32)  # dtype
+    with pytest.raises(ValueError):
+        flash_attention(q[:, :32], k, v, 32, 32)  # causal needs sq == sk
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, 32, 32)
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :3, :], k, v, 32, 32)  # 3 heads on 2 kv heads
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, 8, 8)  # below the kernel's minimum block
+    _, (q8, k8, v8) = _both(_qkv(1, 64, 4, 2, 8), "float32")
+    with pytest.raises(ValueError):
+        flash_attention(q8, k8, v8, 32, 32)  # no head_dim-8 instantiation
+    before = sum(LAUNCHES.values())
+    flash_attention(q, k, v, 32, 32)
+    flash_attention(q[:, :32], k, v, 32, 32, causal=False)  # cross shapes are fine
+    assert sum(LAUNCHES.values()) == before  # the plain version is no launch
+
+
+@pytest.mark.parametrize("hd", (8, 16, 32, 64, 128, 256))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_wrapper_refusals_agree_with_analyzer(hd, dtype):
+    """The wrapper's check and the analyzer's ILLEGAL verdict are one rule:
+    on every state of a 64-token space (at the timed operand's 32 heads on
+    4 kv heads) they agree."""
+    space = FlashAttnConfigSpace(64, 64, hd, heads=32, kv_heads=4)
+    tdtype = getattr(torch, dtype)
+    analyzer = ScheduleAnalyzer(space, in_bytes=torch.empty((), dtype=tdtype).element_size())
+    q = torch.zeros((1, 64, 32, hd), dtype=tdtype)
+    kv = torch.zeros((1, 64, 4, hd), dtype=tdtype)
+    verdicts = []
+    for s in space.enumerate():
+        try:
+            flash_attention(q, kv, kv, s.block_q, s.block_kv)
+            refused = False
+        except ValueError:
+            refused = True
+        assert analyzer.analyze(s).illegal == refused, (s, analyzer.analyze(s))
+        verdicts.append(refused)
+    assert any(verdicts)
+    assert all(verdicts) == (hd not in FLASH_HEAD_DIMS)
+
+
+def test_launch_rule_edges():
+    assert flash_launch_error(64, 64, 128) is None
+    assert flash_launch_error(64, 64, 96)[0] == "head_dim"
+    assert flash_launch_error(64, 64, 128, in_bytes=1)[0] == "dtype"
+    assert flash_launch_error(8, 64, 128)[0] == "block_below_minimum"
+    assert flash_launch_error(48, 64, 128) is None  # a multiple of 16
+    assert flash_launch_error(40, 64, 128)[0] == "block_alignment"
+    assert flash_launch_error(128, 32, 128)[0] == "threads_over_limit"  # 1024 > 512
+    assert flash_launch_error(128, 32, 64) is None  # 1024 threads at hd 64
+    assert flash_max_threads(128) == 512 and flash_max_threads(16) == 1024
+    assert flash_launch_error(64, 256, 128)[0] == "smem_overflow"
+    assert flash_smem_bytes(64, 128, 128) <= 232_448 < flash_smem_bytes(64, 256, 128)
+    assert flash_launch_error(64, 64, 128, grid_y=70_000)[0] == "grid_too_large"
+
+
+def test_analyzer_flash_verdicts():
+    an = ScheduleAnalyzer(FlashAttnConfigSpace(4096, 4096, 128, heads=32, kv_heads=4))
+    assert an.analyze(FlashScheduleState((64, 64), (64, 64))).ok
+    assert an.analyze(FlashScheduleState((4096, 1), (64, 64))).reason == "block_below_minimum"
+    assert an.analyze(FlashScheduleState((64, 64), (32, 64))).reason == "product_mismatch"
+    small = ScheduleAnalyzer(FlashAttnConfigSpace(128, 128, 16, heads=32, kv_heads=4))
+    fill = small.analyze(FlashScheduleState((2, 64), (2, 64)))  # 2 x 32 CTAs
+    assert fill.reason == "under_fill" and not should_prune(fill)
+    # the grid the rules read is the space's head layout: on the JAX
+    # package's one head the 64 CTAs of 64-row blocks leave SMs idle, and
+    # a layout taller than gridDim.y cannot launch at all
+    one = ScheduleAnalyzer(FlashAttnConfigSpace(4096, 4096, 128))
+    assert one.analyze(FlashScheduleState((64, 64), (64, 64))).reason == "under_fill"
+    tall = ScheduleAnalyzer(FlashAttnConfigSpace(4096, 4096, 128, heads=70_000, kv_heads=1))
+    assert tall.analyze(FlashScheduleState((64, 64), (64, 64))).reason == "grid_too_large"
+
+
+def test_default_blocks_fit_hopper_where_the_tpu_default_does_not():
+    """The JAX package's TPU default (256 x 512) needs more than a CTA's
+    shared memory at hd 128; the port keeps its own heuristic blocks."""
+    assert flash_launch_error(256, 512, 128) is not None
+    assert default_blocks(4096, 4096, 128) == (64, 64)
+    assert default_blocks(4096, 4096, 128, in_bytes=4) == (64, 64)
+    assert default_blocks(128, 128, 16) == (64, 64)
+    assert default_blocks(48, 48, 16) == (16, 16)
+    assert default_blocks(100, 100, 16) is None  # no block divides
+    assert default_blocks(4096, 4096, 8) is None  # no instantiation
+    st = state_from_blocks(64, 32, 4096, 4096)
+    assert (st.block_q, st.block_kv, st.dims()) == (64, 32, (4096, 4096))
+    space = get_op("flash").make_space((4096, 4096, 128))
+    assert get_op("flash").default_state(space, "bfloat16") == state_from_blocks(64, 64, 4096, 4096)
+
+
+# -- the search space ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("dims", [(128, 128, 16), (4096, 4096, 128), (256, 512, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_space_matches_reference(dims, causal):
+    """States, keys, size, enumeration, neighbours, transplants and
+    spec_kwargs match bit for bit; features match but for the working
+    set, which follows the Hopper kernel's shared memory."""
+    port, ref = FlashAttnConfigSpace(*dims, causal=causal), RefSpace(*dims, causal=causal)
+    assert port.size() == ref.size() and port.dims == ref.dims
+    assert port.spec_kwargs() == ref.spec_kwargs()
+    assert port.initial_state().key() == ref.initial_state().key()
+    assert port.n_features == ref.n_features
+    assert [s.key() for s in port.enumerate()] == [s.key() for s in ref.enumerate()]
+    other_port, other_ref = FlashAttnConfigSpace(1024, 2048, dims[2]), RefSpace(1024, 2048, dims[2])
+    rng_p, rng_r = random.Random(3), random.Random(3)
+    for _ in range(20):
+        s, r = port.random_state(rng_p), ref.random_state(rng_r)
+        assert s.key() == r.key() and (s.block_q, s.block_kv) == (r.block_q, r.block_kv)
+        assert [x.key() for x in port.neighbors(s)] == [x.key() for x in ref.neighbors(r)]
+        fp, fr = port.features(s), ref.features(r)
+        np.testing.assert_array_equal(fp[:-1], fr[:-1])
+        assert fp[-1] == np.float32(math.log2(flash_smem_bytes(s.block_q, s.block_kv, dims[2])))
+        tp, tr = other_port.transplant(s), other_ref.transplant(r)
+        assert (tp is None) == (tr is None)
+        if tp is not None:
+            assert tp.key() == tr.key()
+
+
+def test_flash_workloads_match_reference():
+    for arch in ("yi-6b", None):
+        port, ref = flash_workloads_for_arch(arch, "train_4k"), ref_flash_workloads(arch, "train_4k")
+        assert [(w.op, w.dims, w.dtype, w.depths, w.label) for w in port] == [
+            (w.op, w.dims, w.dtype, w.depths, w.label) for w in ref]
+        assert port[0].key("hopper_timed") == ref[0].key("hopper_timed")
+    assert port[0].dims == (4096, 4096, 128) and port[0].dtype == "bfloat16"
+
+
+def test_head_layout_travels_with_the_workload():
+    """The arch's query and kv heads reach the space, and through it the
+    launch and fill rules, the analytical model, the timed operand and
+    the fingerprints; the workload key and the JAX package's one-head
+    spec_kwargs stay as they are."""
+    (yi,) = flash_workloads_for_arch("yi-6b", "train_4k")
+    space = yi.space()
+    assert (space.heads, space.kv_heads) == (32, 4)
+    assert space.spec_kwargs() == {"causal": True, "heads": 32, "kv_heads": 4}
+    assert FlashAttnConfigSpace(4096, 4096, 128).spec_kwargs() == \
+        RefSpace(4096, 4096, 128).spec_kwargs()
+    wide = Workload("flash", (256, 256, 32), label="w", space_kwargs={"heads": 64, "kv_heads": 8})
+    assert wide.key("b") == Workload("flash", (256, 256, 32)).key("b")
+    wspace = wide.space()
+    q, k, v = get_op("flash").operands(wspace, "float32", 0, "cpu")
+    assert q.shape == (1, 256, 64, 32) and k.shape == v.shape == (1, 256, 8, 32)
+    st = state_from_blocks(64, 64, 256, 256)  # 4 q blocks
+    assert ScheduleAnalyzer(wspace).analyze(st).ok  # 4 x 64 = 256 CTAs
+    assert ScheduleAnalyzer(FlashAttnConfigSpace(256, 256, 32, heads=32, kv_heads=4)).analyze(
+        st).reason == "under_fill"  # 4 x 32 = 128 CTAs for 132 SMs
+    # one head of 64 CTAs fits one wave on 132 SMs; 32 heads take many
+    one = FlashAnalyticalHopperCost(FlashAttnConfigSpace(4096, 4096, 128))
+    many = FlashAnalyticalHopperCost(space)
+    big = state_from_blocks(64, 64, 4096, 4096)
+    assert many.cost(big) > 4 * one.cost(big)
+    assert "heads=32" in many.measure_fingerprint() and "heads" not in one.measure_fingerprint()
+    with pytest.raises(ValueError):
+        FlashAttnConfigSpace(256, 256, 32, heads=6, kv_heads=4)
+    # tune_arch tunes two layouts of one key as two workloads
+    session = TuningSession(TuningRecords(), cost_factory=PortTable, verbose=False)
+    report = session.tune_arch(workloads=[wide, Workload("flash", (256, 256, 32), label="n")],
+                               budget=Budget(max_trials=8))
+    assert report.n_unique_shapes == 2
+
+
+# -- the analytical model ------------------------------------------------------
+
+
+@pytest.mark.parametrize("dims", [(512, 512, 64), (4096, 4096, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kv_visits_equal_reference(dims, causal):
+    port = FlashAnalyticalHopperCost(FlashAttnConfigSpace(*dims, causal=causal))
+    ref = RefFlashCost(RefSpace(*dims, causal=causal))
+    for s, r in zip(port.space.enumerate(), ref.space.enumerate()):
+        assert port.kv_visits(s) == ref.kv_visits(r)
+
+
+def test_analytical_model_structure():
+    space = FlashAttnConfigSpace(4096, 4096, 128)
+    cost, analyzer = FlashAnalyticalHopperCost(space), ScheduleAnalyzer(space)
+    states = list(space.enumerate())
+    costs = [cost.cost(s) for s in states]
+    assert costs == FlashAnalyticalHopperCost(space).batch_cost(states)  # deterministic
+    for s, c in zip(states, costs):
+        assert math.isinf(c) == analyzer.analyze(s).illegal
+    assert sum(map(math.isfinite, costs)) > 5
+    # a coarser kv block wastes masked work above the causal diagonal
+    assert cost.kv_visits(state_from_blocks(64, 16, 4096, 4096)) * 16 < \
+        cost.kv_visits(state_from_blocks(64, 128, 4096, 4096)) * 128
+
+
+# -- tuning parity -------------------------------------------------------------
+
+
+def table_cost(key: str) -> float:
+    """A deterministic cost table: a hash of the state key, with about one
+    state in ten failing (``inf``)."""
+    u = int.from_bytes(hashlib.blake2b(key.encode(), digest_size=8).digest(), "big") / 2.0**64
+    return math.inf if u < 0.1 else 1e-3 * (1.0 + u)
+
+
+class RefTable(RefBackend):
+    name = "table"
+
+    def cost_once(self, s, repeat_idx):
+        return table_cost(s.key())
+
+
+class PortTable(CostBackend):
+    name = "table"
+
+    def cost_once(self, s, repeat_idx):
+        return table_cost(s.key())
+
+
+def _trace(result):
+    return [(t.state.key(), t.cost, t.clock_s) for t in result.trials]
+
+
+@pytest.mark.parametrize("dims", [(512, 512, 64), (4096, 4096, 128)])
+@pytest.mark.parametrize("seed,n_workers", [(0, 1), (7, 4)])
+def test_gbfs_flash_parity(dims, seed, n_workers):
+    ref = RefGBFS(RefSpace(*dims), RefTable(RefSpace(*dims)), seed=seed).tune(
+        RefBudget(max_trials=40), n_workers=n_workers)
+    port = GBFSTuner(FlashAttnConfigSpace(*dims), PortTable(FlashAttnConfigSpace(*dims)),
+                     seed=seed).tune(Budget(max_trials=40), n_workers=n_workers)
+    assert _trace(port) == _trace(ref) and port.n_trials == ref.n_trials
+    assert port.best_state.key() == ref.best_state.key() and port.best_cost == ref.best_cost
+
+
+def test_flash_tune_workload_parity(tmp_path, monkeypatch):
+    """Trial sequence, best state, records JSON and journal bytes match,
+    for a cold search and a warm start from the record it wrote."""
+    monkeypatch.setattr(time, "time", lambda: 1_700_000_000.0)
+    out = {}
+    for pkg, Session, Records, Journal, Wl, Bud, Table in (
+        ("ref", RefSession, RefRecords, RefJournal, RefWorkload, RefBudget, RefTable),
+        ("port", TuningSession, TuningRecords, TrialJournal, Workload, Budget, PortTable),
+    ):
+        rec, jnl = str(tmp_path / f"{pkg}.json"), str(tmp_path / f"{pkg}.jsonl")
+        with Journal(jnl) as journal:
+            session = Session(Records(rec), cost_factory=Table, seed=3,
+                              verbose=False, journal=journal)
+            wl = Wl("flash", (1024, 1024, 128), dtype="bfloat16", label="f")
+            first = session.tune_workload(wl, "g-bfs", Bud(max_trials=30))
+            second = session.tune_workload(wl, "g-bfs", Bud(max_trials=30),
+                                           seed=5, warm_start=True)
+        with open(rec, "rb") as f, open(jnl, "rb") as g:
+            out[pkg] = (first, second, f.read(), g.read())
+    ref, port = out["ref"], out["port"]
+    for i in (0, 1):
+        assert _trace(port[i]) == _trace(ref[i])
+        assert port[i].best_state.key() == ref[i].best_state.key()
+    assert port[1].n_cache_hits == ref[1].n_cache_hits > 0
+    assert port[2] == ref[2]
+    assert port[3] == ref[3]
+

@@ -110,14 +110,15 @@ def test_repro_torch_imports_no_jax_and_no_repro():
     """The port stands alone: importing every module of it loads neither
     JAX nor anything of the JAX package."""
     code = (
-        "import sys\n"
-        "import repro_torch, repro_torch.core, repro_torch.kernels.ops, "
-        "repro_torch.kernels.gemm, repro_torch.launch.tune, "
-        "repro_torch.core.cost.measured\n"
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'flax'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad or len(mods) < 30 else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
