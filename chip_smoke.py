@@ -10,7 +10,11 @@ Phases (each prints its wall time):
   1. build both kernels (``src/repro_torch/kernels/csrc/*.cu``), and two
      variants of the flash kernel with a planted fault (its source with one
      line changed, built in a temporary directory), one nvcc per source,
-     all started together;
+     all started together; count the tensor-core instructions (``HGMMA``,
+     ``HMMA``) of each bf16 flash instantiation (head_dim x block_kv) in
+     ``cuobjdump -sass`` of the built library (fails on a count of 0), and
+     print ptxas' registers and spills for them (phase 9 prints the served
+     instantiation's);
   2. hold the GEMM kernel against its plain PyTorch version on small
      products (several configs, f32 and bf16, and the autograd backward);
   3. tune the five yi-6b bf16 GEMMs (8192 tokens) with G-BFS on times
@@ -22,10 +26,11 @@ Phases (each prints its wall time):
      version at full width and time the kernel, the plain version and
      torch.matmul;
   7. check the flash kernel: each instantiation's launch limit equals the
-     analyzer's, kernel vs plain on small shapes (several blocks, f32 and
-     bf16, causal and full, G in {1, 4, 8}, every head_dim), the wrapper
-     refuses indivisible blocks, and the bf16 limit refuses both planted
-     faults;
+     analyzer's, kernel vs plain on small shapes (the blocks of each
+     dtype's list, f32 and bf16, causal and full, G in {1, 4, 8}, every
+     head_dim, and the bf16 block_kv of 48, 80, 96 and 112 on sequences
+     they divide), the wrapper refuses indivisible blocks, and the bf16
+     limit refuses both planted faults;
   8. tune yi-6b's prefill attention (4096, 4096, 128) bf16 with G-BFS on
      times measured on the card, seeded from the kernel's heuristic
      blocks, then rerun ``tune --op flash --warm-start`` on the same
@@ -52,8 +57,8 @@ Tolerances: GEMM float32 rtol 1e-4 / atol 8e-4, bfloat16 rtol 0.05 /
 atol 0.4 (the JAX package's GEMM kernel tests); flash float32 rtol 2e-5 /
 atol 8e-5 (its flash kernel tests), bfloat16 rtol 1.6e-2 / atol 2e-3 (two
 bf16 rounding steps: kernel and plain version do the same f32 arithmetic
-in another order); the reduced model's logits rtol/atol 2e-4 (its port
-tests).  Exits non-zero
+in another order and round P and the output at the same places); the
+reduced model's logits rtol/atol 2e-4 (its port tests).  Exits non-zero
 on any failure; prints the kernels JSON line, then the device line last.
 """
 
@@ -61,6 +66,7 @@ from __future__ import annotations
 
 import collections
 import json
+import math
 import os
 import re
 import subprocess
@@ -75,23 +81,33 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
 TOL = {torch.float32: (1e-4, 8e-4), torch.bfloat16: (0.05, 0.4)}
-# kernel and plain version round the same f32 values to bf16, so outputs
-# differ by at most a rounding step (2^-7 relative, 0.0039 below 1); the
-# limit is two steps, far below a typical output at S = 4096 (about 0.02)
+# kernel and plain version round P and the output to bf16 at the same
+# places, from f32 values that differ only in the order of f32 sums, so
+# outputs differ by about a rounding step (2^-7 relative, 0.0039 below 1);
+# the limit is two steps, far below a typical output at S = 4096 (about 0.02)
 FLASH_TOL = {torch.float32: (2e-5, 8e-5), torch.bfloat16: (1.6e-2, 2e-3)}
 FLASH_CU = os.path.join(SRC, "repro_torch", "kernels", "csrc", "flash_attention.cu")
 #: planted faults the bf16 flash limit must refuse: one line of the
 #: kernel's source, and what a variant built beside it has instead
 FAULTS = {
     # the running accumulator is not rescaled when the row max grows
-    "no_rescale": ("acc[c] *= corr;", "acc[c] *= 1.0f;"),
+    "no_rescale": ("o[4 * j + t] *= corr[t >> 1];", "o[4 * j + t] *= 1.0f;"),
     # the last q block (the latest rows) stops one kv block short
     "last_q_block_short": (
-        "const int last = causal ? min(n_kv, ((iq + 1) * bq + bkv - 1) / bkv) : n_kv;",
-        "const int last = (causal ? min(n_kv, ((iq + 1) * bq + bkv - 1) / bkv) : n_kv)"
+        "const int n_visit = causal ? min(n_kv, ((iq + 1) * bq + bkv - 1) / bkv) : n_kv;",
+        "const int n_visit = (causal ? min(n_kv, ((iq + 1) * bq + bkv - 1) / bkv) : n_kv)"
         " - (iq == gridDim.x - 1);",
     ),
 }
+#: (block_q, block_kv) pairs phase 7 checks, per dtype: every bf16 pair G-BFS
+#: can serve at 4096 (block_q 64 or 128, block_kv 16 to 128), and f32 pairs
+#: from 16 x 16 up, several with block_kv != block_q
+FLASH_BLOCKS = {
+    torch.bfloat16: tuple((bq, bkv) for bq in (64, 128) for bkv in (16, 32, 64, 128)),
+    torch.float32: ((16, 16), (32, 64), (64, 32), (64, 128), (128, 16)),
+}
+#: the other bf16 block_kv instantiations, checked at block_q 128
+FLASH_ODD_BKV = (48, 80, 96, 112)
 #: dense peak (ops/s) and memory rate (bytes/s) by card, from NVIDIA's data sheets
 PEAKS = {"PCIe": (756e12, 2.0e12), "H200": (989e12, 4.8e12), "default": (989e12, 3.35e12)}
 TUNE_TRIALS = 250  # total G-BFS pool over the five workloads (phase 3)
@@ -156,6 +172,54 @@ def fault_variant(name: str, out_dir: str):
     with open(path, "w") as f:
         f.write(src.replace(old, new))
     return build_library(path, build_dir=out_dir)
+
+
+def tensor_core_report(lib, ptxas_log: str) -> dict:
+    """Count the tensor-core instructions (``HGMMA`` for wgmma, ``HMMA`` for
+    mma.sync) of each bf16 flash instantiation (one per head_dim and
+    block_kv) in ``cuobjdump -sass`` of the built library, and print them
+    with ptxas' registers, spills and injected ``warpgroup.arrive``s per
+    head_dim; exits if one has no tensor-core instruction.  Returns ptxas'
+    report lines per ``(head_dim, block_kv)``."""
+    from repro_torch.kernels.build import nvcc_path
+
+    name = re.compile(r"flash_fwd_bf16ILi(\d+)ELi(\d+)E")
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib._name], capture_output=True, text=True,
+                          check=True).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            m = name.search(line)
+            key = tuple(map(int, m.groups())) if m else None
+            if key:
+                counts[key] = collections.Counter()
+        elif key:
+            counts[key].update(re.findall(r"\b(HGMMA|HMMA)\.", line))
+    ptxas, arrives, key = collections.defaultdict(list), collections.Counter(), None
+    for line in ptxas_log.splitlines():
+        if "entry function" in line:
+            m = name.search(line)
+            key = tuple(map(int, m.groups())) if m else None
+        elif "warpgroup.arrive is injected" in line and name.search(line):
+            arrives[tuple(map(int, name.search(line).groups()))] += 1
+        elif key and ("spill" in line or "Used" in line):
+            ptxas[key].append(line.replace("ptxas info    :", "").strip())
+    for hd in sorted({k[0] for k in counts}):
+        keys = sorted(k for k in counts if k[0] == hd)
+        regs = [re.search(r"Used (\d+) registers", " ".join(ptxas[k])) for k in keys]
+        spills = sum(int(x) for k in keys
+                     for x in re.findall(r"(\d+) bytes spill stores", " ".join(ptxas[k])))
+        print(f"[sass] flash_fwd_bf16<{hd}, block_kv>: tensor-core instructions (HGMMA+HMMA) "
+              + " ".join(f"{k[1]}:{sum(counts[k].values())}" for k in keys)
+              + "; registers " + " ".join(f"{k[1]}:{r.group(1) if r else '?'}"
+                                          for k, r in zip(keys, regs))
+              + f"; spill stores {spills} B; warpgroup.arrive injected "
+              f"{sum(arrives[k] for k in keys)}", flush=True)
+    if ({k[0] for k in counts} != {16, 32, 64, 128} or len(counts) != 32
+            or not all(sum(c.values()) for c in counts.values())):
+        raise SystemExit(f"bf16 flash instantiations without tensor-core instructions: {counts}")
+    return ptxas
 
 
 def refuse_faults(what: str, fault_libs: dict, q, k, v, blocks, ref) -> None:
@@ -248,6 +312,7 @@ def main() -> None:
         print(f"[build] {label} kernel built in {secs:.1f}s; "
               f"instantiations with spills: {len(spills)}")
     fault_libs = {name: fa.bind(builds[f"fault {name}"][0][0]) for name in FAULTS}
+    flash_ptxas = tensor_core_report(*builds["flash"][0])
     phase("1 build", t0)
 
     # -- 2. kernel vs plain on small products ----------------------------------
@@ -394,9 +459,10 @@ def main() -> None:
         for dtype in (torch.float32, torch.bfloat16):
             for hd in (16, 32, 64, 128):
                 got = fa.kernel_max_threads(dtype, hd)
-                if got != flash_max_threads(hd):
+                want = flash_max_threads(hd, dtype.itemsize)
+                if got != want:
                     raise SystemExit(f"flash launch limit {got} for {dtype} hd={hd} "
-                                     f"disagrees with the analyzer ({flash_max_threads(hd)})")
+                                     f"disagrees with the analyzer ({want})")
         n_checked, worst = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
         for dtype in (torch.float32, torch.bfloat16):
             for hd in (16, 32, 64, 128):
@@ -404,7 +470,7 @@ def main() -> None:
                     q = rand((2, 256, 2 * g, hd), dtype)
                     k, v = rand((2, 256, 2, hd), dtype), rand((2, 256, 2, hd), dtype)
                     for causal in (True, False):
-                        for bq, bkv in ((16, 16), (32, 64), (64, 32), (64, 128), (128, 16)):
+                        for bq, bkv in FLASH_BLOCKS[dtype]:
                             if fa.flash_launch_error(bq, bkv, hd, q.element_size()) is not None:
                                 continue
                             out = fa.flash_attention(q, k, v, bq, bkv, causal)
@@ -413,6 +479,20 @@ def main() -> None:
                                               f"blocks=({bq},{bkv})", out, ref, dtype, FLASH_TOL)
                             worst[dtype] = max(worst[dtype], err)
                             n_checked += 1
+        # the bf16 block_kv instantiations that no power-of-two sequence
+        # takes, each on a sequence it divides
+        for hd in (16, 32, 64, 128):
+            for bkv in FLASH_ODD_BKV:
+                seq = math.lcm(bkv, 128)
+                q = rand((1, seq, 4, hd), torch.bfloat16)
+                k, v = rand((1, seq, 2, hd), torch.bfloat16), rand((1, seq, 2, hd), torch.bfloat16)
+                for causal in (True, False):
+                    out = fa.flash_attention(q, k, v, 128, bkv, causal)
+                    ref = fa.flash_attention_plain(q, k, v, 128, bkv, causal)
+                    err = check_close(f"flash bf16 hd={hd} S={seq} causal={causal} "
+                                      f"blocks=(128,{bkv})", out, ref, torch.bfloat16, FLASH_TOL)
+                    worst[torch.bfloat16] = max(worst[torch.bfloat16], err)
+                    n_checked += 1
         q = rand((1, 100, 4, 64), torch.bfloat16)
         k = rand((1, 100, 2, 64), torch.bfloat16)
         before = sum(fa.LAUNCHES.values())
@@ -429,8 +509,8 @@ def main() -> None:
               f"f32={worst[torch.float32]} bf16={worst[torch.bfloat16]}")
         q = rand((2, 256, 16, 128), torch.bfloat16)
         k, v = rand((2, 256, 2, 128), torch.bfloat16), rand((2, 256, 2, 128), torch.bfloat16)
-        refuse_faults("q (2, 256, 16, 128)", fault_libs, q, k, v, (32, 32),
-                      fa.flash_attention_plain(q, k, v, 32, 32))
+        refuse_faults("q (2, 256, 16, 128)", fault_libs, q, k, v, (64, 32),
+                      fa.flash_attention_plain(q, k, v, 64, 32))
         phase("7 flash kernel vs plain", t0)
 
         # -- flash main path: counts zeroed here, read after phase 9 -----------------
@@ -470,6 +550,8 @@ def main() -> None:
         blocks = ops.flash_schedule(sq, skv, hd, "bfloat16")
         print(f"[serve] yi-6b weights: {n_bytes / 1e9:.2f} GB bf16; served flash blocks "
               f"{blocks}", flush=True)
+        print(f"[ptxas] served instantiation flash_fwd_bf16<{hd}, {blocks[1]}>: "
+              f"{'; '.join(flash_ptxas[(hd, blocks[1])])}", flush=True)
         rng = np.random.default_rng(0)
         lens = rng.integers(SERVE_BUCKET // 2 + 1, SERVE_BUCKET + 1, SERVE_REQUESTS)
         lens[0] = SERVE_BUCKET

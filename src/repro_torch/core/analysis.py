@@ -23,8 +23,10 @@ Verdict lattice (``AnalysisResult.verdict``):
     or a CTA grid taller than CUDA's ``gridDim.y`` limit;
   * *flash launch* (:func:`flash_launch_error`): a dtype or head_dim the
     kernel has no instantiation for, a block below 16 or not a multiple
-    of 16, threads over the instantiation's limit, Q/K/V/P tiles over
-    the shared-memory budget, or a grid taller than ``gridDim.y``.
+    of 16 (of 64 rows, one warpgroup, for block_q in bf16), threads over
+    the instantiation's limit, a bf16 kv block over the keys held in
+    registers, tiles over the shared-memory budget, or a grid taller
+    than ``gridDim.y``.
 
 ``WASTEFUL`` — launchable but dominated (advisory unless noted):
 
@@ -57,7 +59,8 @@ __all__ = [
     "gemm_launch_error",
     "max_threads_for_reg_tile",
     "FLASH_HEAD_DIMS",
-    "flash_threads_per_row",
+    "FLASH_STAGES",
+    "flash_threads",
     "flash_max_threads",
     "flash_smem_bytes",
     "flash_launch_error",
@@ -194,28 +197,46 @@ def _gemm_waste(space, s, spec: HopperSpec) -> Optional[tuple[str, str]]:
 #: head_dim values the kernel is instantiated for
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 #: the kernel's smallest block along q and kv; blocks are multiples of it
-#: (whole warps, float4 rows of the P tile, whole keys per thread)
+#: (f32: whole warps, float4 rows of the P tile, whole keys per thread;
+#: bf16: the k16 step of P @ V, one instantiation per 16 keys of block_kv)
 FLASH_MIN_BLOCK = 16
-_FLASH_PAD = 4  # floats of padding per shared-memory row
+_FLASH_PAD = 4  # floats of padding per shared-memory row (f32 kernel)
+#: bf16 (tensor-core) kernel: depth of the K/V ring of stages (``kStages``)
+FLASH_STAGES = 2
+#: ... query rows per warpgroup, the M of ``wgmma`` (``kWgRows``); block_q
+#: is a multiple of it, with 128 threads per warpgroup
+FLASH_WG_ROWS = 64
+#: ... the largest block_q (two warpgroups, ``__launch_bounds__(256)``)
+FLASH_BF16_MAX_BQ = 128
+#: ... the largest block_kv (``kMaxBkv``): each multiple of 16 up to it is
+#: an instantiation whose S fragments live in registers
+FLASH_BF16_MAX_BKV = 128
 
 
-def flash_threads_per_row(head_dim: int) -> int:
-    """Threads that share one query row (``threads_per_row`` in the
-    kernel)."""
-    return 8 if head_dim >= 32 else 4
+def flash_threads(block_q: int, head_dim: int, in_bytes: int = 2) -> int:
+    """Threads of one CTA: a 128-thread warpgroup per 64 query rows in
+    bf16; in f32 ``threads_per_row`` (8, or 4 below head_dim 32) per row."""
+    if in_bytes == 2:
+        return block_q * 128 // FLASH_WG_ROWS
+    return block_q * (8 if head_dim >= 32 else 4)
 
 
-def flash_max_threads(head_dim: int) -> int:
-    """Thread limit of the kernel instantiation for one head_dim — its
-    ``__launch_bounds__``."""
+def flash_max_threads(head_dim: int, in_bytes: int = 2) -> int:
+    """Thread limit of the kernel instantiation for one dtype and head_dim
+    — its ``__launch_bounds__``."""
+    if in_bytes == 2:
+        return FLASH_BF16_MAX_BQ * 128 // FLASH_WG_ROWS
     return 512 if head_dim >= 128 else 1024
 
 
-def flash_smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
-    """Shared memory of one CTA: the Q tile and the K and V tiles, staged
-    as f32 whatever the input type, with padded rows, plus the f32 P tile
-    of staged logits.  The accumulator, running max and sum live in
-    registers."""
+def flash_smem_bytes(block_q: int, block_kv: int, head_dim: int, in_bytes: int = 2) -> int:
+    """Shared memory of one CTA.  bf16: the Q tile and a ring of
+    ``FLASH_STAGES`` K and V tiles, all bf16 and unpadded (P stays in
+    registers).  f32: the Q, K and V tiles with padded rows, plus the f32
+    P tile of staged logits.  The accumulator, running max and sum live
+    in registers."""
+    if in_bytes == 2:
+        return 2 * head_dim * (block_q + 2 * FLASH_STAGES * block_kv)
     ld = head_dim + _FLASH_PAD
     return 4 * (block_q * ld + 2 * block_kv * ld + block_q * (block_kv + _FLASH_PAD))
 
@@ -226,7 +247,8 @@ def flash_launch_error(
 ) -> Optional[tuple[str, str]]:
     """``(reason, detail)`` when the flash kernel cannot launch these
     blocks, else None.  ``grid_y`` is batch x query heads.  THE legality
-    rule of the kernel."""
+    rule of the kernel: bf16 inputs take the tensor-core kernel, f32
+    inputs the CUDA-core one."""
     spec = spec or HopperSpec()
     if in_bytes not in (2, 4):
         return ("dtype", f"{in_bytes}-byte inputs: the kernel takes bfloat16 or float32")
@@ -242,20 +264,28 @@ def flash_launch_error(
         return ("block_alignment",
                 f"blocks ({block_q}, {block_kv}) are not multiples of "
                 f"{FLASH_MIN_BLOCK}")
-    threads = block_q * flash_threads_per_row(head_dim)
+    if in_bytes == 2 and block_q % FLASH_WG_ROWS:
+        return ("block_alignment",
+                f"block_q {block_q} is not a multiple of {FLASH_WG_ROWS}, the "
+                f"query rows of one warpgroup (wgmma m64)")
+    threads = flash_threads(block_q, head_dim, in_bytes)
     if threads % spec.warp_size:
         return ("partial_warp",
                 f"{threads} threads per CTA is not a whole number of warps")
-    cap = flash_max_threads(head_dim)
+    cap = flash_max_threads(head_dim, in_bytes)
     if threads > cap:
         return ("threads_over_limit",
                 f"{threads} threads per CTA exceeds {cap}, the register-capped "
-                f"limit for head_dim {head_dim}")
-    smem = flash_smem_bytes(block_q, block_kv, head_dim)
+                f"limit for head_dim {head_dim} ({in_bytes}-byte inputs)")
+    if in_bytes == 2 and block_kv > FLASH_BF16_MAX_BKV:
+        return ("kv_block_over_registers",
+                f"block_kv {block_kv} exceeds {FLASH_BF16_MAX_BKV}, the keys "
+                f"whose S fragments the kernel holds in registers")
+    smem = flash_smem_bytes(block_q, block_kv, head_dim, in_bytes)
     if smem > spec.smem_per_block:
         return ("smem_overflow",
-                f"Q/K/V/P tiles take {smem} B of shared memory, over the "
-                f"{spec.smem_per_block} B budget")
+                f"Q/K/V{'' if in_bytes == 2 else '/P'} tiles take {smem} B of shared "
+                f"memory, over the {spec.smem_per_block} B budget")
     if grid_y > spec.max_grid_y:
         return ("grid_too_large",
                 f"{grid_y} batch x head rows exceed gridDim.y <= {spec.max_grid_y}")

@@ -7,20 +7,28 @@ on the operand the measured backend times (one sequence of the space's
 ``heads`` query heads).  It takes no time on the card and serves
 ``tune --op flash --cost analytical`` and tests on machines without one.
 States the kernel cannot launch cost ``inf`` (the shared launch rule of
-``repro_torch.core.analysis``).  For the rest:
+``repro_torch.core.analysis``).  For the rest, over every kv-block visit
+(exact, the kernel's causal early-exit bound, equal to the JAX package's
+count), scaled by how full the last wave of CTAs leaves the SMs:
 
-* compute time: every kv-block visit (exact, the kernel's causal
-  early-exit bound, equal to the JAX package's count) does
-  ``4 * bq * bkv * hd`` operations of the two products at the CUDA-core
-  f32 rate, at half efficiency (about one shared-memory load per FMA),
-  plus ``bq * bkv`` exponentials at the special-function rate, scaled by
-  how full the last wave of CTAs leaves the SMs;
+* bf16 (the tensor-core kernel): ``4 * bq * bkv * hd`` operations of the
+  two products per visit at the dense bf16 tensor-core rate times
+  ``_TC_EFFICIENCY`` (nothing overlaps a warpgroup's softmax with its
+  products, and the CTA's warpgroups meet at a barrier every kv block),
+  plus ``bq * bkv`` exponentials at the special-function rate; CTAs per
+  SM from threads, the shared memory of the Q tile and the
+  ``FLASH_STAGES`` ring of K/V tiles, and registers (the instantiation
+  for each ``block_kv`` holds its own S fragments); one block-wide
+  barrier per visit;
+* f32 (the CUDA-core kernel): the same operations at the CUDA-core f32
+  rate at half efficiency (about one shared-memory load per FMA), the
+  exponentials, CTAs per SM from threads and shared memory, and two
+  barriers per visit;
 * memory time: Q read and O written once, and a K and a V tile read per
-  visit (the kernel streams them), at the card's memory rate;
-* overhead: two block-wide barriers per visit, serialised over the
-  visits of one CTA's sequential loop.
+  visit (the kernel streams them), at the card's memory rate.
 
-The larger of compute and memory, plus the overhead, is the cost.
+The larger of compute and memory, plus the barriers, serialised over the
+visits of one CTA's sequential loop, is the cost.
 """
 
 from __future__ import annotations
@@ -33,21 +41,27 @@ from ..analysis import (
     HopperSpec,
     ScheduleAnalyzer,
     dtype_in_bytes,
-    flash_threads_per_row,
+    flash_threads,
 )
 from ..flash_space import FlashAttnConfigSpace, FlashScheduleState
 from .base import CostBackend
 
 __all__ = ["FlashAnalyticalHopperCost"]
 
-#: H100 SXM data sheet: non-tensor f32 FMA rate and HBM3 bandwidth
+#: H100 SXM data sheet: non-tensor f32 FMA rate, dense bf16 tensor-core
+#: rate and HBM3 bandwidth
 _F32_FLOPS = 67e12
+_BF16_TC_FLOPS = 989e12
 _HBM_BYTES_S = 3.35e12
+#: share of the tensor-core rate the bf16 kernel's products reach: an
+#: estimate for a kernel whose softmax runs between its products
+_TC_EFFICIENCY = 0.3
 #: exponentials per second: 16 special-function results per clock per SM
 #: at 1.83 GHz on 132 SMs
 _SFU_PER_S = 16 * 1.83e9 * 132
 _SMEM_PER_SM = 233_472
 _THREADS_PER_SM = 2048
+_REGS_PER_SM = 65_536
 #: one __syncthreads round trip, seconds (about 40 clocks)
 _BARRIER_S = 2.2e-8
 
@@ -86,22 +100,32 @@ class FlashAnalyticalHopperCost(CostBackend):
         bq, bkv, hd = s.block_q, s.block_kv, sp.head_dim
         heads = sp.heads
         visits = self.kv_visits(s) * heads
-        threads = bq * flash_threads_per_row(hd)
+        threads = flash_threads(bq, hd, self.in_bytes)
         smem = sp.working_set_bytes(s, self.in_bytes)
-        per_sm = max(1, min(_THREADS_PER_SM // threads, _SMEM_PER_SM // smem, 32))
-        slots = per_sm * self.spec.num_sms
+        per_sm = min(_THREADS_PER_SM // threads, _SMEM_PER_SM // smem, 32)
+        if self.in_bytes == 2:
+            # the O and S accumulators in f32 plus about 48 registers of
+            # addresses, P fragments and softmax state, per thread
+            regs = hd // 2 + bkv // 2 + 48
+            per_sm = min(per_sm, _REGS_PER_SM // (threads * regs))
+            rate, barriers = _TC_EFFICIENCY * _BF16_TC_FLOPS, 1
+        else:
+            rate, barriers = 0.5 * _F32_FLOPS, 2
+        slots = max(1, per_sm) * self.spec.num_sms
         ctas = s.n_q_blocks * heads
         fill = ctas / (math.ceil(ctas / slots) * slots)
         t_compute = (
-            visits * 4.0 * bq * bkv * hd / (0.5 * _F32_FLOPS)
-            + visits * bq * bkv / _SFU_PER_S
+            visits * 4.0 * bq * bkv * hd / rate + visits * bq * bkv / _SFU_PER_S
         ) / fill
         traffic = (
             2 * sp.seq_q * heads * hd  # Q read, O written
             + visits * 2 * bkv * hd  # a K and a V tile per visit
         ) * self.in_bytes
-        t_overhead = 2 * _BARRIER_S * self.kv_visits(s) / s.n_q_blocks
+        t_overhead = barriers * _BARRIER_S * self.kv_visits(s) / s.n_q_blocks
         return max(t_compute, traffic / _HBM_BYTES_S) + t_overhead
 
     def measure_fingerprint(self) -> str:
-        return f"r{self.n_repeats}|{self.dtype}" + self.space_fingerprint()
+        # the bf16 model is of the tensor-core kernel: costs of the CUDA-core
+        # model it replaced are not served from a journal
+        model = "|wgmma" if self.in_bytes == 2 else ""
+        return f"r{self.n_repeats}|{self.dtype}{model}" + self.space_fingerprint()

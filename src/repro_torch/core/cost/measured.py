@@ -7,7 +7,8 @@ state, as the paper times candidates on real hardware:
 
 * operands live on the card, made when the backend is built from a
   seeded generator (for flash, one sequence of the space's head
-  layout); their shapes are part of ``measure_fingerprint``;
+  layout); their shapes are part of ``measure_fingerprint``, and so is
+  the digest of the kernel's source (``kernel_source_part``);
 * one untimed warm-up launch, then ``n_repeats`` launches, each timed
   with CUDA events, with the 50 MB L2 flushed before each so every
   launch starts from device memory; the cost is their mean in seconds;
@@ -31,7 +32,7 @@ from ..analysis import HopperSpec, ScheduleAnalyzer, dtype_in_bytes
 from ..space import SearchSpace, State
 from .base import CostBackend
 
-__all__ = ["HopperTimedCost"]
+__all__ = ["HopperTimedCost", "kernel_source_part"]
 
 #: bytes written between timed launches: twice the H100's 50 MB L2
 _L2_FLUSH_BYTES = 100 * 1024 * 1024
@@ -90,13 +91,24 @@ class HopperTimedCost(CostBackend):
         return start.elapsed_time(end) / 1e3
 
     def measure_fingerprint(self) -> str:
-        # the card and the software stack change every measured value;
-        # seed fixes the operand contents, the shapes what is timed
+        # the card, the software stack and the kernel's source change
+        # every measured value; seed fixes the operand contents, the
+        # shapes what is timed
         shapes = ",".join("x".join(map(str, t.shape)) for t in self._operands)
         return (
             f"r{self.n_repeats}|{self.dtype}|seed{self.seed}"
             f"|{torch.cuda.get_device_name(self.device)}"
             f"|torch{torch.__version__}|cuda{torch.version.cuda}"
+            f"|{kernel_source_part(self._opspec)}"
             f"|operands={shapes}"
             + self.space_fingerprint()
         )
+
+
+def kernel_source_part(opspec) -> str:
+    """The fingerprint part naming the source an op's kernel is built
+    from: a journal measured on another build of it is re-measured, not
+    served."""
+    from repro_torch.kernels import build
+
+    return f"src={opspec.kernel_source}@{build.source_digest(opspec.kernel_source, build.CSRC_DIR)}"

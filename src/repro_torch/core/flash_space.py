@@ -22,9 +22,10 @@ All MDP machinery (product-preserving double/halve actions, neighbors,
 enumeration, sampling, transplant warm starts) is inherited from
 :class:`~repro_torch.core.space.FactoredSearchSpace`; this module fixes
 the state dataclass, the attention featurization, and the working set,
-which follows the Hopper kernel's shared memory (Q tile plus streamed
-K/V tiles plus the staged P tile).  States, keys, size, enumeration,
-neighbours, transplants and ``spec_kwargs`` are the JAX package's, so
+which follows the Hopper kernel's shared memory (the Q tile plus a ring
+of streamed K/V tiles in bf16; Q, K/V and the staged P tile in f32).
+States, keys, size, enumeration, neighbours, transplants and
+``spec_kwargs`` are the JAX package's, so
 journals and records stay comparable; ``working_set_bytes`` and the one
 feature derived from it differ, because the TPU kernel keeps the whole
 K/V sequence resident and this one streams it.
@@ -150,12 +151,12 @@ class FlashAttnConfigSpace(FactoredSearchSpace):
 
     # -- hardware footprint ---------------------------------------------------
     def working_set_bytes(self, s: FlashScheduleState, in_bytes: int = 2) -> int:
-        """Shared memory of one CTA of the Hopper kernel: the Q tile, one
-        K and one V tile of ``block_kv`` rows, and the P tile, all staged
-        as f32 (so ``in_bytes`` does not change it).  The arithmetic lives
-        in ``repro_torch.core.analysis`` (the kernel's launch rule), so
-        filter and oracle can never disagree."""
-        return flash_smem_bytes(s.block_q, s.block_kv, self.head_dim)
+        """Shared memory of one CTA of the Hopper kernel for ``in_bytes``
+        inputs: in bf16 the Q tile and a ring of K/V tiles of ``block_kv``
+        rows; in f32 the Q, K and V tiles and the P tile.  The arithmetic
+        lives in ``repro_torch.core.analysis`` (the kernel's launch rule),
+        so filter and oracle can never disagree."""
+        return flash_smem_bytes(s.block_q, s.block_kv, self.head_dim, in_bytes)
 
     # -- featurization --------------------------------------------------------
     def features(self, s: FlashScheduleState) -> np.ndarray:

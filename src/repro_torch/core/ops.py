@@ -12,6 +12,9 @@ An :class:`OpSpec` names:
   refuses it)
 * ``default_state``   — ``(space, dtype)`` -> the state of the kernel's
   heuristic config, or None — where a warm start with no donor begins
+* ``kernel_source``   — the CUDA source under ``kernels/csrc/`` that
+  ``kernel_run`` launches; the measured backend's fingerprint names its
+  digest
 
 Built-in ops: ``gemm``, the paper's tiled matrix multiply, and ``flash``,
 blocked causal attention.
@@ -44,6 +47,7 @@ class OpSpec:
     operands: Callable[..., tuple]
     kernel_run: Callable[..., torch.Tensor]
     default_state: Callable[..., Optional[State]]
+    kernel_source: str
 
 
 OPS: dict[str, OpSpec] = {}
@@ -113,6 +117,7 @@ register_op(
         operands=_gemm_operands,
         kernel_run=_gemm_kernel_run,
         default_state=_gemm_default_state,
+        kernel_source="gemm.cu",
     )
 )
 
@@ -177,5 +182,6 @@ register_op(
         operands=_flash_operands,
         kernel_run=_flash_kernel_run,
         default_state=_flash_default_state,
+        kernel_source="flash_attention.cu",
     )
 )

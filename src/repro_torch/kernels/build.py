@@ -17,13 +17,14 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["CSRC_DIR", "build_library"]
+__all__ = ["CSRC_DIR", "nvcc_path", "source_digest", "build_library"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
+    """The CUDA toolkit's ``nvcc`` (its ``bin/`` also holds ``cuobjdump``)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     for cand in (
@@ -35,14 +36,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's kernels need the CUDA toolkit")
 
 
+def source_digest(source: str, csrc_dir: str = CSRC_DIR) -> str:
+    """The hash a build of ``<csrc_dir>/<source>`` (or ``source``, where
+    it is an absolute path) is keyed by: the first 16 hex digits of the
+    SHA-256 of the file's bytes."""
+    with open(os.path.join(csrc_dir, source), "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()[:16]
+
+
 def build_library(source: str, build_dir: str = _BUILD_DIR) -> tuple[ctypes.CDLL, str]:
     """Compile ``csrc/<source>`` (or ``source``, where it is an absolute
     path) once per source hash into ``build_dir`` and load it.  Returns
     the library and ptxas' resource report.  A failed build raises
     ``RuntimeError``."""
     path = os.path.join(CSRC_DIR, source)
-    with open(path, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    digest = source_digest(path)
     os.makedirs(build_dir, exist_ok=True)
     stem = os.path.splitext(os.path.basename(source))[0]
     so = os.path.join(build_dir, f"lib{stem}_{digest}.so")
@@ -52,7 +60,7 @@ def build_library(source: str, build_dir: str = _BUILD_DIR) -> tuple[ctypes.CDLL
         os.close(fd)
         try:
             proc = subprocess.run(
-                [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
                  "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-o", tmp, path],
                 capture_output=True, text=True,

@@ -8,43 +8,59 @@
 // enforces), the running max starts at -1e30, kv blocks stop at
 // ceil((iq+1)*bq / bkv), and the output is acc / max(l, 1e-30).
 // q/o are (B, Sq, H, hd) and k/v (B, Sk, KV, hd), row-major and contiguous,
-// float32 or bfloat16; H = KV * G and query head h reads kv head h / G.
+// bfloat16 or float32; H = KV * G and query head h reads kv head h / G.
 //
-// Design.  The TPU kernel folds all G query heads of a kv head into one grid
-// cell with a (G, bq, hd) f32 VMEM accumulator; at yi-6b's G = 8, hd = 128
-// that is 256 KB for bq = 64, over a CTA's 227 KB of shared memory and far
-// over its registers.  So one CTA takes one (q block, batch x query head):
-// grid (Sq / bq, B * H), heaviest causal q blocks launched first.  bq x TPR
-// threads: TPR consecutive threads own one query row.  Per kv block:
-//   1. all threads stage the K and V tiles (bkv x hd) in shared memory as
-//      f32 (converted once, so the inner loops read float4);
-//   2. each thread computes bkv / TPR logits of its row (keys g, g+TPR, ..)
-//      from the f32 Q tile (staged once per CTA, pre-scaled) and writes them
-//      to the row's slice of a shared P tile;
-//   3. the row's TPR threads reduce max and sum with warp shuffles, rescale
-//      their accumulator columns by exp(m_old - m_new) and turn the logits
-//      into probabilities in place;
-//   4. each thread accumulates P @ V for its hd / TPR accumulator columns
-//      (float4 chunks interleaved across the row's threads, so one row's
-//      reads of a V row hit 32 distinct banks), kept in registers.
-// block_q and block_kv are runtime arguments; head_dim is a template
-// parameter (16, 32, 64, 128), which fixes TPR and the register tile.
+// Both kernels below take one CTA per (q block, batch x query head): grid
+// (Sq / bq, B * H), heaviest causal q blocks launched first.  (The TPU kernel
+// folds the G query heads of a kv head into one grid cell with a (G, bq, hd)
+// f32 VMEM accumulator; at yi-6b's G = 8, hd = 128 that is 256 KB for
+// bq = 64, over a CTA's 227 KB of shared memory and far over its registers.)
+// block_q and block_kv are runtime arguments of the C interface; head_dim
+// is a template parameter (16, 32, 64, 128), and so is block_kv in bf16.
 //
 // Bound.  At serving shapes (yi-6b prefill: B = 8, S = 4096, H = 32,
 // hd = 128) attention does 4*B*H*hd*S(S+1)/2 operations on 2*B*S*(H+KV)*hd
 // elements: thousands of operations per byte, far above the H100's ~295
-// bf16 ops/byte ridge, so it is bound by operations.  This simple kernel
-// computes on CUDA-core FMAs from shared memory.  Left undone, for later
-// work: tensor cores (mma.sync, then wgmma over 64-row warpgroup tiles),
-// TMA loads of K/V into a pipelined ring of stages (here every K/V tile is
-// loaded by all threads between two barriers, with no overlap), bf16
-// staging to halve shared memory, and warp specialisation.
+// bf16 ops/byte ridge, so it is bound by operations, and only the tensor
+// cores (989 TFLOP/s bf16 dense; 67 TFLOP/s f32 on CUDA cores) come near it.
 //
-// Launch limits.  __launch_bounds__ caps each instantiation's registers so
-// that max_threads(hd) threads always fit a block; the Python side
-// (repro_torch/core/analysis.py:flash_launch_error) refuses every
-// configuration outside those limits and over the shared-memory budget
-// before it reaches this file.
+// bfloat16: flash_fwd_bf16, on the tensor cores.
+//   * One warpgroup (4 warps, 128 threads) per 64 query rows, the M of
+//     wgmma: bq is 64 or 128, so 128 or 256 threads.
+//   * Q (loaded once) and a ring of kStages K/V tiles stay bf16 in shared
+//     memory, in wgmma's no-swizzle "core matrix" layout: each 8-row x
+//     16-byte core matrix is 128 contiguous bytes (load_tile below), so
+//     the 16-byte cp.async writes of a quarter warp and every wgmma read
+//     touch 32 distinct banks without padding or swizzle.  The copy of
+//     kv block ik + kStages - 1 is in flight while block ik is computed.
+//   * S = Q K^T: one wgmma m64 n(bkv) k16 per 16 columns of hd, Q and K
+//     from shared memory (K-major), f32 accumulators in registers.  bkv is
+//     a multiple of 16 up to kMaxBkv and a template parameter (the launcher
+//     picks the instantiation), so the S fragments have a fixed size.
+//   * Online softmax on the accumulator fragments: each thread holds two
+//     rows; row max and sum over a row's four threads by quad shuffles;
+//     exp2f with scale * log2(e) folded into one multiply of the f32
+//     logits; the causal mask only on blocks that cross the diagonal; l
+//     from the f32 probabilities, kept per thread and reduced at the end.
+//   * O += P V: P, rounded to bf16, never leaves registers: the S
+//     accumulator layout of a 16-key chunk is the A-fragment layout of a
+//     k16 step, so wgmma m64n{hd}k16 takes P from registers and V from
+//     shared memory (MN-major, the transpose flag for 16-bit B).
+//   Left for later work: TMA loads and warp specialisation (a producer
+//   warp, softmax of one warpgroup overlapping the products of the other),
+//   and a swizzled layout for 128-byte rows.
+//
+// float32: flash_fwd_f32, on CUDA cores (a TF32 path would break the f32
+// tolerance of 2e-5).  bq x TPR threads, TPR consecutive threads own one
+// query row.  Per kv block all threads stage the K and V tiles in shared
+// memory, each thread computes bkv / TPR logits of its row into a shared P
+// tile, the row's threads reduce max and sum with shuffles, and each thread
+// accumulates P @ V for hd / TPR columns in registers.
+//
+// Launch limits.  __launch_bounds__ caps each instantiation's registers;
+// the Python side (repro_torch/core/analysis.py:flash_launch_error) states
+// the same limits, the shared-memory sums and the grid limit, and refuses
+// every configuration outside them before it reaches this file.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,29 +68,448 @@
 
 namespace {
 
-constexpr int kPad = 4;  // floats of padding per shared-memory row
-__host__ __device__ constexpr int threads_per_row(int hd) { return hd >= 32 ? 8 : 4; }
-__host__ __device__ constexpr int max_threads(int hd) { return hd >= 128 ? 512 : 1024; }
+// -- bfloat16: tensor cores ----------------------------------------------------
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kStages = 2;    // K/V ring depth (analysis.FLASH_STAGES)
+constexpr int kWgRows = 64;   // query rows per warpgroup: the M of wgmma
+constexpr int kMaxBq = 128;   // two warpgroups (analysis.FLASH_BF16_MAX_BQ)
+constexpr int kMaxBkv = 128;  // the largest block_kv (analysis.FLASH_BF16_MAX_BKV)
+constexpr int kKeyStep = 16;  // keys per P.V k-step, the block_kv granularity
+constexpr int kBf16Threads = 2 * kMaxBq;
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+size_t smem_bytes_bf16(int bq, int bkv, int hd) {
+  return sizeof(__nv_bfloat16) * static_cast<size_t>(hd) * (bq + 2 * kStages * bkv);
 }
 
-size_t smem_bytes(int bq, int bkv, int hd) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// cp.async writes through the generic proxy; wgmma reads through the async one
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pins a register's definition between two asm statements, so the compiler
+// neither reads an accumulator before wgmma.wait nor writes an operand
+// after wgmma.fence
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_operand(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// Shared-memory matrix descriptor in the no-swizzle layout: start address,
+// leading byte offset (between core matrices along K) and stride byte
+// offset (along M or N), each in 16-byte units.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+#define R8(b)                                                                        \
+  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]), \
+      "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+
+// D (64xN, f32) = or += A (64x16, shared) * B (16xN, shared), both K-major
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : R8(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : R8(0), R8(8)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<48>(float (&d)[24], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : R8(0), R8(8), R8(16)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<80>(float (&d)[40], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24), R8(32)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<96>(float (&d)[48], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<112>(float (&d)[56], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, %56, %57, p, 1, 1, 0, 0;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D (64xN, f32) += A (64x16, bf16 registers) * B (16xN, shared, MN-major)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : R8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : R8(0), R8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef R8
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Stage rows x HD bf16 (rows a multiple of 8, source rows `stride` elements
+// apart) into the core-matrix layout: element (r, c) sits at 16-byte unit
+// (r / 8) * (HD / 8) * 8 + (c / 8) * 8 + r % 8.  Copy e takes unit e, so a
+// quarter warp fills one 128-byte core matrix and a warp reads 64
+// contiguous bytes of each of 8 rows.
+template <int HD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int rows,
+                                          int64_t stride, int tid, int nthreads) {
+  constexpr int NC = HD / 8;
+  for (int e = tid; e < rows * NC; e += nthreads) {
+    const int r = (e / (8 * NC)) * 8 + e % 8, c = (e / 8) % NC;
+    cp_async16(dst + 8 * e, src + r * stride + 8 * c);
+  }
+}
+
+// One CTA of bq (64 or 128) query rows against kv blocks of BKV keys.
+template <int HD, int BKV>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_fwd_bf16(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
+               const __nv_bfloat16* __restrict__ V, __nv_bfloat16* __restrict__ O, int Sq,
+               int Sk, int H, int KVH, int bq, int causal, float scale_log2) {
+  static_assert(BKV % kKeyStep == 0 && BKV <= kMaxBkv, "block_kv: 16, 32, .., 128");
+  constexpr int ROWG = HD * 16;        // bytes of one 8-row group of a tile
+  constexpr int NCH = BKV / kKeyStep;  // 16-key chunks of a block
+  constexpr int bkv = BKV;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [bq][HD]
+  __nv_bfloat16* Ks = Qs + bq * HD;                                 // [kStages][bkv][HD]
+  __nv_bfloat16* Vs = Ks + kStages * bkv * HD;                      // [kStages][bkv][HD]
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int iq = gridDim.x - 1 - blockIdx.x;  // heaviest causal blocks first
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int kvh = h / (H / KVH);
+  const int q0 = iq * bq;
+  const int64_t q_stride = static_cast<int64_t>(H) * HD;  // between sequence rows
+  const int64_t kv_stride = static_cast<int64_t>(KVH) * HD;
+  const __nv_bfloat16* Qb =
+      Q + (static_cast<int64_t>(b) * Sq + q0) * q_stride + static_cast<int64_t>(h) * HD;
+  const __nv_bfloat16* Kb =
+      K + static_cast<int64_t>(b) * Sk * kv_stride + static_cast<int64_t>(kvh) * HD;
+  const __nv_bfloat16* Vb =
+      V + static_cast<int64_t>(b) * Sk * kv_stride + static_cast<int64_t>(kvh) * HD;
+  __nv_bfloat16* Ob =
+      O + (static_cast<int64_t>(b) * Sq + q0) * q_stride + static_cast<int64_t>(h) * HD;
+
+  const int n_kv = Sk / bkv;
+  const int n_visit = causal ? min(n_kv, ((iq + 1) * bq + bkv - 1) / bkv) : n_kv;
+
+  // prologue: Q and the first kStages - 1 K/V blocks, one group each
+  load_tile<HD>(Qs, Qb, bq, q_stride, tid, nthreads);
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_visit) {
+      const int64_t off = static_cast<int64_t>(st) * bkv * kv_stride;
+      load_tile<HD>(Ks + st * bkv * HD, Kb + off, bkv, kv_stride, tid, nthreads);
+      load_tile<HD>(Vs + st * bkv * HD, Vb + off, bkv, kv_stride, tid, nthreads);
+    }
+    cp_async_commit();
+  }
+
+  // this thread's two rows of the warpgroup's 64 (the wgmma fragment layout)
+  const int row0 = wg * kWgRows + warp * 16 + lane / 4;
+  const int qpos[2] = {q0 + row0, q0 + row0 + 8};
+  const int col = 2 * (lane % 4);  // first of the thread's two columns per 8
+  const uint32_t q_addr = smem_u32(Qs) + wg * 8 * ROWG;
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  float s[BKV / 2];  // S, then P: s[8c + 4j + 2i + e] is row i's key 16c + 8j + col + e
+#pragma unroll
+  for (int i = 0; i < BKV / 2; ++i) s[i] = 0.0f;
+  float m_run[2] = {-1e30f, -1e30f}, l_run[2] = {0.0f, 0.0f};
+
+  for (int ik = 0; ik < n_visit; ++ik) {
+    // block ik has landed (and, at ik = 0, Q); every thread is done with
+    // block ik - 1, whose stage the next copy overwrites
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    {
+      const int nxt = ik + kStages - 1;
+      if (nxt < n_visit) {
+        const int st = nxt % kStages;
+        const int64_t off = static_cast<int64_t>(nxt) * bkv * kv_stride;
+        load_tile<HD>(Ks + st * bkv * HD, Kb + off, bkv, kv_stride, tid, nthreads);
+        load_tile<HD>(Vs + st * bkv * HD, Vb + off, bkv, kv_stride, tid, nthreads);
+      }
+      cp_async_commit();
+    }
+    const int st = ik % kStages;
+    const int k0 = ik * bkv;
+    const uint32_t k_addr = smem_u32(Ks + st * bkv * HD);
+    const uint32_t v_addr = smem_u32(Vs + st * bkv * HD);
+
+    // 1. S = Q K^T: one m64 n(BKV) k16 instruction per 16 columns of hd
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) fence_operand(s[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<BKV>(s, make_desc(q_addr + kk * 256, 128, ROWG),
+                    make_desc(k_addr + kk * 256, 128, ROWG), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) fence_operand(s[i]);
+
+    // 2. online softmax on the fragments
+    const bool diagonal = causal && k0 + bkv - 1 > q0;
+    float m_new[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int t = 0; t < BKV / 2; ++t) {
+      const int i = (t >> 1) & 1;
+      const int kpos = k0 + 8 * (t >> 2) + col + (t & 1);
+      float x = s[t] * scale_log2;
+      if (diagonal && qpos[i] < kpos) x = -1e30f;
+      s[t] = x;
+      m_new[i] = fmaxf(m_new[i], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 1));
+      m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 2));
+      corr[i] = exp2f(m_run[i] - m_new[i]);
+      m_run[i] = m_new[i];
+      l_run[i] *= corr[i];
+    }
+#pragma unroll
+    for (int t = 0; t < BKV / 2; ++t) {
+      const int i = (t >> 1) & 1;
+      const float p = exp2f(s[t] - m_new[i]);
+      s[t] = p;
+      l_run[i] += p;
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) o[4 * j + t] *= corr[t >> 1];
+
+    // 3. O += P V: each 16-key chunk of P, rounded to bf16, is the A
+    //    fragment (rows r, r + 8; keys 2q.., 8 + 2q..) of one k16 step
+    uint32_t pa[NCH][4];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[c][r] = pack_bf16(s[8 * c + 2 * r], s[8 * c + 2 * r + 1]);
+        fence_operand(pa[c][r]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) fence_operand(o[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+      wgmma_rs<HD>(o, pa[c], make_desc(v_addr + c * 2 * ROWG, ROWG, 128));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) fence_operand(o[i]);
+  }
+  cp_async_wait<0>();  // no copy outlives the block (the last groups are empty)
+
+  // 4. the row's sum over its four threads; O = acc / max(l, 1e-30)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+  }
+  const float denom[2] = {fmaxf(l_run[0], 1e-30f), fmaxf(l_run[1], 1e-30f)};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    __nv_bfloat16* orow = Ob + static_cast<int64_t>(row0 + 8 * i) * q_stride + col;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * i] / denom[i], o[4 * j + 2 * i + 1] / denom[i]);
+  }
+}
+
+// -- float32: CUDA cores -------------------------------------------------------
+
+constexpr int kPad = 4;  // floats of padding per shared-memory row
+__host__ __device__ constexpr int threads_per_row(int hd) { return hd >= 32 ? 8 : 4; }
+__host__ __device__ constexpr int max_threads_f32(int hd) { return hd >= 128 ? 512 : 1024; }
+
+size_t smem_bytes_f32(int bq, int bkv, int hd) {
   const size_t ld = hd + kPad;
   return sizeof(float) * (bq * ld + 2 * bkv * ld + bq * static_cast<size_t>(bkv + kPad));
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(max_threads(HD))
-flash_fwd(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
-          T* __restrict__ O, int Sq, int Sk, int H, int KVH, int bq, int bkv, int causal,
-          float scale) {
+template <int HD>
+__global__ void __launch_bounds__(max_threads_f32(HD))
+flash_fwd_f32(const float* __restrict__ Q, const float* __restrict__ K, const float* __restrict__ V,
+              float* __restrict__ O, int Sq, int Sk, int H, int KVH, int bq, int bkv, int causal,
+              float scale) {
   constexpr int TPR = threads_per_row(HD);
   constexpr int CPT = HD / TPR;  // accumulator columns per thread
   constexpr int C4 = CPT / 4;    // ... in float4 chunks
@@ -94,14 +529,14 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict_
   const int q0 = iq * bq;
   const int64_t q_stride = static_cast<int64_t>(H) * HD;     // between sequence rows
   const int64_t kv_stride = static_cast<int64_t>(KVH) * HD;
-  const T* Qb = Q + (static_cast<int64_t>(b) * Sq + q0) * q_stride + static_cast<int64_t>(h) * HD;
-  const T* Kb = K + static_cast<int64_t>(b) * Sk * kv_stride + static_cast<int64_t>(kvh) * HD;
-  const T* Vb = V + static_cast<int64_t>(b) * Sk * kv_stride + static_cast<int64_t>(kvh) * HD;
-  T* Ob = O + (static_cast<int64_t>(b) * Sq + q0) * q_stride + static_cast<int64_t>(h) * HD;
+  const float* Qb = Q + (static_cast<int64_t>(b) * Sq + q0) * q_stride + static_cast<int64_t>(h) * HD;
+  const float* Kb = K + static_cast<int64_t>(b) * Sk * kv_stride + static_cast<int64_t>(kvh) * HD;
+  const float* Vb = V + static_cast<int64_t>(b) * Sk * kv_stride + static_cast<int64_t>(kvh) * HD;
+  float* Ob = O + (static_cast<int64_t>(b) * Sq + q0) * q_stride + static_cast<int64_t>(h) * HD;
 
   for (int e = tid; e < bq * HD; e += nthreads) {
     const int r = e / HD, d = e % HD;
-    Qs[r * LD + d] = to_f32(Qb[r * q_stride + d]) * scale;
+    Qs[r * LD + d] = Qb[r * q_stride + d] * scale;
   }
 
   float acc[CPT];
@@ -122,15 +557,15 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict_
     for (int e = tid; e < bkv * HD; e += nthreads) {
       const int r = e / HD, d = e % HD;
       const int64_t off = static_cast<int64_t>(k0 + r) * kv_stride + d;
-      Ks[r * LD + d] = to_f32(Kb[off]);
-      Vs[r * LD + d] = to_f32(Vb[off]);
+      Ks[r * LD + d] = Kb[off];
+      Vs[r * LD + d] = Vb[off];
     }
     __syncthreads();
 
-    // 2. logits of this thread's keys, four at a time
+    // logits of this thread's keys, four at a time
     float bmax = -1e30f;
     for (int i0 = 0; i0 < nk; i0 += 4) {
-      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float sc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int d = 0; d < HD; d += 4) {
         const float4 qv = *reinterpret_cast<const float4*>(qrow + d);
@@ -139,10 +574,10 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict_
           if (i0 + u < nk) {
             const float4 kv =
                 *reinterpret_cast<const float4*>(Ks + (g + TPR * (i0 + u)) * LD + d);
-            s[u] = fmaf(qv.x, kv.x, s[u]);
-            s[u] = fmaf(qv.y, kv.y, s[u]);
-            s[u] = fmaf(qv.z, kv.z, s[u]);
-            s[u] = fmaf(qv.w, kv.w, s[u]);
+            sc[u] = fmaf(qv.x, kv.x, sc[u]);
+            sc[u] = fmaf(qv.y, kv.y, sc[u]);
+            sc[u] = fmaf(qv.z, kv.z, sc[u]);
+            sc[u] = fmaf(qv.w, kv.w, sc[u]);
           }
         }
       }
@@ -150,14 +585,14 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict_
       for (int u = 0; u < 4; ++u) {
         if (i0 + u < nk) {
           const int j = g + TPR * (i0 + u);
-          const float x = (causal && q_pos < k0 + j) ? -1e30f : s[u];
+          const float x = (causal && q_pos < k0 + j) ? -1e30f : sc[u];
           prow[j] = x;
           bmax = fmaxf(bmax, x);
         }
       }
     }
 
-    // 3. online softmax over the row's TPR threads
+    // online softmax over the row's TPR threads
 #pragma unroll
     for (int off = TPR / 2; off > 0; off >>= 1)
       bmax = fmaxf(bmax, __shfl_xor_sync(0xffffffffu, bmax, off));
@@ -179,7 +614,7 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict_
     for (int c = 0; c < CPT; ++c) acc[c] *= corr;
     __syncwarp();  // the row's whole P slice is in shared memory
 
-    // 4. acc += P @ V on this thread's columns 4g + 4*TPR*t + (0..3)
+    // acc += P @ V on this thread's columns 4g + 4*TPR*t + (0..3)
     for (int j = 0; j < bkv; j += 4) {
       const float4 p4 = *reinterpret_cast<const float4*>(prow + j);
       const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
@@ -199,42 +634,103 @@ flash_fwd(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict_
   }
 
   const float denom = fmaxf(l_run, 1e-30f);
-  T* orow = Ob + row * q_stride + 4 * g;
+  float* orow = Ob + row * q_stride + 4 * g;
 #pragma unroll
   for (int t = 0; t < C4; ++t)
 #pragma unroll
-    for (int u = 0; u < 4; ++u) orow[4 * TPR * t + u] = from_f32<T>(acc[4 * t + u] / denom);
+    for (int u = 0; u < 4; ++u) orow[4 * TPR * t + u] = acc[4 * t + u] / denom;
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                   int H, int KVH, int bq, int bkv, int causal, float scale,
-                   cudaStream_t stream) {
-  auto kernel = flash_fwd<T, HD>;
+// -- launch ----------------------------------------------------------------------
+
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  return err;
+}
+
+template <int HD, int BKV>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                        int Sk, int H, int KVH, int bq, int causal, float scale,
+                        cudaStream_t stream) {
+  auto kernel = flash_fwd_bf16<HD, BKV>;
   static bool opted_in = false;  // one opt-in per instantiation
   if (!opted_in) {
-    int dev = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    const cudaError_t err = opt_in_smem(kernel);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
   const dim3 grid(Sq / bq, B * H);
-  const int threads = bq * threads_per_row(HD);
-  kernel<<<grid, threads, smem_bytes(bq, bkv, HD), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, KVH, bq, bkv, causal, scale);
+  kernel<<<grid, 2 * bq, smem_bytes_bf16(bq, BKV, HD), stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KVH, bq,
+      causal, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-int max_threads_of() {
+// block_kv (a multiple of 16 up to kMaxBkv) picks the instantiation
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                        int Sk, int H, int KVH, int bq, int bkv, int causal, float scale,
+                        cudaStream_t stream) {
+#define LAUNCH_BKV(BKV)                                                                  \
+  case BKV:                                                                              \
+    return launch_bf16<HD, BKV>(q, k, v, o, B, Sq, Sk, H, KVH, bq, causal, scale, stream)
+  switch (bkv) {
+    LAUNCH_BKV(16);
+    LAUNCH_BKV(32);
+    LAUNCH_BKV(48);
+    LAUNCH_BKV(64);
+    LAUNCH_BKV(80);
+    LAUNCH_BKV(96);
+    LAUNCH_BKV(112);
+    LAUNCH_BKV(128);
+  }
+#undef LAUNCH_BKV
+  return cudaErrorInvalidValue;
+}
+
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                       int Sk, int H, int KVH, int bq, int bkv, int causal, float scale,
+                       cudaStream_t stream) {
+  auto kernel = flash_fwd_f32<HD>;
+  static bool opted_in = false;  // one opt-in per instantiation
+  if (!opted_in) {
+    const cudaError_t err = opt_in_smem(kernel);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const dim3 grid(Sq / bq, B * H);
+  kernel<<<grid, bq * threads_per_row(HD), smem_bytes_f32(bq, bkv, HD), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Sq, Sk, H, KVH, bq, bkv, causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename Kernel>
+int max_threads_of(Kernel kernel) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, flash_fwd<T, HD>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   return err == cudaSuccess ? attr.maxThreadsPerBlock : -static_cast<int>(err);
+}
+
+// the least limit over a head_dim's block_kv instantiations
+template <int HD>
+int max_threads_bf16() {
+  const int limits[] = {
+      max_threads_of(flash_fwd_bf16<HD, 16>), max_threads_of(flash_fwd_bf16<HD, 32>),
+      max_threads_of(flash_fwd_bf16<HD, 48>), max_threads_of(flash_fwd_bf16<HD, 64>),
+      max_threads_of(flash_fwd_bf16<HD, 80>), max_threads_of(flash_fwd_bf16<HD, 96>),
+      max_threads_of(flash_fwd_bf16<HD, 112>), max_threads_of(flash_fwd_bf16<HD, 128>)};
+  int least = limits[0];
+  for (int x : limits) least = x < least ? x : least;
+  return least;
 }
 
 }  // namespace
@@ -254,10 +750,9 @@ int repro_flash(int dtype, int head_dim, const void* q, const void* k, const voi
                 int B, int Sq, int Sk, int H, int KVH, int bq, int bkv, int causal, float scale,
                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAUNCH_F32(HD) \
-  return launch<float, HD>(q, k, v, o, B, Sq, Sk, H, KVH, bq, bkv, causal, scale, s)
+#define LAUNCH_F32(HD) return launch_f32<HD>(q, k, v, o, B, Sq, Sk, H, KVH, bq, bkv, causal, scale, s)
 #define LAUNCH_BF16(HD) \
-  return launch<__nv_bfloat16, HD>(q, k, v, o, B, Sq, Sk, H, KVH, bq, bkv, causal, scale, s)
+  return launch_bf16<HD>(q, k, v, o, B, Sq, Sk, H, KVH, bq, bkv, causal, scale, s)
   if (dtype == 0) {
     switch (head_dim) { ALL_HEAD_DIMS(LAUNCH_F32) }
   } else if (dtype == 1) {
@@ -266,11 +761,12 @@ int repro_flash(int dtype, int head_dim, const void* q, const void* k, const voi
   return -1;
 }
 
-// The launch limit the compiled instantiation reports
-// (cudaFuncAttributes::maxThreadsPerBlock), or -1 / -cudaError_t.
+// The launch limit the compiled instantiations report
+// (cudaFuncAttributes::maxThreadsPerBlock; for bf16 the least over the
+// block_kv instantiations), or -1 / -cudaError_t.
 int repro_flash_max_threads(int dtype, int head_dim) {
-#define MAXT_F32(HD) return max_threads_of<float, HD>()
-#define MAXT_BF16(HD) return max_threads_of<__nv_bfloat16, HD>()
+#define MAXT_F32(HD) return max_threads_of(flash_fwd_f32<HD>)
+#define MAXT_BF16(HD) return max_threads_bf16<HD>()
   if (dtype == 0) {
     switch (head_dim) { ALL_HEAD_DIMS(MAXT_F32) }
   } else if (dtype == 1) {

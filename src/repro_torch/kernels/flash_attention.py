@@ -1,8 +1,9 @@
 """The flash-attention kernel for Hopper, its plain PyTorch version, and the
 tuner <-> kernel contract.
 
-The kernel (``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``) replaces
-the Pallas TPU kernel ``repro/kernels/flash_attention.py:_flash_kernel``.
+The kernel (``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``: bf16 on
+the tensor cores with ``wgmma``, f32 on CUDA cores) replaces the Pallas
+TPU kernel ``repro/kernels/flash_attention.py:_flash_kernel``.
 It is built with ``nvcc`` into a shared library with a plain C interface
 the first time it is needed (into ``_build/`` beside this file, keyed by
 a hash of the source) and bound with ``ctypes``.
@@ -13,7 +14,8 @@ layout — q ``(B, S, H, hd)``, k/v ``(B, S, KV, hd)`` with ``H = KV * G``
 ``ValueError`` on everything the launch rule of
 ``repro_torch.core.analysis`` refuses), then launches the kernel on the
 current stream for CUDA tensors, or runs :func:`flash_attention_plain` —
-the same block loop and online softmax in PyTorch f32 — for CPU tensors.
+the same block loop and online softmax in PyTorch f32, rounding where the
+kernel rounds — for CPU tensors.
 Every kernel launch adds one to :data:`LAUNCHES` (keyed by
 ``(seq_q, seq_kv, head_dim)``, the workload key's dims).
 """
@@ -52,20 +54,27 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES: collections.Counter = collections.Counter()
 
 
+#: heuristic blocks by input width, most preferred first.  bf16: two
+#: warpgroups on 128-key blocks (256 threads, 160 KB of shared memory at
+#: hd 128), then smaller; f32: 64 x 64 (512 threads at hd 128, about 116 KB)
+_HEURISTIC_BLOCKS = {
+    2: ((128, 128), (128, 64), (64, 64), (64, 32), (64, 16)),
+    4: tuple((bq, bkv) for bq in (64, 32, 16) for bkv in (64, 32, 16)),
+}
+
+
 def default_blocks(seq_q: int, seq_kv: int, head_dim: int, in_bytes: int = 2,
                    grid_y: int = 1) -> Optional[tuple[int, int]]:
-    """Heuristic ``(block_q, block_kv)`` when no tuning record exists, or
-    None when no block the kernel launches (at ``grid_y`` = batch x query
-    heads) divides the sequences (then dispatch runs plain attention).
-    Prefers 64 x 64 — 512 threads at hd 128, about 116 KB of shared
-    memory — shrinking where the sequences do not divide.  (The JAX package's TPU default, 256 x 512,
-    needs more than a CTA's 227 KB at hd 128.)"""
-    for bq in (64, 32, 16):
-        for bkv in (64, 32, 16):
-            if (seq_q % bq == 0 and seq_kv % bkv == 0
-                    and flash_launch_error(bq, bkv, head_dim, in_bytes,
-                                           grid_y=grid_y) is None):
-                return bq, bkv
+    """Heuristic ``(block_q, block_kv)`` for ``in_bytes``-wide inputs when
+    no tuning record exists, or None when no block the kernel launches
+    (at ``grid_y`` = batch x query heads) divides the sequences (then
+    dispatch runs plain attention).  Takes the first of
+    ``_HEURISTIC_BLOCKS`` that divides and launches.  (The JAX package's
+    TPU default, 256 x 512, needs more than a CTA's 227 KB at hd 128.)"""
+    for bq, bkv in _HEURISTIC_BLOCKS.get(in_bytes, ()):
+        if (seq_q % bq == 0 and seq_kv % bkv == 0
+                and flash_launch_error(bq, bkv, head_dim, in_bytes, grid_y=grid_y) is None):
+            return bq, bkv
     return None
 
 
@@ -85,8 +94,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per q block an online softmax over kv blocks (running max from
     -1e30, logits masked to -1e30 where ``q_pos < k_pos``, the causal
     early exit at ``ceil((iq+1)*bq / bkv)``), output
-    ``acc / max(l, 1e-30)`` in the input type.  Takes any shape; the
-    blocks must divide the sequences."""
+    ``acc / max(l, 1e-30)`` in the input type.  For bf16 inputs p is
+    rounded to bf16 before ``p @ v`` and l is summed from the f32 p, as
+    the tensor-core kernel does.  Takes any shape; the blocks must divide
+    the sequences."""
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -117,6 +128,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p = torch.exp(logits - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
+            if q.dtype == torch.bfloat16:  # P enters the tensor cores as bf16
+                p = p.to(torch.bfloat16).float()
             acc = acc * corr[..., None] + p @ vb
             m = m_new
         out[:, :, :, iq * block_q:(iq + 1) * block_q] = acc / torch.clamp(l, min=1e-30)[..., None]
@@ -200,6 +213,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, bq, bkv, causal)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the kernel copies 16-byte chunks: operands must be 16-byte aligned")
     out = launch_with(build_kernel()[0], q, k, v, bq, bkv, causal)
     LAUNCHES[(sq, sk, hd)] += 1
     return out

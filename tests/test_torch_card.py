@@ -37,16 +37,25 @@ def test_gemm_kernel_matches_plain_on_card(dtype):
                                    rtol=rtol, atol=rtol * 8)
 
 
+#: (G, causal, (block_q, block_kv)) per dtype: the bf16 kernel takes whole
+#: 64-row warpgroups and up to 128 keys a block, the f32 one blocks of 16
+FLASH_CASES = {
+    torch.bfloat16: ((1, True, (64, 16)), (4, True, (128, 32)), (8, False, (64, 128)),
+                     (8, True, (128, 128))),
+    torch.float32: ((1, True, (16, 16)), (4, True, (64, 32)), (8, False, (32, 64)),
+                    (8, True, (64, 64))),
+}
+
+
 @pytest.mark.gpu
 # bf16: two rounding steps, as chip_smoke.py states (kernel and plain
-# version round the same f32 values, so they differ by at most one)
+# version round P and the output at the same places)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, (2e-5, 8e-5)),
                                        (torch.bfloat16, (1.6e-2, 2e-3))])
 @pytest.mark.parametrize("hd", FLASH_HEAD_DIMS)
 def test_flash_kernel_matches_plain_on_card(dtype, tol, hd):
     gen = _card()
-    for g, causal, (bq, bkv) in ((1, True, (16, 16)), (4, True, (64, 32)),
-                                 (8, False, (32, 64)), (8, True, (64, 64))):
+    for g, causal, (bq, bkv) in FLASH_CASES[dtype]:
         q = torch.randn(2, 256, 2 * g, hd, generator=gen, device="cuda").to(dtype)
         k = torch.randn(2, 256, 2, hd, generator=gen, device="cuda").to(dtype)
         v = torch.randn(2, 256, 2, hd, generator=gen, device="cuda").to(dtype)
@@ -64,4 +73,4 @@ def test_flash_launch_limits_match_the_analyzer():
     _card()
     for dtype in (torch.float32, torch.bfloat16):
         for hd in FLASH_HEAD_DIMS:
-            assert fa.kernel_max_threads(dtype, hd) == flash_max_threads(hd)
+            assert fa.kernel_max_threads(dtype, hd) == flash_max_threads(hd, dtype.itemsize)

@@ -29,10 +29,12 @@ from repro.launch.tune import flash_workloads_for_arch as ref_flash_workloads
 from repro_torch.core import Budget, TrialJournal, TuningRecords, TuningSession, Workload
 from repro_torch.core.analysis import (
     FLASH_HEAD_DIMS,
+    FLASH_STAGES,
     ScheduleAnalyzer,
     flash_launch_error,
     flash_max_threads,
     flash_smem_bytes,
+    flash_threads,
     should_prune,
 )
 from repro_torch.core.cost.base import CostBackend
@@ -167,19 +169,52 @@ def test_wrapper_refusals_agree_with_analyzer(hd, dtype):
     assert all(verdicts) == (hd not in FLASH_HEAD_DIMS)
 
 
-def test_launch_rule_edges():
-    assert flash_launch_error(64, 64, 128) is None
-    assert flash_launch_error(64, 64, 96)[0] == "head_dim"
+#: per dtype, (blocks, head_dim, grid_y) -> the launch rule's reason
+#: (None: launches); bf16 takes the tensor-core kernel, f32 the CUDA-core one
+LAUNCH_EDGES = {
+    "bfloat16": [
+        ((128, 128, 128), None),  # two warpgroups, 160 KB of shared memory
+        ((64, 16, 128), None),
+        ((64, 64, 96), "head_dim"),
+        ((8, 64, 128), "block_below_minimum"),
+        ((64, 40, 128), "block_alignment"),  # block_kv not a multiple of 16
+        ((32, 64, 128), "block_alignment"),  # block_q under one warpgroup (64 rows)
+        ((96, 64, 128), "block_alignment"),
+        ((192, 64, 16), "threads_over_limit"),  # 384 > 256 threads
+        ((64, 144, 128), "kv_block_over_registers"),
+        ((128, 128, 128, 70_000), "grid_too_large"),
+    ],
+    "float32": [
+        ((64, 64, 128), None),
+        ((48, 64, 128), None),  # a multiple of 16
+        ((64, 64, 96), "head_dim"),
+        ((8, 64, 128), "block_below_minimum"),
+        ((40, 64, 128), "block_alignment"),
+        ((128, 32, 128), "threads_over_limit"),  # 1024 > 512
+        ((128, 32, 64), None),  # 1024 threads at hd 64
+        ((64, 256, 128), "smem_overflow"),
+        ((64, 64, 128, 70_000), "grid_too_large"),
+    ],
+}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_launch_rule_edges(dtype):
+    in_bytes = 2 if dtype == "bfloat16" else 4
     assert flash_launch_error(64, 64, 128, in_bytes=1)[0] == "dtype"
-    assert flash_launch_error(8, 64, 128)[0] == "block_below_minimum"
-    assert flash_launch_error(48, 64, 128) is None  # a multiple of 16
-    assert flash_launch_error(40, 64, 128)[0] == "block_alignment"
-    assert flash_launch_error(128, 32, 128)[0] == "threads_over_limit"  # 1024 > 512
-    assert flash_launch_error(128, 32, 64) is None  # 1024 threads at hd 64
-    assert flash_max_threads(128) == 512 and flash_max_threads(16) == 1024
-    assert flash_launch_error(64, 256, 128)[0] == "smem_overflow"
-    assert flash_smem_bytes(64, 128, 128) <= 232_448 < flash_smem_bytes(64, 256, 128)
-    assert flash_launch_error(64, 64, 128, grid_y=70_000)[0] == "grid_too_large"
+    for (bq, bkv, hd, *grid), want in LAUNCH_EDGES[dtype]:
+        err = flash_launch_error(bq, bkv, hd, in_bytes, grid_y=grid[0] if grid else 1)
+        assert (err and err[0]) == want, ((bq, bkv, hd), err)
+    if dtype == "bfloat16":
+        # 128 threads per 64-row warpgroup, __launch_bounds__(256) for every hd;
+        # the Q tile and a ring of FLASH_STAGES bf16 K/V tiles, no P tile
+        assert flash_threads(128, 16) == flash_max_threads(16) == flash_max_threads(128) == 256
+        assert flash_smem_bytes(128, 128, 128) == 2 * 128 * (128 + 2 * FLASH_STAGES * 128)
+        assert flash_smem_bytes(128, 128, 128) <= 232_448
+    else:
+        assert flash_threads(64, 128, 4) == 512
+        assert flash_max_threads(128, 4) == 512 and flash_max_threads(16, 4) == 1024
+        assert flash_smem_bytes(64, 128, 128, 4) <= 232_448 < flash_smem_bytes(64, 256, 128, 4)
 
 
 def test_analyzer_flash_verdicts():
@@ -199,20 +234,34 @@ def test_analyzer_flash_verdicts():
     assert tall.analyze(FlashScheduleState((64, 64), (64, 64))).reason == "grid_too_large"
 
 
-def test_default_blocks_fit_hopper_where_the_tpu_default_does_not():
-    """The JAX package's TPU default (256 x 512) needs more than a CTA's
-    shared memory at hd 128; the port keeps its own heuristic blocks."""
-    assert flash_launch_error(256, 512, 128) is not None
-    assert default_blocks(4096, 4096, 128) == (64, 64)
-    assert default_blocks(4096, 4096, 128, in_bytes=4) == (64, 64)
-    assert default_blocks(128, 128, 16) == (64, 64)
-    assert default_blocks(48, 48, 16) == (16, 16)
-    assert default_blocks(100, 100, 16) is None  # no block divides
-    assert default_blocks(4096, 4096, 8) is None  # no instantiation
+#: per dtype: (seq_q, seq_kv, head_dim) -> heuristic blocks
+DEFAULT_BLOCKS = {
+    "bfloat16": [((4096, 4096, 128), (128, 128)), ((128, 128, 16), (128, 128)),
+                 ((192, 192, 64), (64, 64)), ((64, 64, 32), (64, 64)),
+                 ((48, 48, 16), None),  # under one warpgroup of rows
+                 ((100, 100, 16), None), ((4096, 4096, 8), None)],
+    "float32": [((4096, 4096, 128), (64, 64)), ((128, 128, 16), (64, 64)),
+                ((48, 48, 16), (16, 16)), ((100, 100, 16), None), ((4096, 4096, 8), None)],
+}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_default_blocks_fit_hopper_where_the_tpu_default_does_not(dtype):
+    """The JAX package's TPU default (256 x 512) cannot launch at hd 128;
+    the port keeps its own heuristic blocks per dtype, each of which the
+    launch rule takes."""
+    in_bytes = 2 if dtype == "bfloat16" else 4
+    assert flash_launch_error(256, 512, 128, in_bytes) is not None
+    for (sq, skv, hd), want in DEFAULT_BLOCKS[dtype]:
+        got = default_blocks(sq, skv, hd, in_bytes=in_bytes)
+        assert got == want, ((sq, skv, hd), got)
+        if got is not None:
+            assert flash_launch_error(*got, hd, in_bytes) is None
     st = state_from_blocks(64, 32, 4096, 4096)
     assert (st.block_q, st.block_kv, st.dims()) == (64, 32, (4096, 4096))
     space = get_op("flash").make_space((4096, 4096, 128))
-    assert get_op("flash").default_state(space, "bfloat16") == state_from_blocks(64, 64, 4096, 4096)
+    assert get_op("flash").default_state(space, dtype) == state_from_blocks(
+        *default_blocks(4096, 4096, 128, in_bytes), 4096, 4096)
 
 
 # -- the search space ----------------------------------------------------------
@@ -301,18 +350,35 @@ def test_kv_visits_equal_reference(dims, causal):
         assert port.kv_visits(s) == ref.kv_visits(r)
 
 
-def test_analytical_model_structure():
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_analytical_model_structure(dtype):
     space = FlashAttnConfigSpace(4096, 4096, 128)
-    cost, analyzer = FlashAnalyticalHopperCost(space), ScheduleAnalyzer(space)
+    cost = FlashAnalyticalHopperCost(space, dtype=dtype)
+    analyzer = ScheduleAnalyzer(space, in_bytes=cost.in_bytes)
     states = list(space.enumerate())
     costs = [cost.cost(s) for s in states]
-    assert costs == FlashAnalyticalHopperCost(space).batch_cost(states)  # deterministic
+    assert costs == FlashAnalyticalHopperCost(space, dtype=dtype).batch_cost(states)  # deterministic
     for s, c in zip(states, costs):
         assert math.isinf(c) == analyzer.analyze(s).illegal
     assert sum(map(math.isfinite, costs)) > 5
     # a coarser kv block wastes masked work above the causal diagonal
     assert cost.kv_visits(state_from_blocks(64, 16, 4096, 4096)) * 16 < \
         cost.kv_visits(state_from_blocks(64, 128, 4096, 4096)) * 128
+
+
+def test_analytical_model_follows_the_kernel_of_each_dtype():
+    """bf16 is costed at a share of the tensor-core rate, f32 on CUDA cores:
+    at the served blocks of each, the tensor-core kernel is several times
+    faster; the two models never share journal entries."""
+    space = FlashAttnConfigSpace(4096, 4096, 128, heads=32, kv_heads=4)
+    bf16 = FlashAnalyticalHopperCost(space, dtype="bfloat16")
+    f32 = FlashAnalyticalHopperCost(space, dtype="float32")
+    st = state_from_blocks(64, 64, 4096, 4096)
+    assert 4 * bf16.cost(st) < f32.cost(st) < math.inf
+    # the tensor-core bound: the causal products at 989 TFLOP/s, on 32 heads
+    ops = 4 * 32 * 128 * 4096 * 4097 // 2
+    assert ops / 989e12 < bf16.cost(st) < 10 * ops / 989e12
+    assert bf16.measure_fingerprint() != f32.measure_fingerprint().replace("float32", "bfloat16")
 
 
 # -- tuning parity -------------------------------------------------------------
@@ -381,3 +447,67 @@ def test_flash_tune_workload_parity(tmp_path, monkeypatch):
     assert port[2] == ref[2]
     assert port[3] == ref[3]
 
+
+
+# -- the plain version rounds where the kernel rounds ---------------------------
+
+
+def test_plain_rounds_p_to_bf16_where_the_kernel_does():
+    """For bf16 inputs the plain version feeds P @ V with p rounded to bf16
+    and sums l from the f32 p, as the tensor-core kernel does; f32 inputs
+    keep f32 p.  One kv block, full attention: the softmax written out."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 64, 2, 1, 32, seed=4))
+    for dtype in (torch.bfloat16, torch.float32):
+        qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+        logits = torch.einsum("bqhd,bkhd->bhqk", qd.float() / math.sqrt(32),
+                              kd.float().expand(-1, -1, 2, -1))
+        p = torch.exp(logits - logits.amax(-1, keepdim=True))
+        pv = p.to(dtype).float() if dtype == torch.bfloat16 else p
+        want = (torch.einsum("bhqk,bkhd->bqhd", pv, vd.float().expand(-1, -1, 2, -1))
+                / p.sum(-1).permute(0, 2, 1)[..., None]).to(dtype)
+        got = flash_attention_plain(qd, kd, vd, 64, 64, causal=False)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-6, atol=1e-6)
+    # rounding p moves the bf16 result off the f32-p result somewhere
+    f32p = flash_attention_plain(q, k, v, 64, 64, causal=False)
+    bf = flash_attention_plain(q.bfloat16(), k.bfloat16(), v.bfloat16(), 64, 64, causal=False)
+    unrounded = flash_attention_plain(q.bfloat16().float(), k.bfloat16().float(),
+                                      v.bfloat16().float(), 64, 64, causal=False).bfloat16()
+    assert not torch.equal(bf, unrounded)
+    assert (bf.float() - f32p).abs().max() < 0.05
+
+
+# -- the measured cost names the kernel it times --------------------------------
+
+
+def test_measured_fingerprint_names_the_kernel_source(tmp_path, monkeypatch):
+    """HopperTimedCost's fingerprint carries the digest of the source its
+    op launches, so a journal measured on another build of the kernel is
+    re-measured, not served.  Checked on a copy of the sources, without a
+    card or nvcc."""
+    import shutil
+
+    from repro_torch.core.cost import measured
+    from repro_torch.kernels import build
+
+    for name in ("flash_attention.cu", "gemm.cu"):
+        shutil.copy(f"{build.CSRC_DIR}/{name}", tmp_path / name)
+    backend = object.__new__(measured.HopperTimedCost)
+    backend.space = FlashAttnConfigSpace(256, 256, 32, heads=8, kv_heads=2)
+    backend.n_repeats, backend.dtype, backend.seed = 3, "bfloat16", 0
+    backend.device = torch.device("cuda")
+    backend._opspec = get_op("flash")
+    backend._operands = get_op("flash").operands(backend.space, "float32", 0, "cpu")
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "card")
+
+    repo_fp = backend.measure_fingerprint()
+    digest = build.source_digest("flash_attention.cu")
+    assert f"|src=flash_attention.cu@{digest}|" in repo_fp
+    monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path))
+    assert backend.measure_fingerprint() == repo_fp  # the same text, the same part
+    with open(tmp_path / "flash_attention.cu", "a") as f:
+        f.write("// another build\n")
+    changed = backend.measure_fingerprint()
+    assert changed != repo_fp and digest not in changed
+    assert changed.replace(build.source_digest("flash_attention.cu", str(tmp_path)), digest) == repo_fp
+    # the GEMM op names its own source
+    assert measured.kernel_source_part(get_op("gemm")).startswith("src=gemm.cu@")

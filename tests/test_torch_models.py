@@ -33,7 +33,11 @@ from repro_torch.models import common as cm
 from repro_torch.models.api import Model
 from repro_torch.models.transformer import params_from_reference
 
-BLOCKS = FlashScheduleState((4, 32), (2, 64))  # (block_q, block_kv) = (32, 64) at 128
+#: the flash schedule both packages serve at 128 tokens, per dtype: (block_q,
+#: block_kv) = (32, 64) in f32, and (64, 32) in bf16, whose tensor-core
+#: kernel takes whole 64-row warpgroups
+BLOCKS = {"float32": FlashScheduleState((4, 32), (2, 64)),
+          "bfloat16": FlashScheduleState((2, 64), (4, 32))}
 
 
 @pytest.fixture
@@ -47,11 +51,11 @@ def flash_records():
     def write(seq, hd, dtype):
         rec = RefRecords()
         rec.update(ref_key("flash", (seq, seq, hd), dtype, "analytical_tpu_v5e"),
-                   BLOCKS, cost=1.0, tuner="test", n_trials=1)
+                   BLOCKS[dtype], cost=1.0, tuner="test", n_trials=1)
         ref_set_records(rec)
         port = TuningRecords()
         port.update(workload_key_for("flash", (seq, seq, hd), dtype, "hopper_timed"),
-                    BLOCKS, cost=1.0, tuner="test", n_trials=1)
+                    BLOCKS[dtype], cost=1.0, tuner="test", n_trials=1)
         set_global_records(port)
 
     ops.reset_dispatch_stats()
