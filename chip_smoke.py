@@ -7,24 +7,32 @@ served at full width on the tuned records.
 
 Phases (each prints its wall time):
 
-  1. build both kernels (``src/repro_torch/kernels/csrc/*.cu``), and two
-     variants of the flash kernel with a planted fault (its source with one
-     line changed, built in a temporary directory), one nvcc per source,
-     all started together; count the tensor-core instructions (``HGMMA``,
-     ``HMMA``) of each bf16 flash instantiation (head_dim x block_kv) in
+  1. build both kernels (``src/repro_torch/kernels/csrc/*.cu``) and two
+     variants of each with a planted fault (its source with one line
+     changed, built in a temporary directory), one nvcc per source, all
+     started together; count the tensor-core instructions (``HGMMA``,
+     ``HMMA``) of each bf16 instantiation of both kernels in
      ``cuobjdump -sass`` of the built library (fails on a count of 0), and
-     print ptxas' registers and spills for them (phase 9 prints the served
-     instantiation's);
-  2. hold the GEMM kernel against its plain PyTorch version on small
-     products (several configs, f32 and bf16, and the autograd backward);
-  3. tune the five yi-6b bf16 GEMMs (8192 tokens) with G-BFS on times
-     measured on the card, each seeded from the kernel's heuristic state;
+     print ptxas' registers, spills and injected ``warpgroup.arrive``s for
+     them (the GEMM's ``wgmma`` instantiations must have neither spills
+     nor injected arrives; phase 9 prints the served flash instantiation's);
+  2. hold the GEMM kernels against their plain PyTorch version on small
+     products: every compiled instantiation's launch limit against the
+     analyzer's, the f32 SIMT kernel under several configs, every bf16
+     ``wgmma`` instantiation with one and two warpgroups, the bf16
+     bandwidth kernel at M = 8 and 16, and the autograd backward; then see
+     the bf16 limit refuse both planted GEMM faults;
+  3. tune the five yi-6b bf16 GEMMs (8192 tokens) and one decode product,
+     (8, 4096, 11008), with G-BFS on times measured on the card, each
+     seeded from the kernel's heuristic state;
   4. rerun the tune CLI with ``--warm-start`` on the same records;
   5. reload the records and serve every tuned shape through ``gemm()``,
      checked against an f32 ``torch.matmul``;
-  6. hold the GEMM kernel under each tuned config against the plain
-     version at full width and time the kernel, the plain version and
-     torch.matmul;
+  6. hold the GEMM kernel against the plain version at full width and time
+     the kernel, the plain version and ``torch.matmul``: each tuned shape
+     under its record, and the shapes yi-6b's serve runs (prefill at
+     M = 32768, decode at M = 8) under the config dispatch gives them; see
+     the bf16 limit refuse both planted faults at full width;
   7. check the flash kernel: each instantiation's launch limit equals the
      analyzer's, kernel vs plain on small shapes (the blocks of each
      dtype's list, f32 and bf16, causal and full, G in {1, 4, 8}, every
@@ -51,15 +59,28 @@ Phases (each prints its wall time):
      same model on the CPU (plain versions).
 
 Launch counts of each path are zeroed just before it and read just after:
-the GEMM path is phases 3-5, the flash path phases 8-9 (the CLIs'
-launches, made in their own processes, are added from their output).
-Tolerances: GEMM float32 rtol 1e-4 / atol 8e-4, bfloat16 rtol 0.05 /
-atol 0.4 (the JAX package's GEMM kernel tests); flash float32 rtol 2e-5 /
-atol 8e-5 (its flash kernel tests), bfloat16 rtol 1.6e-2 / atol 2e-3 (two
-bf16 rounding steps: kernel and plain version do the same f32 arithmetic
-in another order and round P and the output at the same places); the
-reduced model's logits rtol/atol 2e-4 (its port tests).  Exits non-zero
-on any failure; prints the kernels JSON line, then the device line last.
+the GEMM tuning path is phases 3-5, the flash tuning path phase 8, the
+serve phase 9 (the CLIs' launches, made in their own processes, are added
+from their output).  Each kernel row gives ``launches_tune`` and
+``launches_serve`` and their sum as ``launches``.  GEMM rows give each
+time twice: ``ms``/``library_ms`` timed as earlier slices timed them
+(the event span holds the host's enqueue of the call), and
+``ms_spin``/``library_ms_spin`` with the card kept busy while the host
+enqueues (the device's time alone).  Tolerances, kernel against its plain version: GEMM
+float32 rtol 1e-4 / atol 8e-4 (the JAX package's GEMM kernel tests),
+bfloat16 rtol 1.6e-2 / atol 2e-3 * max(1, K / 4096) (kernel and plain
+version sum the same products in f32 in another order and round the
+output to bf16 once, so they differ by a rounding step, 2^-8 to 2^-7
+relative; wgmma adds each k16 step to its accumulator with less than
+f32's precision, an absolute error that grows with K: the ``[time]``
+lines print the atol each full-width check needs); flash float32 rtol 2e-5 / atol 8e-5 (its flash
+kernel tests), bfloat16 rtol 1.6e-2 / atol 2e-3 (two bf16 rounding
+steps: kernel and plain version do the same f32 arithmetic in another
+order and round P and the output at the same places).  GEMM against an
+f32 ``torch.matmul`` (phases 2, 5 and 9): the JAX package's bf16 GEMM
+tolerance, rtol 0.05 / atol 0.4.  The reduced model's logits rtol/atol
+2e-4 (its port tests).  Exits non-zero on any failure; prints the
+kernels JSON line, then the device line last.
 """
 
 from __future__ import annotations
@@ -80,7 +101,30 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
-TOL = {torch.float32: (1e-4, 8e-4), torch.bfloat16: (0.05, 0.4)}
+#: GEMM kernel against its plain version at K <= 4096 (see gemm_tol)
+TOL = {torch.float32: (1e-4, 8e-4), torch.bfloat16: (1.6e-2, 2e-3)}
+#: GEMM against an f32 torch.matmul: the JAX package's GEMM tolerances
+MATMUL_TOL = {torch.float32: (1e-4, 8e-4), torch.bfloat16: (0.05, 0.4)}
+GEMM_CU = os.path.join(SRC, "repro_torch", "kernels", "csrc", "gemm.cu")
+#: planted faults the bf16 GEMM limit must refuse, each in the kernel it
+#: breaks: one line of the source, and what a variant built beside it has
+GEMM_FAULTS = {
+    # the wgmma kernel's warpgroups read the ring slot after slab i's
+    "wrong_ring_slot": ("const int slot = i % stages;", "const int slot = (i + 1) % stages;"),
+    # the bandwidth kernel's reduction leaves out the last warp's partial sums
+    "split_k_drop": (
+        "for (int w = 0; w < kStreamWarps; ++w) s += red[w * bm * BN + e];",
+        "for (int w = 0; w < kStreamWarps - 1; ++w) s += red[w * bm * BN + e];",
+    ),
+}
+#: the decode product phase 3 tunes beside the reference's five workloads
+DECODE_TUNED = (8, 4096, 11008)
+DECODE_TRIALS = 60
+#: the products yi-6b's serve runs at full width: prefill (8 x 4096 tokens)
+#: and decode (8 tokens) — q/o, k/v, gate/up, down, and the lm head
+SERVED_SHAPES = ((32768, 4096, 4096), (32768, 4096, 512), (32768, 4096, 11008),
+                 (32768, 11008, 4096), (8, 4096, 4096), (8, 4096, 512), (8, 4096, 11008),
+                 (8, 11008, 4096), (8, 4096, 65536))
 # kernel and plain version round P and the output to bf16 at the same
 # places, from f32 values that differ only in the order of f32 sums, so
 # outputs differ by about a rounding step (2^-7 relative, 0.0039 below 1);
@@ -123,13 +167,25 @@ def phase(name: str, t0: float) -> None:
     print(f"[phase] {name}: {time.perf_counter() - t0:.1f}s", flush=True)
 
 
-def timed_ms(fn, repeats: int, flush: torch.Tensor) -> float:
+#: device clock cycles the card spins before a timed run with ``spin``
+#: (about 0.5 ms), so the host has enqueued the timed call before its
+#: start event fires
+SPIN_CYCLES = 1_000_000
+
+
+def timed_ms(fn, repeats: int, flush: torch.Tensor, spin: bool = False) -> float:
     """Mean CUDA-event time of ``fn`` over ``repeats`` runs after one
-    warm-up run, with the L2 flushed before each timed run."""
+    warm-up run, with the L2 flushed before each timed run.  Without
+    ``spin`` (how every earlier row was timed) the span holds the host's
+    time to enqueue ``fn``; with it, the card is kept busy while the
+    host enqueues, so the span is the device's alone (a microsecond
+    kernel is otherwise timed with the host's launch overhead)."""
     fn()
     total = 0.0
     for _ in range(repeats):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -138,6 +194,21 @@ def timed_ms(fn, repeats: int, flush: torch.Tensor) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / repeats
+
+
+def gemm_tol(k: int) -> dict:
+    """The GEMM kernel's limit against its plain version for a K-deep
+    product: TOL, with the bf16 atol grown in proportion to K above 4096.
+    wgmma adds each k16 step to its accumulator with less than f32's
+    precision, an error that grows with the number of steps (the
+    ``[time]`` lines print the atol each full-width check needs)."""
+    rtol, atol = TOL[torch.bfloat16]
+    return {**TOL, torch.bfloat16: (rtol, atol * max(1.0, k / 4096))}
+
+
+def atol_needed(got: torch.Tensor, ref: torch.Tensor, rtol: float) -> float:
+    """The least atol under which ``got`` is within ``rtol`` of ``ref``."""
+    return ((got.float() - ref.float()).abs() - rtol * ref.float().abs()).max().item()
 
 
 def within(got: torch.Tensor, ref: torch.Tensor, dtype, tol=TOL) -> tuple[float, bool]:
@@ -158,20 +229,105 @@ def check_close(what: str, got: torch.Tensor, ref: torch.Tensor, dtype, tol=TOL)
     return err
 
 
-def fault_variant(name: str, out_dir: str):
-    """Build the flash kernel's source with the planted fault ``name``
-    into ``out_dir``; returns ``(library, ptxas report)``."""
+def fault_variant(source: str, faults: dict, name: str, out_dir: str):
+    """Build the kernel source ``source`` with the planted fault ``name``
+    of ``faults`` into ``out_dir``; returns ``(library, ptxas report)``."""
     from repro_torch.kernels.build import build_library
 
-    old, new = FAULTS[name]
-    with open(FLASH_CU) as f:
+    old, new = faults[name]
+    with open(source) as f:
         src = f.read()
     if src.count(old) != 1:
         raise RuntimeError(f"the line of fault {name} is not in the source once")
-    path = os.path.join(out_dir, f"flash_attention_{name}.cu")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    path = os.path.join(out_dir, f"{stem}_{name}.cu")
     with open(path, "w") as f:
         f.write(src.replace(old, new))
     return build_library(path, build_dir=out_dir)
+
+
+def sass_counts(lib, pattern: re.Pattern) -> dict:
+    """Tensor-core instructions (``HGMMA`` for wgmma, ``HMMA`` for
+    mma.sync) per kernel whose name ``pattern`` matches, keyed by the
+    pattern's groups, from ``cuobjdump -sass`` of the built library."""
+    from repro_torch.kernels.build import nvcc_path
+
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib._name], capture_output=True, text=True,
+                          check=True).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            m = pattern.search(line)
+            key = tuple(map(int, m.groups())) if m else None
+            if key:
+                counts[key] = collections.Counter()
+        elif key:
+            counts[key].update(re.findall(r"\b(HGMMA|HMMA)\.", line))
+    return counts
+
+
+def ptxas_report(ptxas_log: str, pattern: re.Pattern):
+    """ptxas' register and spill lines, and its injected
+    ``warpgroup.arrive``s, per kernel whose name ``pattern`` matches."""
+    lines, arrives, key = collections.defaultdict(list), collections.Counter(), None
+    for line in ptxas_log.splitlines():
+        if "entry function" in line:
+            m = pattern.search(line)
+            key = tuple(map(int, m.groups())) if m else None
+        elif "warpgroup.arrive is injected" in line and pattern.search(line):
+            arrives[tuple(map(int, pattern.search(line).groups()))] += 1
+        elif key and ("spill" in line or "Used" in line):
+            lines[key].append(line.replace("ptxas info    :", "").strip())
+    return lines, arrives
+
+
+def _regs(lines: list) -> str:
+    m = re.search(r"Used (\d+) registers", " ".join(lines))
+    return m.group(1) if m else "?"
+
+
+def _spills(lines: list) -> int:
+    return sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", " ".join(lines)))
+
+
+def gemm_tensor_core_report(lib, ptxas_log: str) -> None:
+    """HGMMA count, registers, spills and injected arrives of every bf16
+    ``wgmma`` instantiation of the GEMM (slab depth, m64 instructions per
+    warpgroup, instruction N) and the HMMA count, registers and spills of
+    every bandwidth-kernel instantiation (columns); exits on a count of
+    0, a missing instantiation, a spill or an injected arrive in a
+    ``wgmma`` instantiation."""
+    from repro_torch.core.analysis import GEMM_BW_BN, GEMM_WG_INSTANCES
+
+    wg = re.compile(r"gemm_tiled_wgmmaILi(\d+)ELi(\d+)ELi(\d+)E")
+    st = re.compile(r"gemm_tiled_streamILi(\d+)E")
+    wg_counts, st_counts = sass_counts(lib, wg), sass_counts(lib, st)
+    wg_ptxas, wg_arrives = ptxas_report(ptxas_log, wg)
+    st_ptxas, _ = ptxas_report(ptxas_log, st)
+    for bk in sorted({k[0] for k in wg_counts}):
+        keys = sorted(k for k in wg_counts if k[0] == bk)
+        print(f"[sass] gemm_tiled_wgmma<{bk}, MT, SN>: HGMMA "
+              + " ".join(f"{k[1]}x{k[2]}:{wg_counts[k]['HGMMA']}" for k in keys)
+              + "; registers " + " ".join(f"{k[1]}x{k[2]}:{_regs(wg_ptxas[k])}" for k in keys)
+              + f"; spill stores {sum(_spills(wg_ptxas[k]) for k in keys)} B; "
+              f"warpgroup.arrive injected {sum(wg_arrives[k] for k in keys)}", flush=True)
+    keys = sorted(st_counts)
+    print("[sass] gemm_tiled_stream<BN>: HMMA "
+          + " ".join(f"{k[0]}:{st_counts[k]['HMMA']}" for k in keys)
+          + "; registers " + " ".join(f"{k[0]}:{_regs(st_ptxas[k])}" for k in keys)
+          + f"; spill stores {sum(_spills(st_ptxas[k]) for k in keys)} B", flush=True)
+    want_wg = {(bk, sm // 64, sn) for bk, sm, sn in GEMM_WG_INSTANCES}
+    if set(wg_counts) != want_wg or not all(c["HGMMA"] for c in wg_counts.values()):
+        raise SystemExit(f"bf16 GEMM wgmma instantiations without HGMMA: {wg_counts}")
+    if set(st_counts) != {(bn,) for bn in GEMM_BW_BN} or not all(
+            c["HMMA"] for c in st_counts.values()):
+        raise SystemExit(f"bf16 GEMM bandwidth instantiations without HMMA: {st_counts}")
+    bad = {k: (_spills(wg_ptxas[k]), wg_arrives[k]) for k in want_wg
+           if _spills(wg_ptxas[k]) or wg_arrives[k]}
+    if bad:
+        raise SystemExit(f"wgmma GEMM instantiations with spills or injected arrives "
+                         f"(spill bytes, arrives): {bad}")
 
 
 def tensor_core_report(lib, ptxas_log: str) -> dict:
@@ -181,45 +337,34 @@ def tensor_core_report(lib, ptxas_log: str) -> dict:
     with ptxas' registers, spills and injected ``warpgroup.arrive``s per
     head_dim; exits if one has no tensor-core instruction.  Returns ptxas'
     report lines per ``(head_dim, block_kv)``."""
-    from repro_torch.kernels.build import nvcc_path
-
     name = re.compile(r"flash_fwd_bf16ILi(\d+)ELi(\d+)E")
-    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", lib._name], capture_output=True, text=True,
-                          check=True).stdout
-    counts, key = {}, None
-    for line in sass.splitlines():
-        if "Function : " in line:
-            m = name.search(line)
-            key = tuple(map(int, m.groups())) if m else None
-            if key:
-                counts[key] = collections.Counter()
-        elif key:
-            counts[key].update(re.findall(r"\b(HGMMA|HMMA)\.", line))
-    ptxas, arrives, key = collections.defaultdict(list), collections.Counter(), None
-    for line in ptxas_log.splitlines():
-        if "entry function" in line:
-            m = name.search(line)
-            key = tuple(map(int, m.groups())) if m else None
-        elif "warpgroup.arrive is injected" in line and name.search(line):
-            arrives[tuple(map(int, name.search(line).groups()))] += 1
-        elif key and ("spill" in line or "Used" in line):
-            ptxas[key].append(line.replace("ptxas info    :", "").strip())
+    counts = sass_counts(lib, name)
+    ptxas, arrives = ptxas_report(ptxas_log, name)
     for hd in sorted({k[0] for k in counts}):
         keys = sorted(k for k in counts if k[0] == hd)
-        regs = [re.search(r"Used (\d+) registers", " ".join(ptxas[k])) for k in keys]
-        spills = sum(int(x) for k in keys
-                     for x in re.findall(r"(\d+) bytes spill stores", " ".join(ptxas[k])))
         print(f"[sass] flash_fwd_bf16<{hd}, block_kv>: tensor-core instructions (HGMMA+HMMA) "
               + " ".join(f"{k[1]}:{sum(counts[k].values())}" for k in keys)
-              + "; registers " + " ".join(f"{k[1]}:{r.group(1) if r else '?'}"
-                                          for k, r in zip(keys, regs))
-              + f"; spill stores {spills} B; warpgroup.arrive injected "
-              f"{sum(arrives[k] for k in keys)}", flush=True)
+              + "; registers " + " ".join(f"{k[1]}:{_regs(ptxas[k])}" for k in keys)
+              + f"; spill stores {sum(_spills(ptxas[k]) for k in keys)} B; warpgroup.arrive "
+              f"injected {sum(arrives[k] for k in keys)}", flush=True)
     if ({k[0] for k in counts} != {16, 32, 64, 128} or len(counts) != 32
             or not all(sum(c.values()) for c in counts.values())):
         raise SystemExit(f"bf16 flash instantiations without tensor-core instructions: {counts}")
     return ptxas
+
+
+def refuse_gemm_fault(what: str, name: str, lib, a, b, cfg, ref) -> float:
+    """Launch the planted-fault variant ``name`` on the operands the
+    correct kernel was checked on; the bf16 limit must refuse it.
+    Returns its max abs error."""
+    from repro_torch.kernels.gemm import launch_with
+
+    err, ok = within(launch_with(lib, a, b, cfg), ref, torch.bfloat16, gemm_tol(a.shape[1]))
+    print(f"[fault] gemm {what} {cfg}: {name} max abs err {err} -> "
+          f"{'within the limit' if ok else 'refused'}", flush=True)
+    if ok:
+        raise SystemExit(f"the bf16 GEMM limit let the planted fault {name} pass ({what})")
+    return err
 
 
 def refuse_faults(what: str, fault_libs: dict, q, k, v, blocks, ref) -> None:
@@ -253,13 +398,19 @@ def main() -> None:
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import Budget, TrialJournal, TuningRecords, TuningSession
-    from repro_torch.core.analysis import flash_max_threads, max_threads_for_reg_tile
+    from repro_torch.core.analysis import (
+        GEMM_BW_BN, GEMM_WG_INSTANCES, flash_max_threads, gemm_bf16_max_threads,
+        gemm_kernel_kind, max_threads_for_reg_tile,
+    )
     from repro_torch.core.records import set_global_records
+    from repro_torch.core.session import Workload
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm as gemm_mod
     from repro_torch.kernels import ops
     from repro_torch.kernels.gemm import (
         LAUNCHES, KernelConfig, build_kernel, default_config, gemm_plain,
-        gemm_tiled, kernel_config_from_state, kernel_max_threads, state_from_config,
+        gemm_tiled, kernel_config_from_state, kernel_max_threads, kernel_max_threads_bf16,
+        state_from_config,
     )
     from repro_torch.launch.serve import ServeEngine
     from repro_torch.launch.tune import flash_workloads_for_arch, workloads_for_arch
@@ -273,9 +424,9 @@ def main() -> None:
     print(smi, flush=True)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     peak_ops, peak_bytes = next(
-        (v for k, v in PEAKS.items() if k in name), PEAKS["default"]
+        (v for k, v in PEAKS.items() if k in device_name), PEAKS["default"]
     )
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -297,8 +448,11 @@ def main() -> None:
             builds[label] = (e, time.perf_counter() - t)
 
     jobs = [("gemm", build_kernel), ("flash", fa.build_kernel)] + [
-        (f"fault {name}", lambda name=name: fault_variant(name, fault_dir.name))
-        for name in FAULTS]
+        (f"fault {name}", lambda name=name: fault_variant(FLASH_CU, FAULTS, name, fault_dir.name))
+        for name in FAULTS] + [
+        (f"fault {name}", lambda name=name: fault_variant(GEMM_CU, GEMM_FAULTS, name,
+                                                          fault_dir.name))
+        for name in GEMM_FAULTS]
     threads = [threading.Thread(target=build, args=a) for a in jobs]
     for th in threads:
         th.start()
@@ -312,19 +466,30 @@ def main() -> None:
         print(f"[build] {label} kernel built in {secs:.1f}s; "
               f"instantiations with spills: {len(spills)}")
     fault_libs = {name: fa.bind(builds[f"fault {name}"][0][0]) for name in FAULTS}
+    gemm_fault_libs = {name: gemm_mod.bind(builds[f"fault {name}"][0][0])
+                       for name in GEMM_FAULTS}
     flash_ptxas = tensor_core_report(*builds["flash"][0])
+    gemm_tensor_core_report(*builds["gemm"][0])
     phase("1 build", t0)
 
     # -- 2. kernel vs plain on small products ----------------------------------
     t0 = time.perf_counter()
-    for dtype in (torch.float32, torch.bfloat16):
-        for rm in (1, 2, 4, 8):
-            for rn in (1, 2, 4, 8):
-                got = kernel_max_threads(dtype, rm, rn)
-                if got != max_threads_for_reg_tile(rm, rn):
-                    raise SystemExit(f"launch limit {got} for {dtype} {rm}x{rn} "
-                                     f"disagrees with the analyzer")
-    configs = [
+    for rm in (1, 2, 4, 8):
+        for rn in (1, 2, 4, 8):
+            got = kernel_max_threads(torch.float32, rm, rn)
+            if got != max_threads_for_reg_tile(rm, rn):
+                raise SystemExit(f"launch limit {got} for float32 {rm}x{rn} "
+                                 f"disagrees with the analyzer")
+    bf16_instances = [KernelConfig(sm, bk, sn, sm, sn) for bk, sm, sn in GEMM_WG_INSTANCES] + [
+        KernelConfig(8, 16, bn, 8, bn) for bn in GEMM_BW_BN]
+    for cfg in bf16_instances:
+        got, want = kernel_max_threads_bf16(cfg), gemm_bf16_max_threads(cfg.block_m)
+        if got != want:
+            raise SystemExit(f"launch limit {got} of the bf16 instantiation for {cfg} "
+                             f"disagrees with the analyzer ({want})")
+    print(f"[check] launch limits of 16 f32 and {len(bf16_instances)} bf16 GEMM "
+          f"instantiations equal the analyzer's")
+    simt_configs = [
         KernelConfig(128, 32, 128, 32, 64, 8, 8),
         KernelConfig(64, 16, 64, 32, 32, 4, 4),
         KernelConfig(64, 128, 64, 32, 32, 2, 2),
@@ -332,22 +497,50 @@ def main() -> None:
         KernelConfig(32, 64, 32, 0, 0, 1, 1),
         KernelConfig(8, 128, 8, 0, 0, 1, 1),
     ]
-    n_checked = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for m, k, n in ((1024, 1024, 1024), (512, 256, 768), (256, 1024, 128)):
+    # every wgmma instantiation with one warpgroup and with two (along m and
+    # along n); the bandwidth kernel at 8 and 16 rows, every column count
+    wgmma_configs = [KernelConfig(bm, bk, bn, sm, sn) for bk, sm, sn in GEMM_WG_INSTANCES
+                     for bm, bn in ((sm, sn), (2 * sm, sn), (sm, 2 * sn))]
+    stream_configs = [KernelConfig(bm, bk, bn, bm, bn) for bm in (8, 16) for bn in GEMM_BW_BN
+                      for bk in (16, 48, 256, 512)]
+    small = {
+        torch.float32: (((1024, 1024, 1024), (512, 256, 768), (256, 1024, 128)), simt_configs),
+        torch.bfloat16: (((256, 512, 512), (128, 1024, 256), (64, 512, 512), (8, 4096, 1024),
+                          (16, 1024, 512), (8, 11008, 256)), wgmma_configs + stream_configs),
+    }
+    n_checked, worst = collections.Counter(), collections.defaultdict(float)
+    for dtype, (shapes, configs) in small.items():
+        for m, k, n in shapes:
             a, b = rand((m, k), dtype), rand((k, n), dtype)
             for cfg in configs:
+                try:
+                    cfg.validate(m, k, n, dtype.itemsize)
+                except ValueError:
+                    continue
+                kind = gemm_kernel_kind(cfg.block_m, dtype.itemsize)
                 out = gemm_tiled(a, b, cfg)
-                check_close(f"{dtype} {(m, k, n)} {cfg}", out, gemm_plain(a, b, cfg), dtype)
-                n_checked += 1
+                err = check_close(f"{dtype} {(m, k, n)} {cfg}", out, gemm_plain(a, b, cfg), dtype,
+                                  gemm_tol(k))
+                n_checked[kind] += 1
+                worst[kind] = max(worst[kind], err)
         a = rand((256, 512), dtype).requires_grad_()
         b = rand((512, 384), dtype).requires_grad_()
         g = rand((256, 384), dtype)
         (ops.gemm(a, b) * g).sum().backward()
-        check_close(f"{dtype} dA", a.grad, g.float() @ b.detach().float().T, dtype)
-        check_close(f"{dtype} dB", b.grad, a.detach().float().T @ g.float(), dtype)
+        check_close(f"{dtype} dA", a.grad, g.float() @ b.detach().float().T, dtype, MATMUL_TOL)
+        check_close(f"{dtype} dB", b.grad, a.detach().float().T @ g.float(), dtype, MATMUL_TOL)
+    if not (n_checked["wgmma"] >= len(GEMM_WG_INSTANCES) and n_checked["stream"]
+            and n_checked["simt"]):
+        raise SystemExit(f"too few kernel/plain cases: {dict(n_checked)}")
     torch.cuda.synchronize()
-    print(f"[check] {n_checked} kernel/plain products and 2 backward passes agree")
+    print(f"[check] kernel/plain products agree: {dict(n_checked)}; max abs err "
+          f"{dict(worst)}; and 2 backward passes")
+    for (m, k, n), fault in (((1024, 1024, 1024), "wrong_ring_slot"),
+                             ((8, 4096, 4096), "split_k_drop")):
+        a, b = rand((m, k), torch.bfloat16), rand((k, n), torch.bfloat16)
+        cfg = default_config(m, k, n)
+        refuse_gemm_fault(f"{(m, k, n)}", fault, gemm_fault_libs[fault], a, b, cfg,
+                          gemm_plain(a, b, cfg))
     phase("2 kernel vs plain", t0)
 
     workloads = workloads_for_arch("yi-6b", "train_4k")
@@ -383,6 +576,21 @@ def main() -> None:
                       f"seed_ms={res.trials[0].cost * 1e3:.4f} "
                       f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
                       f"trials={res.n_trials}", flush=True)
+            # one decode product, on the bandwidth kernel's reading of the state
+            wl = Workload("gemm", DECODE_TUNED, dtype="bfloat16", label="yi-6b/decode_ffn_in")
+            m, k, n = wl.dims
+            s0 = state_from_config(default_config(m, k, n), m, k, n)
+            res = session.tune_workload(wl, "g-bfs", Budget(max_trials=DECODE_TRIALS),
+                                        tuner_kwargs={"s0": s0})
+            if res.best_state is None:
+                raise SystemExit(f"{wl.label}: no finite trial")
+            tuned[wl.label] = (wl.dims, res.best_state)
+            n_finite = sum(math.isfinite(t.cost) for t in res.trials)
+            print(f"[tuned] {wl.label} {wl.dims}: seed={s0.as_lists()} "
+                  f"({kernel_config_from_state(s0)}) seed_ms={res.trials[0].cost * 1e3:.4f} "
+                  f"best={res.best_state.as_lists()} ({kernel_config_from_state(res.best_state)}) "
+                  f"kernel_ms={res.best_cost * 1e3:.4f} trials={res.n_trials} "
+                  f"launchable={n_finite}", flush=True)
         torch.cuda.empty_cache()
         phase("3 tune", t0)
 
@@ -402,7 +610,7 @@ def main() -> None:
             a, b = rand((m, k), torch.bfloat16), rand((k, n), torch.bfloat16)
             out = ops.gemm(a, b)
             err = check_close(f"gemm() {label}", out, torch.matmul(a.float(), b.float()),
-                              torch.bfloat16)
+                              torch.bfloat16, MATMUL_TOL)
             st = ops.lookup_tuned_state("gemm", (m, k, n), "bfloat16")
             served[label] = st
             print(f"[serve] {label}: config={kernel_config_from_state(st)} max_abs_err={err}")
@@ -412,7 +620,7 @@ def main() -> None:
         print(f"[serve] dispatch_stats={stats}")
         if stats["records"] < len(tuned):
             raise SystemExit(f"only {stats['records']} dispatches came from records")
-        launches = dict(LAUNCHES)
+        launches = collections.Counter(LAUNCHES)
         for shape, count in cli_launches.items():
             dims = tuple(int(d) for d in shape.split("x"))
             launches[dims] = launches.get(dims, 0) + count
@@ -427,29 +635,60 @@ def main() -> None:
 
         # -- 6. full-width kernel vs plain, and times ----------------------------------
         t0 = time.perf_counter()
-        kernels = []
-        for label, ((m, k, n), _) in tuned.items():
-            cfg = kernel_config_from_state(served[label])
+        rows = [(label, dims, kernel_config_from_state(served[label]))
+                for label, (dims, _) in tuned.items()]
+        set_global_records(TuningRecords(records_path))  # the configs the serve takes
+        tuned_dims = {dims for dims, _ in tuned.values()}
+        for dims in SERVED_SHAPES:
+            if dims not in tuned_dims:
+                cfg, src = ops.kernel_config(*dims, torch.bfloat16)
+                rows.append((f"served {'prefill' if dims[0] > 8 else 'decode'} {src} "
+                             f"{'x'.join(map(str, dims))}", dims, cfg))
+        set_global_records(TuningRecords())
+        full_width_faults = {(32768, 4096, 4096): "wrong_ring_slot", DECODE_TUNED: "split_k_drop"}
+        kernels, gemm_rows = [], {}
+        for label, (m, k, n), cfg in rows:
             a, b = rand((m, k), torch.bfloat16), rand((k, n), torch.bfloat16)
-            err = check_close(f"full-width {label}", gemm_tiled(a, b, cfg), gemm_plain(a, b, cfg),
-                              torch.bfloat16)
+            ref = gemm_plain(a, b, cfg)
+            out = gemm_tiled(a, b, cfg)
+            err = check_close(f"full-width {label} {(m, k, n)}", out, ref, torch.bfloat16,
+                              gemm_tol(k))
+            need = atol_needed(out, ref, TOL[torch.bfloat16][0])
+            del out
+            if (m, k, n) in full_width_faults:
+                fault = full_width_faults[(m, k, n)]
+                refuse_gemm_fault(f"{(m, k, n)}", fault, gemm_fault_libs[fault], a, b, cfg, ref)
+            del ref
+            # timed as every earlier row was (ms, library_ms, plain_ms), and
+            # with the card spun while the host enqueues (the *_spin fields);
+            # each pair back to back, the long plain version last
             ms = timed_ms(lambda: gemm_tiled(a, b, cfg), 3, flush)
-            plain_ms = timed_ms(lambda: gemm_plain(a, b, cfg), 1, flush)
+            ms_spin = timed_ms(lambda: gemm_tiled(a, b, cfg), 3, flush, spin=True)
             lib_ms = timed_ms(lambda: torch.matmul(a, b), 5, flush)
+            lib_ms_spin = timed_ms(lambda: torch.matmul(a, b), 5, flush, spin=True)
+            plain_ms = timed_ms(lambda: gemm_plain(a, b, cfg), 1, flush)
             flops, nbytes = 2 * m * k * n, 2 * (m * k + k * n + m * n)
             bound_ms = 1e3 * max(flops / peak_ops, nbytes / peak_bytes)
-            kernels.append({
+            row = {
                 "name": f"gemm[{label}]", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/gemm.cu",
                 "replaces": "src/repro/kernels/gemm.py:96",
-                "launches": launches.get((m, k, n), 0), "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "shape": [m, k, n], "launches_tune": launches.get((m, k, n), 0),
+                "launches_serve": 0, "launches": launches.get((m, k, n), 0),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": "operations" if flops / peak_ops >= nbytes / peak_bytes else "bytes",
-                "library_ms": lib_ms,
-            })
+                "library_ms": lib_ms, "ms_spin": ms_spin, "library_ms_spin": lib_ms_spin,
+            }
+            kernels.append(row)
+            gemm_rows[(m, k, n)] = row
             print(f"[time] {label} {(m, k, n)} {cfg}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
-                  f"roofline={bound_ms / ms:.4f} tflops={flops / ms / 1e9:.2f}", flush=True)
+                  f"roofline={bound_ms / ms:.4f} tflops={flops / ms / 1e9:.2f} "
+                  f"gb_s={nbytes / ms / 1e6:.1f} vs_library={ms / lib_ms:.2f}x "
+                  f"spun: kernel_ms={ms_spin:.4f} library_ms={lib_ms_spin:.4f} "
+                  f"vs_library={ms_spin / lib_ms_spin:.2f}x "
+                  f"max_abs_err={err} atol_needed={need:.3g} "
+                  f"atol={gemm_tol(k)[torch.bfloat16][1]:.3g}", flush=True)
             del a, b
             torch.cuda.empty_cache()
         phase("6 full-width check and times", t0)
@@ -513,7 +752,7 @@ def main() -> None:
                       fa.flash_attention_plain(q, k, v, 64, 32))
         phase("7 flash kernel vs plain", t0)
 
-        # -- flash main path: counts zeroed here, read after phase 9 -----------------
+        # -- flash tuning path: counts zeroed here, read after phase 8 ---------------
         fa.LAUNCHES.clear()
 
         # -- 8. tune the prefill attention, then the CLI on the same records ----------
@@ -538,6 +777,9 @@ def main() -> None:
                        "--tuner", "g-bfs", "--warm-start", "--fraction", "1.0",
                        "--max-trials", str(FLASH_CLI_TRIALS), "--records", records_path])
         flash_cli = json.loads(re.search(r"flash_launches=(.*)", out).group(1))
+        flash_tune_launches = sum(fa.LAUNCHES.values()) + sum(flash_cli.values())
+        print(f"[launches] flash tuning path: {flash_tune_launches} kernel launches "
+              f"({sum(flash_cli.values())} in the CLI process)")
         phase("8 tune flash", t0)
 
         # -- 9. serve yi-6b at full width on the records -------------------------------
@@ -561,13 +803,22 @@ def main() -> None:
         engine = ServeEngine(cfg, params, max_batch=SERVE_REQUESTS,
                              max_len=SERVE_BUCKET + SERVE_TOKENS,
                              prompt_buckets=[SERVE_BUCKET], device="cuda")
+        # -- the serve path: counts zeroed here, read just after it ------------------
         ops.reset_dispatch_stats()
-        gemm_before, flash_before = collections.Counter(LAUNCHES), sum(fa.LAUNCHES.values())
+        LAUNCHES.clear()
+        fa.LAUNCHES.clear()
         tokens = engine.generate(prompts, SERVE_TOKENS, prompt_lens=lens)
         timing = engine.last_timing
         stats = ops.dispatch_stats()
-        serve_flash = sum(fa.LAUNCHES.values()) - flash_before
-        served_gemms = sorted(d for d in LAUNCHES if LAUNCHES[d] > gemm_before[d])
+        serve_flash = sum(fa.LAUNCHES.values())
+        serve_launches = {d: c for d, c in LAUNCHES.items() if c > 0}
+        served_gemms = sorted(serve_launches)
+        missing = sorted(set(SERVED_SHAPES) - set(served_gemms))
+        if missing:
+            raise SystemExit(f"the serve never launched the GEMM kernel at {missing}")
+        for dims, row in gemm_rows.items():  # the serve is a main path too
+            row["launches_serve"] = serve_launches.get(dims, 0)
+            row["launches"] = row["launches_tune"] + row["launches_serve"]
         print(f"[serve] {SERVE_REQUESTS} requests, prompt lengths {lens.tolist()} -> bucket "
               f"{timing['prompt_bucket']}, {SERVE_TOKENS} tokens each: "
               f"prefill_s={timing['prefill_s']:.4f} decode_s={timing['decode_s']:.4f} "
@@ -575,7 +826,7 @@ def main() -> None:
         print(f"[serve] dispatch_stats={stats}")
         print(f"[serve] GEMM dispatch split: records={stats['gemm']['records']} "
               f"heuristic={stats['gemm']['heuristic']} matmul={stats['gemm']['matmul']}; "
-              f"GEMM kernel launches={sum(LAUNCHES.values()) - sum(gemm_before.values())}; "
+              f"GEMM kernel launches={sum(serve_launches.values())}; "
               f"flash kernel launches={serve_flash}")
         print(f"[serve] sample tokens: {tokens[0][:8].tolist()}")
         if stats["flash"]["records"] != cfg.n_layers or stats["flash"]["heuristic"] != 0:
@@ -586,9 +837,6 @@ def main() -> None:
         if tokens.shape != (SERVE_REQUESTS, SERVE_TOKENS) or not (
                 (tokens >= 0) & (tokens < cfg.vocab_size)).all():
             raise SystemExit(f"served tokens of shape {tokens.shape} outside [0, vocab)")
-        flash_launches = sum(fa.LAUNCHES.values()) + sum(flash_cli.values())
-        print(f"[launches] flash path: {flash_launches} kernel launches "
-              f"({sum(flash_cli.values())} in the CLI process)")
         # where the time goes: one more prefill and 3 decode steps, traced
         dev_lens = torch.from_numpy(lens).to(dev)
         with torch.inference_mode():
@@ -602,7 +850,8 @@ def main() -> None:
                 for _ in range(3):
                     model.decode_step(params, cache, tok)
 
-            profile_split("3 decode steps", decode3)
+            _, split = profile_split("3 decode steps", decode3)
+            print(f"[profile] GEMM device time per decode step: {split['gemm'] / 3:.4f} ms")
         del engine, params, logits, cache
         torch.cuda.empty_cache()
         # every product the serve launched, under the config dispatch chose
@@ -610,7 +859,7 @@ def main() -> None:
             gcfg, src = ops.kernel_config(m, k_, n, torch.bfloat16)
             a, b_ = rand((m, k_), torch.bfloat16), rand((k_, n), torch.bfloat16)
             err = check_close(f"served gemm {(m, k_, n)} {gcfg}", gemm_tiled(a, b_, gcfg),
-                              torch.matmul(a.float(), b_.float()), torch.bfloat16)
+                              torch.matmul(a.float(), b_.float()), torch.bfloat16, MATMUL_TOL)
             print(f"[check] served gemm {(m, k_, n)} ({src}) {gcfg}: max abs err {err}")
             del a, b_
             torch.cuda.empty_cache()
@@ -638,7 +887,8 @@ def main() -> None:
             "name": f"flash_attention[{fwl.label}]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:34",
-            "launches": flash_launches, "max_abs_err": err,
+            "launches_tune": flash_tune_launches, "launches_serve": serve_flash,
+            "launches": flash_tune_launches + serve_flash, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if flops / peak_ops >= nbytes / peak_bytes else "bytes",
             "library_ms": lib_ms,
@@ -656,7 +906,7 @@ def main() -> None:
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
 
 
 def profile_split(label: str, fn):

@@ -16,11 +16,19 @@ Verdict lattice (``AnalysisResult.verdict``):
   * *structural* (``SearchSpace.structural_error``): wrong row count or
     nesting depth, a factor < 1, or a row product that does not equal
     its dimension;
-  * *launch* (:func:`gemm_launch_error`): a register tile the kernel has
-    no instantiation for, a block below the kernel's minimum, a thread
-    count that is not whole warps or exceeds the register-capped limit
-    of its instantiation, operand slabs over the shared-memory budget,
-    or a CTA grid taller than CUDA's ``gridDim.y`` limit;
+  * *launch* (:func:`gemm_launch_error`), per dtype.  float32 (the SIMT
+    kernel): a register tile the kernel has no instantiation for, a block
+    below the kernel's minimum, a thread count that is not whole warps
+    or exceeds the register-capped limit of its instantiation, operand
+    slabs over the shared-memory budget.  bfloat16 at ``block_m >= 64``
+    (the ``wgmma`` kernel): a register tile other than 1x1
+    (``register_tile``), a warpgroup tile or slab depth with no
+    instantiation (``wgmma_shape``), accumulators over the register cliff
+    (``accumulator_cliff``), more than two warpgroups, or a ring of fewer
+    than two stages (``ring_too_shallow``).  bfloat16 below 64 rows
+    (the bandwidth kernel): rows, columns, warp split or slab depth it
+    does not take (``stream_tile``) or a ring of fewer than two stages.
+    Every kernel: a CTA grid taller than CUDA's ``gridDim.y`` limit;
   * *flash launch* (:func:`flash_launch_error`): a dtype or head_dim the
     kernel has no instantiation for, a block below 16 or not a multiple
     of 16 (of 64 rows, one warpgroup, for block_q in bf16), threads over
@@ -30,8 +38,10 @@ Verdict lattice (``AnalysisResult.verdict``):
 
 ``WASTEFUL`` — launchable but dominated (advisory unless noted):
 
-  * ``degenerate``: a 1x1 GEMM register tile — every shared-memory
-    operand load feeds a single FMA, the SIMT kernel's worst corner;
+  * ``degenerate``: a 1x1 register tile of the float32 SIMT GEMM kernel —
+    every shared-memory operand load feeds a single FMA, its worst
+    corner (in bfloat16 every launchable state has a 1x1 tile: a
+    ``wgmma`` fragment is fixed by the instruction);
   * ``under_fill``: fewer CTAs than the card has SMs (for flash, over
     the space's ``heads`` query heads).
 
@@ -57,6 +67,11 @@ __all__ = [
     "should_prune",
     "gemm_smem_bytes",
     "gemm_launch_error",
+    "gemm_kernel_kind",
+    "gemm_stages",
+    "gemm_bf16_max_threads",
+    "GEMM_WG_INSTANCES",
+    "GEMM_BW_BN",
     "max_threads_for_reg_tile",
     "FLASH_HEAD_DIMS",
     "FLASH_STAGES",
@@ -119,18 +134,109 @@ class HopperSpec:
 
 
 def max_threads_for_reg_tile(reg_m: int, reg_n: int) -> int:
-    """Thread limit of the kernel instantiation for one register tile —
-    the ``__launch_bounds__`` of ``gemm.cu`` (which caps registers so a
-    block of this many threads always fits the 64K-register file)."""
+    """Thread limit of the float32 SIMT kernel's instantiation for one
+    register tile — the ``__launch_bounds__`` of ``gemm.cu`` (which caps
+    registers so a block of this many threads always fits the 64K-register
+    file)."""
     t = reg_m * reg_n
     return 1024 if t <= 4 else (512 if t <= 16 else 256)
 
 
+# -- the bfloat16 kernels of gemm.cu --------------------------------------------
+
+#: threads of one warpgroup, and the M of one ``wgmma`` instruction
+GEMM_WG_THREADS = 128
+GEMM_WG_ROWS = 64
+#: the most consumer warpgroups a CTA has (``kMaxWarpgroups``; every
+#: instantiation's ``__launch_bounds__`` allows 256 threads)
+GEMM_WG_MAX = 2
+#: the ring: stages = min(GEMM_WG_MAX_STAGES, (opt-in shared memory - 1 KB
+#: of alignment slack) // slab bytes), refused below GEMM_WG_MIN_STAGES
+#: (one slab multiplied while the next is copied)
+GEMM_WG_MAX_STAGES = 4
+GEMM_WG_MIN_STAGES = 2
+#: the register cliff: f32 accumulators per thread, sub_m * sub_n / 128
+GEMM_ACC_REGS_MAX = 128
+#: the wgmma instantiations (``WG_INSTANCES``): (slab depth bk, warpgroup
+#: rows sub_m, instruction N sub_n) with accumulators under the cliff; bk
+#: and sub_n are whole 64-element atoms of the 128-byte swizzled layout
+GEMM_WG_INSTANCES = tuple(
+    (bk, sub_m, sub_n)
+    for bk in (64, 128)
+    for sub_m in (64, 128)
+    for sub_n in (64, 128, 256)
+    if sub_m * sub_n // GEMM_WG_THREADS <= GEMM_ACC_REGS_MAX
+)
+#: shared memory the wgmma kernel adds to its ring to align it to 1024 B
+GEMM_ALIGN_SLACK = 1024
+#: the bandwidth kernel (``gemm_tiled_stream``): CTA rows, the columns it
+#: is instantiated for, its warps (split-K inside the CTA), its slab depth
+#: granularity (the k16 of mma.sync) and its ring (``kStreamRingBytes``)
+GEMM_BW_ROWS = (8, 16)
+GEMM_BW_BN = (8, 16, 32, 64)
+GEMM_BW_WARPS = 4
+GEMM_BW_K_STEP = 16
+GEMM_BW_MAX_STAGES = 8
+GEMM_BW_RING_BYTES = 98_304
+GEMM_BW_MIN_STAGES = 2
+
+
+def gemm_kernel_kind(block_m: int, in_bytes: int = 2) -> str:
+    """Which kernel of ``gemm.cu`` runs a tile: ``"simt"`` (float32),
+    ``"wgmma"`` (bfloat16, ``block_m >= 64``) or ``"stream"`` (bfloat16,
+    below 64 rows: decode's skinny products)."""
+    if in_bytes != 2:
+        return "simt"
+    return "wgmma" if block_m >= GEMM_WG_ROWS else "stream"
+
+
+def _stream_stage_elems(block_m: int, block_k: int, block_n: int) -> int:
+    # rows padded to an odd number of 16-byte units (stream_lda/stream_ldb)
+    ldb = block_n if (block_n // 8) % 2 else block_n + 8
+    return block_m * (block_k + 8) + block_k * ldb
+
+
+def gemm_stages(block_m: int, block_k: int, block_n: int, in_bytes: int = 2,
+                spec: Optional[HopperSpec] = None) -> int:
+    """Depth of the bf16 kernels' ring of K slabs, derived from shared
+    memory as the launcher derives it.  ``wgmma``: ``min(4, (opt-in
+    shared memory - 1 KB of alignment slack) // ((bm + bn) * bk * 2))``.
+    The bandwidth kernel: ``min(8, 96 KB // stage bytes)``.  The SIMT
+    kernel stages one slab."""
+    kind = gemm_kernel_kind(block_m, in_bytes)
+    if kind == "simt":
+        return 1
+    if kind == "wgmma":
+        spec = spec or HopperSpec()
+        slab = (block_m + block_n) * block_k * 2
+        return min(GEMM_WG_MAX_STAGES, (spec.smem_per_block - GEMM_ALIGN_SLACK) // slab)
+    stage = 2 * _stream_stage_elems(block_m, block_k, block_n)
+    return min(GEMM_BW_MAX_STAGES, GEMM_BW_RING_BYTES // stage)
+
+
 def gemm_smem_bytes(block_m: int, block_k: int, block_n: int,
-                    in_bytes: int = 2) -> int:
-    """Shared memory of one CTA: the A (bk x bm) and B (bk x bn) operand
-    slabs in the input type.  The f32 accumulator lives in registers."""
-    return (block_m + block_n) * block_k * in_bytes
+                    in_bytes: int = 2, spec: Optional[HopperSpec] = None) -> int:
+    """Shared memory of one CTA.  SIMT (float32): the A (bk x bm) and B
+    (bk x bn) operand slabs.  ``wgmma``: the ring of ``gemm_stages`` such
+    slabs and 1 KB of alignment slack.  Bandwidth kernel: its ring of
+    padded slabs plus the f32 partial sums of its warps.  Accumulators
+    live in registers."""
+    kind = gemm_kernel_kind(block_m, in_bytes)
+    stages = gemm_stages(block_m, block_k, block_n, in_bytes, spec)
+    if kind == "simt":
+        return (block_m + block_n) * block_k * in_bytes
+    if kind == "wgmma":
+        return stages * (block_m + block_n) * block_k * 2 + GEMM_ALIGN_SLACK
+    return (stages * 2 * _stream_stage_elems(block_m, block_k, block_n)
+            + 4 * GEMM_BW_WARPS * block_m * block_n)
+
+
+def gemm_bf16_max_threads(block_m: int) -> int:
+    """Thread limit of the bf16 instantiations that run a tile of
+    ``block_m`` rows — their ``__launch_bounds__``."""
+    if block_m >= GEMM_WG_ROWS:
+        return GEMM_WG_MAX * GEMM_WG_THREADS
+    return 32 * GEMM_BW_WARPS
 
 
 def gemm_launch_error(
@@ -140,8 +246,28 @@ def gemm_launch_error(
     grid_m: int = 1,
 ) -> Optional[tuple[str, str]]:
     """``(reason, detail)`` when the GEMM kernel cannot launch this tile
-    configuration, else None.  THE legality rule of the kernel."""
+    configuration, else None.  THE legality rule of the kernel: bf16
+    inputs take the tensor-core kernel (``block_m >= 64``) or the
+    bandwidth kernel (below), other inputs the SIMT kernel."""
     spec = spec or HopperSpec()
+    if in_bytes == 2:
+        err = _bf16_launch_error(block_m, block_k, block_n, sub_m, sub_n,
+                                 reg_m, reg_n, spec)
+        if err is not None:
+            return err
+    else:
+        err = _simt_launch_error(block_m, block_k, block_n, sub_m, sub_n,
+                                 reg_m, reg_n, in_bytes, spec)
+        if err is not None:
+            return err
+    if grid_m > spec.max_grid_y:
+        return ("grid_too_large",
+                f"{grid_m} CTA rows exceed gridDim.y <= {spec.max_grid_y}")
+    return None
+
+
+def _simt_launch_error(block_m, block_k, block_n, sub_m, sub_n, reg_m, reg_n,
+                       in_bytes, spec) -> Optional[tuple[str, str]]:
     if reg_m not in spec.reg_tiles or reg_n not in spec.reg_tiles:
         return ("register_tile",
                 f"register tile {reg_m}x{reg_n}: the kernel is instantiated "
@@ -169,9 +295,62 @@ def gemm_launch_error(
         return ("smem_overflow",
                 f"operand slabs take {smem} B of shared memory, over the "
                 f"{spec.smem_per_block} B budget (in_bytes={in_bytes})")
-    if grid_m > spec.max_grid_y:
-        return ("grid_too_large",
-                f"{grid_m} CTA rows exceed gridDim.y <= {spec.max_grid_y}")
+    return None
+
+
+def _bf16_launch_error(block_m, block_k, block_n, sub_m, sub_n, reg_m, reg_n,
+                       spec) -> Optional[tuple[str, str]]:
+    if min(block_m, block_n) < spec.min_block_mn or block_k < GEMM_BW_K_STEP:
+        return ("block_below_minimum",
+                f"block {block_m}x{block_k}x{block_n} is below the bf16 "
+                f"kernels' minimum {spec.min_block_mn} (m, n) / "
+                f"{GEMM_BW_K_STEP} (k)")
+    if reg_m != 1 or reg_n != 1:
+        return ("register_tile",
+                f"register tile {reg_m}x{reg_n}: the bf16 kernels' fragments "
+                f"are fixed by the instruction (m3 = n3 = 1)")
+    if sub_m < 1 or sub_n < 1 or block_m % sub_m or block_n % sub_n:
+        return ("tile_nesting",
+                f"block {block_m}x{block_n} / warpgroup tile {sub_m}x{sub_n} "
+                f"do not nest")
+    if block_m < GEMM_WG_ROWS:
+        if (block_m not in GEMM_BW_ROWS or block_n not in GEMM_BW_BN
+                or sub_m != block_m or sub_n != block_n
+                or block_k % GEMM_BW_K_STEP):
+            return ("stream_tile",
+                    f"block {block_m}x{block_k}x{block_n} / {sub_m}x{sub_n}: "
+                    f"the bandwidth kernel takes {list(GEMM_BW_ROWS)} rows, "
+                    f"{list(GEMM_BW_BN)} columns, slabs in steps of "
+                    f"{GEMM_BW_K_STEP} and no split of the CTA tile")
+        stages, floor = gemm_stages(block_m, block_k, block_n, 2, spec), GEMM_BW_MIN_STAGES
+    else:
+        if (block_k, sub_m, sub_n) not in GEMM_WG_INSTANCES:
+            acc = sub_m * sub_n // GEMM_WG_THREADS
+            if (sub_m % GEMM_WG_ROWS == 0 and sub_n % 64 == 0
+                    and acc > GEMM_ACC_REGS_MAX):
+                return ("accumulator_cliff",
+                        f"warpgroup tile {sub_m}x{sub_n} holds {acc} f32 "
+                        f"accumulators a thread, over {GEMM_ACC_REGS_MAX}")
+            return ("wgmma_shape",
+                    f"(bk, sub_m, sub_n) = ({block_k}, {sub_m}, {sub_n}): the "
+                    f"wgmma kernel is instantiated for bk in (64, 128), "
+                    f"sub_m in (64, 128), sub_n in (64, 128, 256)")
+        wgs = (block_m // sub_m) * (block_n // sub_n)
+        if wgs > GEMM_WG_MAX:
+            return ("threads_over_limit",
+                    f"{wgs} warpgroups ({wgs * GEMM_WG_THREADS} threads) per CTA "
+                    f"exceed {GEMM_WG_MAX}, the kernel's __launch_bounds__")
+        stages = gemm_stages(block_m, block_k, block_n, 2, spec)
+        floor = GEMM_WG_MIN_STAGES
+    if stages < floor:
+        return ("ring_too_shallow",
+                f"{max(stages, 0)} stages of {block_m}x{block_k}x{block_n} slabs "
+                f"fit the ring; the kernel needs {floor}")
+    smem = gemm_smem_bytes(block_m, block_k, block_n, 2, spec)
+    if smem > spec.smem_per_block:
+        return ("smem_overflow",
+                f"the ring takes {smem} B of shared memory, over the "
+                f"{spec.smem_per_block} B budget")
     return None
 
 
@@ -182,8 +361,8 @@ def _gemm_state_launch_error(space, s, in_bytes: int, spec: HopperSpec):
     )
 
 
-def _gemm_waste(space, s, spec: HopperSpec) -> Optional[tuple[str, str]]:
-    if s.reg_m == 1 and s.reg_n == 1:
+def _gemm_waste(space, s, in_bytes: int, spec: HopperSpec) -> Optional[tuple[str, str]]:
+    if in_bytes != 2 and s.reg_m == 1 and s.reg_n == 1:
         return ("degenerate",
                 "1x1 register tile: one FMA per shared-memory operand load")
     ctas = s.grid[0] * s.grid[2]
@@ -298,7 +477,7 @@ def _flash_state_launch_error(space, s, in_bytes: int, spec: HopperSpec):
     )
 
 
-def _flash_waste(space, s, spec: HopperSpec) -> Optional[tuple[str, str]]:
+def _flash_waste(space, s, in_bytes: int, spec: HopperSpec) -> Optional[tuple[str, str]]:
     ctas = s.n_q_blocks * space.heads
     if ctas < spec.num_sms:
         return ("under_fill", f"{ctas} CTAs for {spec.num_sms} SMs")
@@ -374,7 +553,7 @@ class ScheduleAnalyzer:
         err = launch(self.space, s, self.in_bytes, self.spec)
         if err is not None:
             return AnalysisResult(ILLEGAL, err[0], err[1])
-        w = waste(self.space, s, self.spec)
+        w = waste(self.space, s, self.in_bytes, self.spec)
         if w is not None:
             return AnalysisResult(WASTEFUL, w[0], w[1])
         return _OK_RESULT

@@ -23,13 +23,28 @@ its size reproduces the paper's reported counts:
     (1024,1024,1024): C(13,3) * 11 * C(13,3) = 286*11*286   =   899,756
     (2048,2048,2048): C(14,3) * 12 * C(14,3) = 364*12*364   = 1,589,952
 
-Hopper reading of a state (the GEMM kernel ``kernels/csrc/gemm.cu``):
-``s_m=[m0,m1,m2,m3]`` → ``m0`` = CTA grid rows; ``bm = m1*m2*m3`` = CTA
-tile; ``sub_m = m2*m3`` = warp tile (``m1`` warp tiles per CTA);
-``m3`` = per-thread register tile (``m2`` threads per warp tile) — the
-same for n.  ``s_k=[k0,k1]`` → ``k0`` = trip count of the K loop inside
-the CTA, ``bk = k1`` = the shared-memory K slab.  The rows, keys and
-features are the JAX package's, so journals stay comparable.
+Hopper reading of a state (the GEMM kernels of ``kernels/csrc/gemm.cu``).
+The rows, keys and features are the JAX package's, so journals stay
+comparable; only the reading depends on the dtype.  Always: ``m0 x n0``
+= the CTA grid, ``bm = m1*m2*m3`` x ``bn = n1*n2*n3`` = the CTA tile,
+``s_k=[k0,k1]`` → ``k0`` = trip count of the K loop inside the CTA,
+``bk = k1`` = the K slab.  Then:
+
+* float32 (the SIMT kernel): ``sub_m = m2*m3`` = warp tile (``m1`` warp
+  tiles per CTA), ``m3`` = per-thread register tile (``m2`` threads per
+  warp tile) — the same for n.
+* bfloat16, ``bm >= 64`` (the ``wgmma`` kernel): ``m1 x n1`` = the CTA's
+  consumer warpgroups (1 or 2 in all); ``sub_m = m2`` = a warpgroup's
+  rows (64 or 128: one or two m64 instructions), ``sub_n = n2`` = the
+  instruction's N (64, 128 or 256: whole atoms of the 128-byte swizzled
+  layout); ``m3 = n3 = 1``, because a ``wgmma`` fragment is fixed by the
+  instruction and any other value would only alias the same schedule (the
+  rule refuses it as ``register_tile``, so G-BFS spends no trial on it).
+  ``bk`` is 64 or 128.
+* bfloat16, ``bm < 64`` (the bandwidth kernel, decode's M = 8): ``bm =
+  m2`` rows (8 or 16) and ``bn = n2`` columns (8 .. 64) per CTA, with
+  ``m1 = n1 = m3 = n3 = 1`` (its four warps split K, a fixed split the
+  state does not carry); ``bk`` a multiple of 16.
 """
 
 from __future__ import annotations
@@ -152,10 +167,10 @@ class GemmConfigSpace(FactoredSearchSpace):
 
     # -- hardware footprint ---------------------------------------------------
     def working_set_bytes(self, s: TilingState, in_bytes: int = 2) -> int:
-        """Shared memory of one CTA: the A/B operand slabs (the f32
-        accumulator lives in registers).  The arithmetic lives in
-        ``repro_torch.core.analysis``, the kernel's single legality
-        rule."""
+        """Shared memory of one CTA: the A/B operand slabs, in bf16 the
+        ring of them (the f32 accumulators live in registers).  The
+        arithmetic lives in ``repro_torch.core.analysis``, the kernel's
+        single legality rule."""
         return gemm_smem_bytes(s.block_m, s.block_k, s.block_n, in_bytes)
 
     # -- featurization (for surrogate / policy models) ------------------------

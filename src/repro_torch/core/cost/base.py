@@ -26,10 +26,12 @@ class CostBackend(abc.ABC):
 
     name: str = "base"
 
-    def __init__(self, space: SearchSpace, n_repeats: int = 1):
+    def __init__(self, space: SearchSpace, n_repeats: int = 1, dtype: str = "bfloat16"):
         self.space = space
         # paper: "arithmetic mean for 10 repeated trials"
         self.n_repeats = n_repeats
+        # the input type the op runs in: its kernels and their rules differ
+        self.dtype = dtype
 
     @property
     def op(self) -> str:
@@ -84,7 +86,7 @@ class CountingCost(CostBackend):
         timeout_s: float = 4.0,
         n_workers: int = 1,
     ):
-        super().__init__(inner.space, n_repeats=1)
+        super().__init__(inner.space, n_repeats=1, dtype=inner.dtype)
         self.inner = inner
         self.name = f"counting({inner.name})"
         self.n_measured = 0

@@ -71,8 +71,7 @@ class FlashAnalyticalHopperCost(CostBackend):
 
     def __init__(self, space: FlashAttnConfigSpace, n_repeats: int = 1,
                  dtype: str = "bfloat16", spec: HopperSpec | None = None):
-        super().__init__(space, n_repeats)
-        self.dtype = dtype
+        super().__init__(space, n_repeats, dtype)
         self.in_bytes = dtype_in_bytes(dtype)
         self.spec = spec or HopperSpec()
         self.analyzer = ScheduleAnalyzer(space, self.spec, self.in_bytes)

@@ -11,7 +11,10 @@ state, as the paper times candidates on real hardware:
   the digest of the kernel's source (``kernel_source_part``);
 * one untimed warm-up launch, then ``n_repeats`` launches, each timed
   with CUDA events, with the 50 MB L2 flushed before each so every
-  launch starts from device memory; the cost is their mean in seconds;
+  launch starts from device memory, and the card spinning for about
+  0.5 ms before the start event so the host has enqueued the launch
+  (decode's products take microseconds, less than the wrapper's host
+  overhead); the cost is their mean in seconds;
 * a state the static analyzer calls ILLEGAL, or that the kernel's
   wrapper refuses with ``ValueError``, costs ``inf`` without a launch.
   Anything else the wrapper raises (a failed build or launch)
@@ -36,6 +39,8 @@ __all__ = ["HopperTimedCost", "kernel_source_part"]
 
 #: bytes written between timed launches: twice the H100's 50 MB L2
 _L2_FLUSH_BYTES = 100 * 1024 * 1024
+#: device clock cycles spun before each timed launch (about 0.5 ms)
+_SPIN_CYCLES = 1_000_000
 
 
 class HopperTimedCost(CostBackend):
@@ -49,7 +54,7 @@ class HopperTimedCost(CostBackend):
         seed: int = 0,
         device="cuda",
     ):
-        super().__init__(space, n_repeats)
+        super().__init__(space, n_repeats, dtype)
         self.device = torch.device(device)
         if self.device.type != "cuda" or not torch.cuda.is_available():
             raise RuntimeError(
@@ -59,7 +64,6 @@ class HopperTimedCost(CostBackend):
             )
         from ..ops import get_op  # lazy: the registry imports cost modules
 
-        self.dtype = dtype
         self.in_bytes = dtype_in_bytes(dtype)
         self.seed = seed
         self.spec = HopperSpec.for_device(self.device)
@@ -84,6 +88,7 @@ class HopperTimedCost(CostBackend):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         self._flush.zero_()
+        torch.cuda._sleep(_SPIN_CYCLES)
         start.record()
         self._run(s)
         end.record()
@@ -96,7 +101,7 @@ class HopperTimedCost(CostBackend):
         # shapes what is timed
         shapes = ",".join("x".join(map(str, t.shape)) for t in self._operands)
         return (
-            f"r{self.n_repeats}|{self.dtype}|seed{self.seed}"
+            f"r{self.n_repeats}|{self.dtype}|seed{self.seed}|spin{_SPIN_CYCLES}"
             f"|{torch.cuda.get_device_name(self.device)}"
             f"|torch{torch.__version__}|cuda{torch.version.cuda}"
             f"|{kernel_source_part(self._opspec)}"

@@ -108,18 +108,18 @@ class ArchTuneReport:
         return out
 
 
-def _default_cost_factory(space: SearchSpace) -> CostBackend:
+def _default_cost_factory(space: SearchSpace, dtype: str = "bfloat16") -> CostBackend:
     """Time candidates on the card (raises where there is none)."""
     from .cost import HopperTimedCost
 
-    return HopperTimedCost(space)
+    return HopperTimedCost(space, dtype=dtype)
 
 
 class TuningSession:
     def __init__(
         self,
         records: Optional[TuningRecords] = None,
-        cost_factory: Optional[Callable[[SearchSpace], CostBackend]] = None,
+        cost_factory: Optional[Callable[..., CostBackend]] = None,
         seed: int = 0,
         verbose: bool = True,
         journal: Optional[TrialJournal] = None,
@@ -213,7 +213,9 @@ class TuningSession:
         retry: Optional[RetryPolicy] = None,
     ) -> TuneResult:
         space = wl.space()
-        cost = self.cost_factory(space)
+        # the workload's dtype picks the kernel, its launch rule and its
+        # model: a cost for another dtype would rank the wrong kernel
+        cost = self.cost_factory(space, dtype=wl.dtype)
         wkey = wl.key(cost.name)
         if engine is not None and analyze != "off" and engine.analyze != analyze:
             raise ValueError(

@@ -1,16 +1,19 @@
-"""The tiled GEMM kernel for Hopper, its plain PyTorch version, and the
+"""The tiled GEMM kernels for Hopper, their plain PyTorch version, and the
 tuner <-> kernel contract.
 
-The kernel (``csrc/gemm.cu``, CUDA C++ for ``sm_90a``) replaces the
-Pallas TPU kernel ``repro/kernels/gemm.py:_gemm_kernel``.  It is built
-with ``nvcc`` into a shared library with a plain C interface the first
-time it is needed (into ``_build/`` beside this file, keyed by a hash
-of the source) and bound with ``ctypes``.
+The kernels (``csrc/gemm.cu``, CUDA C++ for ``sm_90a``) replace the
+Pallas TPU kernel ``repro/kernels/gemm.py:_gemm_kernel``: float32 runs
+on CUDA cores (SIMT), bfloat16 on the tensor cores (``wgmma``) at
+``block_m >= 64`` and on a bandwidth-bound kernel (``mma.sync``,
+split-K inside the CTA) below, for decode's M = 8 products.  The file is
+built with ``nvcc`` into a shared library with a plain C interface the
+first time it is needed (into ``_build/`` beside this file, keyed by a
+hash of the source) and bound with ``ctypes``.
 
 :func:`gemm_tiled` is the wrapper: it checks device, dtype, shape,
-contiguity and the config (raising ``ValueError`` on what the kernel
-does not take), then launches the kernel on the current stream for CUDA
-tensors, or runs :func:`gemm_plain` — the same blocks, K slabs and f32
+contiguity, alignment and the config (raising ``ValueError`` on what the
+kernel does not take), then launches the kernel on the current stream
+for CUDA tensors, or runs :func:`gemm_plain` — the same K slabs and f32
 accumulation in PyTorch — for CPU tensors.  Every kernel launch adds one
 to :data:`LAUNCHES` (keyed by ``(M, K, N)``).
 """
@@ -26,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.analysis import HopperSpec, gemm_launch_error
+from repro_torch.core.analysis import GEMM_BW_BN, HopperSpec, gemm_kernel_kind, gemm_launch_error
 from repro_torch.core.config_space import TilingState
 
 from .build import build_library
@@ -39,6 +42,10 @@ __all__ = [
     "gemm_tiled",
     "gemm_plain",
     "build_kernel",
+    "bind",
+    "launch_with",
+    "kernel_max_threads",
+    "kernel_max_threads_bf16",
     "LAUNCHES",
     "reset_launches",
 ]
@@ -57,8 +64,8 @@ def reset_launches() -> None:
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
     """CTA tile ``block_m x block_n`` with K slab ``block_k``, warp tile
-    ``sub_m x sub_n`` (0 = the whole block) and per-thread register tile
-    ``reg_m x reg_n``."""
+    (bf16: warpgroup tile) ``sub_m x sub_n`` (0 = the whole block) and
+    per-thread register tile ``reg_m x reg_n`` (1 x 1 in bf16)."""
 
     block_m: int
     block_k: int
@@ -112,40 +119,80 @@ def state_from_config(cfg: KernelConfig, m: int, k: int, n: int) -> TilingState:
     )
 
 
+#: bf16 tensor-core tiles the heuristic tries, best first: (block_m,
+#: block_n, sub_m, sub_n).  128 x 256 by two 64 x 256 warpgroups copies
+#: the fewest operand bytes per operation of the tiles under the register
+#: cliff, and 128-deep slabs the fewest barriers per operation
+_WGMMA_TILES = (
+    (128, 256, 64, 256), (128, 128, 64, 128), (64, 256, 64, 256), (64, 128, 64, 128),
+    (128, 64, 64, 64), (64, 64, 64, 64),
+)
+_WGMMA_BK = (128, 64)
+#: bf16 bandwidth-kernel tiles: rows and slab depths, best first; columns
+#: per CTA from :func:`_stream_widths`
+_STREAM_ROWS = (16, 8)
+_STREAM_BK = (256, 128, 512, 64, 32, 16)
+#: CTAs the bandwidth kernel wants at least: about one per SM
+_STREAM_MIN_CTAS = 128
+
+
+def _stream_widths(n: int) -> tuple[int, ...]:
+    """Columns per CTA, best first: the widest that still gives about one
+    CTA per SM (wider rows of B stream better), then the narrowest."""
+    wide = tuple(bn for bn in GEMM_BW_BN[::-1] if n // bn >= _STREAM_MIN_CTAS)
+    return wide + tuple(bn for bn in GEMM_BW_BN if bn not in wide)
+
+
+def _first_valid(cands, m, k, n, in_bytes) -> Optional[KernelConfig]:
+    for cfg in cands:
+        try:
+            cfg.validate(m, k, n, in_bytes)
+        except ValueError:
+            continue
+        return cfg
+    return None
+
+
 @functools.lru_cache(maxsize=None)
 def default_config(m: int, k: int, n: int, in_bytes: int = 2) -> Optional[KernelConfig]:
     """Heuristic config when no tuning record exists, or None when the
     kernel takes no config for these dims (then dispatch uses
-    ``torch.matmul``).  Prefers the classic SIMT shape: a 128x128 CTA of
-    256 threads, each holding an 8x8 register tile, in 32x64 warp tiles
-    of 4x8 threads, with a 32-deep K slab — shrinking where the dims do
-    not divide.  (The JAX package's TPU default picks blocks up to
-    256x512x256, whose slabs need far more than a CTA's 227 KB.)
-    Memoized: at M = 8 the search refuses over 200 candidates before it
-    finds one, and decode asks once per product per step."""
-    for bm in (128, 64, 32, 16, 8):
-        for bn in (128, 64, 32, 16, 8):
-            for bk in (32, 16, 8):
-                for reg in (8, 4, 2, 1):
-                    rm, rn = min(reg, bm), min(reg, bn)
-                    cfg = KernelConfig(bm, bk, bn, min(bm, 4 * rm), min(bn, 8 * rn), rm, rn)
-                    try:
-                        cfg.validate(m, k, n, in_bytes)
-                    except ValueError:
-                        continue
-                    return cfg
-    return None
+    ``torch.matmul``).  bfloat16: a ``wgmma`` tile (128 x 256 x 128 first)
+    when M allows 64-row blocks, else the bandwidth kernel (16 or 8 rows,
+    the widest columns that leave about one CTA per SM, 256-deep slabs
+    first).  float32: the classic SIMT shape,
+    a 128x128 CTA of 256 threads, each holding an 8x8 register tile, in
+    32x64 warp tiles of 4x8 threads, with a 32-deep K slab — shrinking
+    where the dims do not divide.  (The JAX package's TPU default picks
+    blocks up to 256x512x256, whose slabs need far more than a CTA's
+    227 KB.)  Memoized: decode asks once per product per step."""
+    if in_bytes == 2:
+        wgmma = (KernelConfig(bm, bk, bn, sm, sn) for bm, bn, sm, sn in _WGMMA_TILES
+                 for bk in _WGMMA_BK)
+        stream = (KernelConfig(bm, bk, bn, bm, bn) for bm in _STREAM_ROWS
+                  for bn in _stream_widths(n) for bk in _STREAM_BK)
+        return (_first_valid(wgmma, m, k, n, in_bytes) if m >= 64 else None) or \
+            _first_valid(stream, m, k, n, in_bytes)
+    return _first_valid(
+        (KernelConfig(bm, bk, bn, min(bm, 4 * min(reg, bm)), min(bn, 8 * min(reg, bn)),
+                      min(reg, bm), min(reg, bn))
+         for bm in (128, 64, 32, 16, 8) for bn in (128, 64, 32, 16, 8)
+         for bk in (32, 16, 8) for reg in (8, 4, 2, 1)),
+        m, k, n, in_bytes)
 
 
 # -- the plain version ---------------------------------------------------------
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, config: KernelConfig) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch: the product of each ``bk``-deep
+    """The kernels' arithmetic in PyTorch: the product of each ``bk``-deep
     K slab in float32, accumulated slab by slab into an f32 accumulator,
-    cast to the input type at the end.  The CTA, warp and register tiles
-    partition the output without changing any element's arithmetic, so
-    they are folded into one product per slab."""
+    cast to the input type at the end.  The CTA, warp(group) and register
+    tiles partition the output without changing any element's
+    arithmetic, so they are folded into one product per slab; the
+    kernels sum in other orders (``wgmma`` per k16 step, the bandwidth
+    kernel per warp, then over warps), all in f32, and none rounds
+    anything to bf16 before the output."""
     bk = config.block_k
     acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32, device=a.device)
     a32, b32 = a.float(), b.float()
@@ -169,22 +216,39 @@ def build_kernel() -> tuple[ctypes.CDLL, str]:
         if _LIB is not None:
             return _LIB
         lib, log = build_library("gemm.cu")
-        lib.repro_gemm.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
-            + [ctypes.c_void_p]
-        )
-        lib.repro_gemm.restype = ctypes.c_int
-        lib.repro_gemm_max_threads.argtypes = [ctypes.c_int] * 3
-        lib.repro_gemm_max_threads.restype = ctypes.c_int
-        _LIB = (lib, log)
+        _LIB = (bind(lib), log)
         return _LIB
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of ``gemm.cu`` (this file's, or
+    a variant of its source) on the loaded library."""
+    lib.repro_gemm.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+        + [ctypes.c_void_p]
+    )
+    lib.repro_gemm.restype = ctypes.c_int
+    lib.repro_gemm_max_threads.argtypes = [ctypes.c_int] * 3
+    lib.repro_gemm_max_threads.restype = ctypes.c_int
+    lib.repro_gemm_bf16_max_threads.argtypes = [ctypes.c_int] * 5
+    lib.repro_gemm_bf16_max_threads.restype = ctypes.c_int
+    return lib
+
+
 def kernel_max_threads(dtype: torch.dtype, reg_m: int, reg_n: int) -> int:
-    """The compiled instantiation's launch limit, as the card reports it
-    (must equal ``analysis.max_threads_for_reg_tile``)."""
+    """The compiled float32 SIMT instantiation's launch limit, as the card
+    reports it (must equal ``analysis.max_threads_for_reg_tile``)."""
     lib, _ = build_kernel()
     return lib.repro_gemm_max_threads(_DTYPE_CODE[dtype], reg_m, reg_n)
+
+
+def kernel_max_threads_bf16(config: KernelConfig) -> int:
+    """The launch limit of the compiled bf16 instantiation that runs
+    ``config``, as the card reports it (must equal
+    ``analysis.gemm_bf16_max_threads``)."""
+    c = config.resolved()
+    lib, _ = build_kernel()
+    return lib.repro_gemm_bf16_max_threads(c.block_m, c.block_k, c.block_n, c.sub_m, c.sub_n)
 
 
 # -- the wrapper ---------------------------------------------------------------
@@ -206,11 +270,28 @@ def gemm_tiled(a: torch.Tensor, b: torch.Tensor, config: KernelConfig) -> torch.
     (m, k), n = a.shape, b.shape[1]
     cfg = config.resolved()
     cfg.validate(m, k, n, a.element_size())
+    # a contiguous view may start at any element; the same refusal on every
+    # device, so the plain version refuses what the kernel would
+    if gemm_kernel_kind(cfg.block_m, a.element_size()) != "simt" and (
+            a.data_ptr() % 16 or b.data_ptr() % 16):
+        raise ValueError("the bf16 kernels copy 16-byte chunks: operands must be "
+                         "16-byte aligned")
     if a.device.type == "cpu":
         return gemm_plain(a, b, cfg)
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
-    lib, _ = build_kernel()
+    out = launch_with(build_kernel()[0], a, b, cfg)
+    LAUNCHES[(m, k, n)] += 1
+    return out
+
+
+def launch_with(lib: ctypes.CDLL, a: torch.Tensor, b: torch.Tensor,
+                config: KernelConfig) -> torch.Tensor:
+    """Launch a bound build of the kernel on CUDA operands that
+    :func:`gemm_tiled` has checked, on the current stream; neither checks
+    nor counts.  Raises ``RuntimeError`` when the launch fails."""
+    (m, k), n = a.shape, b.shape[1]
+    cfg = config.resolved()
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -221,6 +302,4 @@ def gemm_tiled(a: torch.Tensor, b: torch.Tensor, config: KernelConfig) -> torch.
         )
     if err != 0:
         raise RuntimeError(f"GEMM kernel launch failed (error {err}) for {cfg} at {(m, k, n)}")
-    LAUNCHES[(m, k, n)] += 1
     return out
-

@@ -219,7 +219,14 @@ def _dispatch(a: torch.Tensor, b: torch.Tensor,
     note_dispatch("gemm", src)
     if cfg is None:
         return torch.matmul(a, b)
-    return gemm_tiled(a.contiguous(), b.contiguous(), cfg)
+    return gemm_tiled(_aligned(a), _aligned(b), cfg)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary, as the bf16
+    kernels' copies need: a contiguous view at an odd offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 class _Gemm(torch.autograd.Function):

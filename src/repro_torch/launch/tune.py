@@ -156,11 +156,12 @@ def main(argv=None) -> None:
     journal = None if journal_path == "none" else TrialJournal(journal_path)
 
     if args.cost == "hopper":
-        def cost_factory(space):
-            return HopperTimedCost(space, n_repeats=3, seed=args.seed, device=device)
+        def cost_factory(space, dtype):
+            return HopperTimedCost(space, n_repeats=3, dtype=dtype, seed=args.seed,
+                                   device=device)
     else:
-        def cost_factory(space):
-            return get_op(space.op).analytical_cost(space, n_repeats=1)
+        def cost_factory(space, dtype):
+            return get_op(space.op).analytical_cost(space, n_repeats=1, dtype=dtype)
 
     records = TuningRecords(args.records)
     session = TuningSession(

@@ -9,7 +9,14 @@ machine that has only PyTorch built for CUDA:
 import pytest
 import torch
 
-from repro_torch.core.analysis import FLASH_HEAD_DIMS, flash_max_threads
+from repro_torch.core.analysis import (
+    FLASH_HEAD_DIMS,
+    GEMM_BW_BN,
+    GEMM_WG_INSTANCES,
+    flash_max_threads,
+    gemm_bf16_max_threads,
+    max_threads_for_reg_tile,
+)
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm
 
@@ -20,21 +27,65 @@ def _card():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+#: configs per case: the SIMT kernel in f32; in bf16 the wgmma kernel (one
+#: and two warpgroups, both slab depths) and, at M = 8, the bandwidth kernel
+GEMM_CASES = {
+    "float32": (torch.float32, (512, 256, 384),
+                (gemm.KernelConfig(128, 32, 128, 32, 64, 8, 8),
+                 gemm.KernelConfig(32, 64, 32, 0, 0, 1, 1))),
+    "bfloat16": (torch.bfloat16, (512, 256, 512),
+                 (gemm.KernelConfig(128, 128, 256, 64, 256),
+                  gemm.KernelConfig(256, 64, 128, 128, 128),
+                  gemm.KernelConfig(64, 64, 64, 64, 64))),
+    "bfloat16-decode": (torch.bfloat16, (8, 4096, 1024),
+                        (gemm.KernelConfig(8, 256, 16, 8, 16),
+                         gemm.KernelConfig(8, 64, 64, 8, 64))),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gemm_kernel_matches_plain_on_card(dtype):
+# bf16: one output rounding step apart, at K <= 4096 (chip_smoke.py states
+# the limit, whose atol grows with K above that)
+@pytest.mark.parametrize("case,tol", [("float32", (1e-4, 8e-4)),
+                                      ("bfloat16", (1.6e-2, 2e-3)),
+                                      ("bfloat16-decode", (1.6e-2, 2e-3))])
+def test_gemm_kernel_matches_plain_on_card(case, tol):
     gen = _card()
-    rtol = 1e-4 if dtype == torch.float32 else 0.05
-    a = torch.randn(512, 256, generator=gen, device="cuda").to(dtype)
-    b = torch.randn(256, 384, generator=gen, device="cuda").to(dtype)
-    for cfg in (gemm.KernelConfig(128, 32, 128, 32, 64, 8, 8),
-                gemm.KernelConfig(32, 64, 32, 0, 0, 1, 1)):
-        before = gemm.LAUNCHES[(512, 256, 384)]
+    dtype, (m, k, n), configs = GEMM_CASES[case]
+    a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
+    for cfg in configs:
+        before = gemm.LAUNCHES[(m, k, n)]
         out = gemm.gemm_tiled(a, b, cfg)
         torch.cuda.synchronize()
-        assert gemm.LAUNCHES[(512, 256, 384)] == before + 1
+        assert gemm.LAUNCHES[(m, k, n)] == before + 1
         torch.testing.assert_close(out.float(), gemm.gemm_plain(a, b, cfg).float(),
-                                   rtol=rtol, atol=rtol * 8)
+                                   rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.gpu
+def test_gemm_launch_limits_match_the_analyzer():
+    _card()
+    for rm in (1, 2, 4, 8):
+        for rn in (1, 2, 4, 8):
+            assert gemm.kernel_max_threads(torch.float32, rm, rn) == max_threads_for_reg_tile(rm, rn)
+    for bk, sm, sn in GEMM_WG_INSTANCES:
+        cfg = gemm.KernelConfig(sm, bk, sn, sm, sn)
+        assert gemm.kernel_max_threads_bf16(cfg) == gemm_bf16_max_threads(sm)
+    for bn in GEMM_BW_BN:
+        cfg = gemm.KernelConfig(8, 16, bn, 8, bn)
+        assert gemm.kernel_max_threads_bf16(cfg) == gemm_bf16_max_threads(8)
+
+
+@pytest.mark.gpu
+def test_gemm_refuses_unaligned_bf16_operands_on_card():
+    _card()
+    buf = torch.zeros(64 * 64 + 8, device="cuda").bfloat16()
+    a = buf[1:64 * 64 + 1].view(64, 64)
+    before = sum(gemm.LAUNCHES.values())
+    with pytest.raises(ValueError, match="16-byte"):
+        gemm.gemm_tiled(a, a.clone(), gemm.KernelConfig(64, 64, 64, 64, 64))
+    assert sum(gemm.LAUNCHES.values()) == before
 
 
 #: (G, causal, (block_q, block_kv)) per dtype: the bf16 kernel takes whole

@@ -51,9 +51,15 @@ def _close(got: torch.Tensor, ref, tol):
 
 
 def _port_config(ref: RefConfig, in_bytes: int) -> KernelConfig:
-    """The reference config's blocks and sub-tiles with the smallest
-    square register tile the Hopper kernel launches them with."""
+    """float32: the reference config's blocks and sub-tiles with the
+    smallest square register tile the SIMT kernel launches them with.
+    bfloat16: a tile of the tensor-core kernel with the reference's K
+    slab (the plain version's arithmetic depends on the slab alone)."""
     c = ref.resolved()
+    if in_bytes == 2:
+        cfg = KernelConfig(64, c.block_k, 64, 64, 64)
+        assert gemm_launch_error(64, c.block_k, 64, 64, 64, 1, 1, 2) is None
+        return cfg
     for reg in (1, 2, 4, 8):
         rm, rn = min(reg, c.sub_m), min(reg, c.sub_n)
         if gemm_launch_error(c.block_m, c.block_k, c.block_n, c.sub_m, c.sub_n,
@@ -185,13 +191,16 @@ def test_wrapper_refusals():
 
 def test_default_config_fits_hopper_where_the_tpu_default_does_not():
     """The JAX package's TPU default (blocks up to 256x512x256) needs far
-    more than a CTA's shared memory; the port keeps its own default."""
+    more than a CTA's shared memory (SIMT, float32) and has no tensor-core
+    instantiation (bfloat16); the port keeps its own default per dtype."""
     for m, k, n in [(8192, 4096, 6144), (8192, 12288, 4096), (8192, 4096, 65536)]:
         ref = ref_default_config(m, k, n).resolved()
-        assert gemm_launch_error(ref.block_m, ref.block_k, ref.block_n, ref.sub_m,
-                                 ref.sub_n, 1, 1, 2) is not None
-        cfg = default_config(m, k, n)
-        cfg.validate(m, k, n, 2)
-        assert state_from_config(cfg, m, k, n).dims() == (m, k, n)
+        for in_bytes in (4, 2):
+            assert gemm_launch_error(ref.block_m, ref.block_k, ref.block_n, ref.sub_m,
+                                     ref.sub_n, 1, 1, in_bytes) is not None
+            cfg = default_config(m, k, n, in_bytes)
+            cfg.validate(m, k, n, in_bytes)
+            assert state_from_config(cfg, m, k, n).dims() == (m, k, n)
     assert default_config(63, 127, 65) is None
+    assert default_config(63, 127, 65, 4) is None
 

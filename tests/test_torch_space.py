@@ -55,7 +55,8 @@ def test_enumeration_matches_reference():
     assert [s.key() for s in port.enumerate()] == [s.key() for s in ref.enumerate()]
 
 
-@pytest.mark.parametrize("dims", [(64, 64, 64), (512, 256, 1024), (8192, 4096, 6144)])
+@pytest.mark.parametrize("dims", [(64, 64, 64), (512, 256, 1024), (8192, 4096, 6144),
+                                  (8, 4096, 11008)])
 @pytest.mark.parametrize("in_bytes", [2, 4])
 @pytest.mark.parametrize("seed", range(4))
 def test_wrapper_refusals_agree_with_analyzer(dims, in_bytes, seed):
@@ -79,8 +80,10 @@ def test_wrapper_refusals_agree_with_analyzer(dims, in_bytes, seed):
 
 
 def test_analyzer_reasons():
+    """The float32 SIMT kernel's reasons (the bf16 kernels' are in
+    tests/test_torch_gemm_rules.py)."""
     space = GemmConfigSpace(1024, 1024, 1024)
-    an = ScheduleAnalyzer(space, in_bytes=2)
+    an = ScheduleAnalyzer(space, in_bytes=4)
     assert an.analyze(space.initial_state()).reason == "block_below_minimum"
     assert not an.analyze(TilingState((8, 4, 4, 8), (32, 32), (8, 2, 8, 8))).illegal
     assert an.analyze(TilingState((8, 4, 4, 8), (32, 32), (8, 2, 8, 4))).reason == "product_mismatch"
@@ -89,20 +92,22 @@ def test_analyzer_reasons():
     assert an.analyze(TilingState((8, 1, 16, 8), (1, 1024), (8, 2, 8, 8))).reason == "smem_overflow"
     degenerate = an.analyze(TilingState((32, 1, 32, 1), (32, 32), (32, 1, 32, 1)))
     assert degenerate.reason == "degenerate" and should_prune(degenerate)
-    small = ScheduleAnalyzer(GemmConfigSpace(128, 128, 128), in_bytes=2)
+    small = ScheduleAnalyzer(GemmConfigSpace(128, 128, 128), in_bytes=4)
     fill = small.analyze(TilingState((1, 4, 4, 8), (4, 32), (1, 2, 8, 8)))
     assert fill.reason == "under_fill" and not should_prune(fill)
 
 
 def test_launch_rule_edges():
+    """The float32 SIMT kernel's rule (the bf16 kernels' edges are in
+    tests/test_torch_gemm_rules.py)."""
     spec = HopperSpec()
-    assert gemm_launch_error(128, 32, 128, 32, 64, 8, 8) is None
-    assert gemm_launch_error(8, 8, 8, 8, 8, 2, 2)[0] == "partial_warp"
-    assert gemm_launch_error(128, 8, 128, 128, 128, 1, 1)[0] == "threads_over_limit"
-    assert gemm_launch_error(128, 8, 128, 48, 64, 8, 8)[0] == "tile_nesting"
-    assert gemm_launch_error(32, 8, 32, 32, 32, 1, 1) is None  # 1024 threads
+    assert gemm_launch_error(128, 32, 128, 32, 64, 8, 8, 4) is None
+    assert gemm_launch_error(8, 8, 8, 8, 8, 2, 2, 4)[0] == "partial_warp"
+    assert gemm_launch_error(128, 8, 128, 128, 128, 1, 1, 4)[0] == "threads_over_limit"
+    assert gemm_launch_error(128, 8, 128, 48, 64, 8, 8, 4)[0] == "tile_nesting"
+    assert gemm_launch_error(32, 8, 32, 32, 32, 1, 1, 4) is None  # 1024 threads
     assert gemm_launch_error(
-        128, 8, 128, 32, 64, 8, 8, grid_m=spec.max_grid_y + 1
+        128, 8, 128, 32, 64, 8, 8, 4, grid_m=spec.max_grid_y + 1
     )[0] == "grid_too_large"
 
 
