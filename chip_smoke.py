@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card: tune -> record ->
 dispatch for yi-6b's five GEMMs and its prefill attention at full width,
-through the hand-written GEMM and flash-attention kernels, and yi-6b
-served at full width on the tuned records.
+through the hand-written GEMM and flash-attention kernels, yi-6b served
+at full width on the tuned records, and the paper's tuners (N-A2C and
+its baselines) compared on the GEMM kernel.
 
     python3 chip_smoke.py
 
@@ -56,12 +57,32 @@ Phases (each prints its wall time):
      faults there), time the kernel, the plain version and
      ``scaled_dot_product_attention`` (the yardstick, used nowhere in the
      port), and hold the reduced yi-6b served on the card against the
-     same model on the CPU (plain versions).
+     same model on the CPU (plain versions);
+ 11. the paper's tuners on the card: (a) N-A2C through the tune CLI
+     (``--tuner n-a2c --cost hopper --device cuda --warm-start``, a
+     snapshot every round) over yi-6b's five bf16 GEMMs, and through the
+     session on the decode product (8, 4096, 11008), which the CLI's
+     workload list does not hold, seeded from the kernel's heuristic
+     state as in phase 3, onto the same fresh records and journal; each workload's trials, launchable share, ``c_ref`` and
+     best time, then the decode product served through ``gemm()`` from
+     the records and held against its plain version at the bf16 limit;
+     (b) Fig. 7's operating point: every tuner of ``TUNERS`` once, seed 0,
+     on 1024^3 float32 (the SIMT kernel), 0.1 % of the space (899 trials)
+     on times measured on the card, ``analyze="prune"``, each through
+     ``TuningSession.tune_workload(warm_start=True)``; a ``[paper]`` line
+     per tuner with its best state re-timed (20 launches, L2 flushed, card
+     spun) and held against the plain version, the headline ratios, and
+     two yardsticks: ``torch.matmul`` in float32 without TF32 and the
+     bound 2·1024^3 over the FP32 CUDA-core peak (66.9 TFLOP/s, H100 SXM
+     data sheet); (c) N-A2C twice with its networks on the card, on the
+     float32 H100 model at 256^3: the two trial sequences must be equal.
 
 Launch counts of each path are zeroed just before it and read just after:
 the GEMM tuning path is phases 3-5, the flash tuning path phase 8, the
-serve phase 9 (the CLIs' launches, made in their own processes, are added
-from their output).  Each kernel row gives ``launches_tune`` and
+serve phase 9, N-A2C's tuning and serve 11(a) (added to the yi-6b rows'
+``launches_tune``), the paper's comparison 11(b) (its own row,
+``gemm[paper/1024^3-f32]``; the CLIs' launches, made in their own
+processes, are added from their output).  Each kernel row gives ``launches_tune`` and
 ``launches_serve`` and their sum as ``launches``.  GEMM rows give each
 time twice: ``ms``/``library_ms`` timed as earlier slices timed them
 (the event span holds the host's enqueue of the call), and
@@ -161,6 +182,14 @@ CLI_TRIALS = 100
 FLASH_TRIALS = 30  # G-BFS pool of the flash workload (phase 8)
 FLASH_CLI_TRIALS = 12
 SERVE_REQUESTS, SERVE_BUCKET, SERVE_TOKENS = 8, 4096, 16
+#: phase 11: N-A2C's pool over the CLI's five GEMMs and its decode-product
+#: budget (about 120 trials over six GEMMs), the paper's product, the
+#: FP32 CUDA-core peak its bound uses (H100 SXM data sheet), and the
+#: determinism runs' budget
+NA2C_CLI_TRIALS, NA2C_DECODE_TRIALS = 100, 20
+PAPER_DIMS = (1024, 1024, 1024)
+FP32_PEAK = 66.9e12
+NA2C_REPEAT_TRIALS = 200
 
 
 def phase(name: str, t0: float) -> None:
@@ -904,9 +933,191 @@ def main() -> None:
         phase("10 full-width flash check, times, reduced model vs CPU", t0)
     fault_dir.cleanup()
 
+    t0 = time.perf_counter()
+    paper_tuners(kernels, gemm_rows, rand, flush, peak_bytes)
+    phase("11 N-A2C and the paper's baselines on the card", t0)
+
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
+
+
+def journal_summary(path: str) -> dict:
+    """Per workload key (the part before the measurement fingerprint) of
+    a fresh journal: ``(trials, launchable, best seconds, first cost)`` —
+    the first row is the first state measured, whose cost sets the learned
+    tuners' reward scale ``c_ref`` (1.0 where it is ``inf``)."""
+    out: dict = {}
+    with open(path) as f:
+        for line in f:
+            row = json.loads(line)
+            key = row["w"].split("?")[0]
+            c = math.inf if row.get("c") is None else float(row["c"])
+            n, fin, best, first = out.get(key, (0, 0, math.inf, c))
+            out[key] = (n + 1, fin + math.isfinite(c), min(best, c), first)
+    return out
+
+
+def paper_tuners(kernels: list, gemm_rows: dict, rand, flush, peak_bytes: float) -> None:
+    """Phase 11: N-A2C on the served path, the paper's comparison at
+    Fig. 7's operating point, and N-A2C's determinism on the card."""
+    from repro_torch.core import (
+        AnalyticalHopperCost, Budget, GemmConfigSpace, TrialJournal, TuneCheckpointer,
+        TuningRecords, TuningSession, get_op,
+    )
+    from repro_torch.core.records import set_global_records
+    from repro_torch.core.session import Workload
+    from repro_torch.core.tuners import TUNERS, NA2CTuner
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gemm import (
+        LAUNCHES, default_config, gemm_plain, gemm_tiled, kernel_config_from_state,
+        state_from_config,
+    )
+
+    # -- (a) N-A2C on the served path: counts zeroed here, read after the serve
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = os.path.join(tmp, "na2c.json")
+        LAUNCHES.clear()
+        ops.reset_dispatch_stats()
+        out = run_cli(["repro_torch.launch.tune", "--arch", "yi-6b", "--shape", "train_4k",
+                       "--tuner", "n-a2c", "--cost", "hopper", "--device", "cuda",
+                       "--warm-start", "--max-trials", str(NA2C_CLI_TRIALS),
+                       "--checkpoint-every", "1", "--records", rec])
+        cli_launches = json.loads(re.search(r"kernel_launches=(.*)", out).group(1))
+        records = TuningRecords(rec)
+        with TrialJournal(rec + ".journal.jsonl") as journal:
+            session = TuningSession(records, journal=journal, verbose=True, device="cuda")
+            wl = Workload("gemm", DECODE_TUNED, dtype="bfloat16", label="yi-6b/decode_ffn_in")
+            # seeded from the kernel's heuristic state, as phase 3 seeds it: a
+            # warm start would transplant the nearest tuned shape's state,
+            # a wgmma tile the bandwidth kernel cannot launch at M = 8
+            m, k, n = DECODE_TUNED
+            s0 = state_from_config(default_config(m, k, n), m, k, n)
+            res = session.tune_workload(
+                wl, "n-a2c", Budget(max_trials=NA2C_DECODE_TRIALS), tuner_kwargs={"s0": s0},
+                checkpointer=TuneCheckpointer(rec + ".tunestate", every_rounds=1))
+        if res.best_state is None:
+            raise SystemExit("N-A2C found no launchable state of the decode product")
+        set_global_records(TuningRecords(rec))
+        a, b = rand((m, k), torch.bfloat16), rand((k, n), torch.bfloat16)
+        cfg, src = ops.kernel_config(m, k, n, torch.bfloat16)
+        got = ops.gemm(a, b)
+        torch.cuda.synchronize()
+        launches = collections.Counter(LAUNCHES)
+        if src != "records" or ops.dispatch_stats()["gemm"]["records"] < 1:
+            raise SystemExit(f"the decode product was not served from N-A2C's record ({src})")
+        err = check_close(f"N-A2C-tuned decode {DECODE_TUNED} {cfg}", got, gemm_plain(a, b, cfg),
+                          torch.bfloat16, gemm_tol(k))
+        print(f"[na2c] served {DECODE_TUNED} through gemm() from its record: {cfg} "
+              f"max_abs_err={err}", flush=True)
+        set_global_records(TuningRecords())
+        for shape, count in cli_launches.items():
+            launches[tuple(int(d) for d in shape.split("x"))] += count
+        n_snap = len(os.listdir(rec + ".tunestate"))
+        for key, (n_tr, fin, best, first) in journal_summary(rec + ".journal.jsonl").items():
+            print(f"[na2c] {key}: trials={n_tr} launchable={fin} ({fin / n_tr:.3f}) "
+                  f"best_ms={best * 1e3:.4f} c_ref={first if math.isfinite(first) else 1.0}",
+                  flush=True)
+        print(f"[na2c] snapshot directories: {n_snap}; kernel launches on the path: "
+              f"{sum(launches.values())} ({sum(cli_launches.values())} in the CLI process)")
+        for dims, count in launches.items():
+            if dims in gemm_rows:
+                gemm_rows[dims]["launches_tune"] += count
+                gemm_rows[dims]["launches"] += count
+        if launches.get(DECODE_TUNED, 0) == 0 or not cli_launches:
+            raise SystemExit("N-A2C's path never launched the GEMM kernel")
+        del a, b, got
+
+    # -- (b) the paper's comparison at Fig. 7's operating point --------------------
+    # how much of the space each dtype's kernels can launch at all
+    from repro_torch.core.analysis import HopperSpec, _gemm_state_launch_error
+
+    paper_space, spec = GemmConfigSpace(*PAPER_DIMS), HopperSpec()
+    n_launch = collections.Counter()
+    for st in paper_space.enumerate():
+        for in_bytes in (2, 4):
+            n_launch[in_bytes] += _gemm_state_launch_error(paper_space, st, in_bytes, spec) is None
+    print(f"[paper] launchable states of GemmConfigSpace{PAPER_DIMS} (default HopperSpec): "
+          f"bfloat16 {n_launch[2]}, float32 {n_launch[4]} of {paper_space.size()}", flush=True)
+    LAUNCHES.clear()
+    results = {}
+    for name in TUNERS:
+        session = TuningSession(TuningRecords(), verbose=False, device="cuda")
+        wl = Workload("gemm", PAPER_DIMS, dtype="float32", label="paper/1024^3-f32")
+        results[name] = session.tune_workload(wl, name, Budget(max_fraction=0.001), seed=0,
+                                              warm_start=True, analyze="prune")
+        torch.cuda.empty_cache()
+    paper_launches = sum(LAUNCHES.values())  # read before the checks' launches
+    m, k, n = PAPER_DIMS
+    a, b = rand((m, k), torch.float32), rand((k, n), torch.float32)
+    best_ms, worst_err = {}, 0.0
+    for name, res in results.items():
+        n_fin = sum(math.isfinite(t.cost) for t in res.trials)
+        if res.best_state is None:  # grid's first states in enumeration order cannot launch
+            print(f"[paper] tuner={name} trials={res.n_trials} launchable=0 (0.000) "
+                  f"best_ms=inf wall_s={res.wall_s:.2f} clock_s={res.clock_s:.2f}", flush=True)
+            continue
+        cfg = kernel_config_from_state(res.best_state)
+        err = check_close(f"[paper] {name} best {cfg}", gemm_tiled(a, b, cfg),
+                          gemm_plain(a, b, cfg), torch.float32)
+        worst_err = max(worst_err, err)
+        best_ms[name] = timed_ms(lambda: gemm_tiled(a, b, cfg), 20, flush, spin=True)
+        found = next(i for i, t in enumerate(res.trials) if t.cost == res.best_cost) + 1
+        # the learned tuners' reward scale: the first state's cost, 1.0 if inf
+        c0 = res.trials[0].cost
+        c_ref = (f" c_ref={c0 if math.isfinite(c0) else 1.0}"
+                 if name in ("n-a2c", "rnn-controller") else "")
+        print(f"[paper] tuner={name} trials={res.n_trials} launchable={n_fin} "
+              f"({n_fin / res.n_trials:.3f}) best_ms={best_ms[name]:.4f} "
+              f"measured_ms={res.best_cost * 1e3:.4f} found_at={found} "
+              f"wall_s={res.wall_s:.2f} clock_s={res.clock_s:.2f} "
+              f"first={res.trials[0].state.key()}{c_ref} config={cfg} max_abs_err={err}",
+              flush=True)
+    lib_ms = timed_ms(lambda: torch.matmul(a, b), 20, flush, spin=True)
+    lib_unspun = timed_ms(lambda: torch.matmul(a, b), 20, flush)
+    missing = {"g-bfs", "n-a2c", "xgboost-like", "rnn-controller"} - set(best_ms)
+    if missing:
+        raise SystemExit(f"no launchable state from the paper's tuners {sorted(missing)}")
+    fastest = min(best_ms, key=best_ms.get)
+    cfg = kernel_config_from_state(results[fastest].best_state)
+    ms_unspun = timed_ms(lambda: gemm_tiled(a, b, cfg), 20, flush)
+    plain_ms = timed_ms(lambda: gemm_plain(a, b, cfg), 1, flush)
+    flops, nbytes = 2 * m * k * n, 4 * (m * k + k * n + m * n)
+    bound_ms = 1e3 * max(flops / FP32_PEAK, nbytes / peak_bytes)
+
+    def ratio(slow: str, fast: str) -> str:
+        r = best_ms[slow] / best_ms[fast]
+        return f"{fast}_vs_{slow}={r:.4f} ({(1 - 1 / r) * 100:+.1f}% time saved)"
+
+    print(f"[paper] headline at 0.1%: {ratio('xgboost-like', 'g-bfs')} "
+          f"{ratio('rnn-controller', 'g-bfs')} {ratio('xgboost-like', 'n-a2c')} "
+          f"{ratio('rnn-controller', 'n-a2c')}; torch.matmul f32 (no TF32) "
+          f"library_ms={lib_ms:.4f}, bound_ms={bound_ms:.4f} (fp32 peak 66.9 TFLOP/s); "
+          f"fastest {fastest} {best_ms[fastest]:.4f} ms = {best_ms[fastest] / lib_ms:.2f}x "
+          f"torch.matmul, {bound_ms / best_ms[fastest]:.3f} of the bound", flush=True)
+    kernels.append({
+        "name": "gemm[paper/1024^3-f32]", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gemm.cu",
+        "replaces": "src/repro/kernels/gemm.py:96", "shape": list(PAPER_DIMS),
+        "launches_tune": paper_launches, "launches_serve": 0, "launches": paper_launches,
+        "max_abs_err": worst_err, "ms": ms_unspun, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "operations" if flops / FP32_PEAK >= nbytes / peak_bytes else "bytes",
+        "library_ms": lib_unspun, "ms_spin": best_ms[fastest], "library_ms_spin": lib_ms,
+    })
+    del a, b
+
+    # -- (c) N-A2C twice on the card: one seed, one trial sequence -------------------
+    space = GemmConfigSpace(256, 256, 256)
+    cost = AnalyticalHopperCost(space, dtype="float32")
+    s0 = get_op("gemm").default_state(space, "float32")
+    runs = [NA2CTuner(space, cost, seed=0, s0=s0, device="cuda").tune(
+        Budget(max_trials=NA2C_REPEAT_TRIALS)) for _ in range(2)]
+    seqs = [[(t.state.key(), t.cost) for t in r.trials] for r in runs]
+    print(f"[na2c] two runs on the card (256^3 float32 model, seed 0): trials="
+          f"{len(seqs[0])} identical={seqs[0] == seqs[1]} best={runs[0].best_cost:.4e}s",
+          flush=True)
+    if seqs[0] != seqs[1] or len(seqs[0]) != NA2C_REPEAT_TRIALS:
+        raise SystemExit("N-A2C on the card gave two different trial sequences")
 
 
 def profile_split(label: str, fn):

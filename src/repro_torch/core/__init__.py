@@ -7,7 +7,8 @@ Public surface:
   ops.* (OpSpec / get_op / OPS)           — the operator registry
   cost.*                                  — measured and analytical oracles
   analysis.* (ScheduleAnalyzer, HopperSpec) — compile-free legality verdicts
-  tuners.*                                — G-BFS
+  tuners.*                                — G-BFS, N-A2C and the paper's baselines
+  TuneCheckpointer / TuneInterrupted      — crash-safe snapshots and resume
   TuningSession / Workload                — orchestration
   TuningRecords / TrialJournal            — persisted best configs and trials
 """
@@ -29,6 +30,7 @@ from .cost import (
     CountingCost,
     FlashAnalyticalHopperCost,
     HopperTimedCost,
+    SleepingCost,
 )
 from .executor import LaneExecutor, LaneResult, SimulatedExecutor
 from .flash_space import FlashAttnConfigSpace, FlashScheduleState
@@ -44,8 +46,23 @@ from .records import (
     workload_key_for,
 )
 from .session import ArchTuneReport, TuningSession, Workload
+from .snapshot import TuneCheckpointer, TuneInterrupted
 from .space import FactoredSearchSpace, SearchSpace, State, state_from_lists
-from .tuners import TUNERS, Budget, GBFSTuner, Trial, TuneResult, Tuner
+from .tuners import (
+    TUNERS,
+    AnnealingTuner,
+    Budget,
+    GBFSTuner,
+    GBTTuner,
+    GeneticTuner,
+    GridTuner,
+    NA2CTuner,
+    RandomTuner,
+    RNNControllerTuner,
+    Trial,
+    TuneResult,
+    Tuner,
+)
 
 __all__ = [
     "ILLEGAL", "OK", "WASTEFUL", "AnalysisResult", "HopperSpec",
@@ -53,7 +70,7 @@ __all__ = [
     "Action", "GemmConfigSpace", "TilingState",
     "FlashAttnConfigSpace", "FlashScheduleState",
     "AnalyticalHopperCost", "CostBackend", "CountingCost",
-    "FlashAnalyticalHopperCost", "HopperTimedCost",
+    "FlashAnalyticalHopperCost", "HopperTimedCost", "SleepingCost",
     "LaneExecutor", "LaneResult", "SimulatedExecutor",
     "PERMANENT_KINDS", "TRANSIENT_KINDS", "RetryPolicy", "classify_error",
     "MeasureEngine", "MeasureOutcome", "MeasureStats",
@@ -62,5 +79,8 @@ __all__ = [
     "parse_workload_key_generic", "set_global_records", "workload_key_for",
     "ArchTuneReport", "TuningSession", "Workload",
     "FactoredSearchSpace", "SearchSpace", "State", "state_from_lists",
-    "TUNERS", "Budget", "GBFSTuner", "Trial", "TuneResult", "Tuner",
+    "TuneCheckpointer", "TuneInterrupted",
+    "TUNERS", "Budget", "Trial", "TuneResult", "Tuner", "GBFSTuner", "NA2CTuner",
+    "GBTTuner", "RNNControllerTuner", "RandomTuner", "GridTuner", "AnnealingTuner",
+    "GeneticTuner",
 ]

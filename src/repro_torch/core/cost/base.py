@@ -14,11 +14,12 @@ from __future__ import annotations
 
 import abc
 import math
+import time
 from typing import Sequence
 
 from ..space import SearchSpace, State
 
-__all__ = ["CostBackend", "CountingCost"]
+__all__ = ["CostBackend", "CountingCost", "SleepingCost"]
 
 
 class CostBackend(abc.ABC):
@@ -119,3 +120,28 @@ class CountingCost(CostBackend):
             self.simulated_clock_s += max(self._lane_s(c) for c in costs)
             out.extend(costs)
         return out
+
+
+class SleepingCost(CostBackend):
+    """Returns the inner backend's costs but occupies ``delay_s`` of real
+    wall clock per measurement, as a device occupies a measurement lane:
+    it gives an interrupt a window to land in mid-search (the tune CLI's
+    ``--measure-delay``).  The JAX package's class of this name also
+    injects lane failures; that part is not ported yet."""
+
+    def __init__(self, inner: CostBackend, delay_s: float = 0.05):
+        super().__init__(inner.space, n_repeats=1, dtype=inner.dtype)
+        self.inner = inner
+        self.name = f"sleeping({inner.name})"
+        self.delay_s = delay_s
+
+    def cost_once(self, s: State, repeat_idx: int) -> float:  # pragma: no cover
+        raise RuntimeError("SleepingCost delegates via cost()")
+
+    def cost(self, s: State) -> float:
+        time.sleep(self.delay_s)
+        return self.inner.cost(s)
+
+    def measure_fingerprint(self) -> str:
+        # sleeping changes lane occupancy, never the measured value
+        return self.inner.measure_fingerprint()

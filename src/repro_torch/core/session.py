@@ -17,9 +17,16 @@ serves repeat measurements from — and wires both into every search:
   executes through one shared budget pool and one
   :class:`MeasureStats`.
 
+With a :class:`~repro_torch.core.snapshot.TuneCheckpointer` the session
+snapshots each search at its tuner's round boundaries, serves a finished
+workload from its ``done`` snapshot on ``resume``, and restores an
+interrupted one mid-search.
+
 The default cost is :class:`~repro_torch.core.cost.HopperTimedCost`:
-candidates are timed on the card.  This is the JAX package's session
-without snapshot/resume, sharding and the learned filter.
+candidates are timed on the card.  The session's ``device`` is handed to
+every tuner that takes one (the learned tuners' networks run there).
+This is the JAX package's session without sharding, lane executors and
+the learned filter.
 """
 
 from __future__ import annotations
@@ -39,8 +46,10 @@ from .records import (
     parse_workload_key_generic,
     workload_key_for,
 )
+from .snapshot import TuneCheckpointer, TuneInterrupted
 from .space import SearchSpace, State
-from .tuners import TUNERS, Budget, TuneResult
+from .tuners import TUNERS, Budget, Trial, TuneResult
+from .tuners.base import decode_cost, encode_cost
 
 __all__ = ["Workload", "TuningSession", "ArchTuneReport"]
 
@@ -108,6 +117,52 @@ class ArchTuneReport:
         return out
 
 
+#: Snapshot step reserved for the "workload finished" marker — larger
+#: than any round index, so it always survives the checkpointer's GC and
+#: ``latest_step`` finds it first on resume.
+_DONE_STEP = 99_999_999
+
+
+def _result_to_jsonable(result: TuneResult) -> dict:
+    return {
+        "tuner": result.tuner,
+        "best": None if result.best_state is None else result.best_state.as_lists(),
+        "best_cost": encode_cost(result.best_cost),
+        "trials": [
+            [t.state.as_lists(), encode_cost(t.cost), t.clock_s]
+            for t in result.trials
+        ],
+        "fraction": result.fraction,
+        "wall_s": result.wall_s,
+        "clock_s": result.clock_s,
+        "n_workers": result.n_workers,
+        "n_cache_hits": result.n_cache_hits,
+        "executor": result.executor,
+    }
+
+
+def _result_from_jsonable(data: dict, space: SearchSpace) -> TuneResult:
+    trials = [
+        Trial(space.state_from_lists(lists), decode_cost(c), i, float(tc))
+        for i, (lists, c, tc) in enumerate(data["trials"])
+    ]
+    return TuneResult(
+        tuner=data["tuner"],
+        best_state=(
+            None if data["best"] is None else space.state_from_lists(data["best"])
+        ),
+        best_cost=decode_cost(data["best_cost"]),
+        trials=trials,
+        n_trials=len(trials),
+        fraction=data["fraction"],
+        wall_s=data["wall_s"],
+        clock_s=data["clock_s"],
+        n_workers=data["n_workers"],
+        n_cache_hits=data["n_cache_hits"],
+        executor=data["executor"],
+    )
+
+
 def _default_cost_factory(space: SearchSpace, dtype: str = "bfloat16") -> CostBackend:
     """Time candidates on the card (raises where there is none)."""
     from .cost import HopperTimedCost
@@ -123,6 +178,7 @@ class TuningSession:
         seed: int = 0,
         verbose: bool = True,
         journal: Optional[TrialJournal] = None,
+        device="cuda",
     ):
         # NOTE: TuningRecords defines __len__, so an EMPTY store is falsy —
         # `records or TuningRecords()` would silently drop it
@@ -132,6 +188,8 @@ class TuningSession:
         self.verbose = verbose
         # persistent measurement cache; None disables cross-session serving
         self.journal = journal
+        # where tuners that take a device (the learned ones) run their networks
+        self.device = device
 
     # -- warm start ----------------------------------------------------------
     def warm_start_state(
@@ -211,6 +269,8 @@ class TuningSession:
         stats: Optional[MeasureStats] = None,
         analyze: str = "off",
         retry: Optional[RetryPolicy] = None,
+        checkpointer: Optional[TuneCheckpointer] = None,
+        resume: bool = False,
     ) -> TuneResult:
         space = wl.space()
         # the workload's dtype picks the kernel, its launch rule and its
@@ -225,6 +285,25 @@ class TuningSession:
             raise ValueError(
                 "retry=... conflicts with the provided engine's retry policy"
             )
+        # -- crash-safe resume: serve finished workloads from their done
+        # snapshot, restore interrupted ones mid-search -----------------------
+        restore = None
+        if checkpointer is not None and resume:
+            payload = checkpointer.load(wkey, tuner_name)
+            if payload is not None and payload.get("done"):
+                result = _result_from_jsonable(payload["result"], space)
+                if self.verbose:
+                    print(
+                        f"[tune] {wl.label or wkey} {tuner_name}: "
+                        f"already complete (resumed from done snapshot, "
+                        f"best={result.best_cost:.3e}s trials={result.n_trials})"
+                    )
+                return result
+            restore = payload
+        elif checkpointer is not None:
+            # fresh run: stale snapshots (incl. a previous done marker)
+            # must not shadow this run for a later --resume
+            checkpointer.clear(wkey, tuner_name)
         if engine is None:
             engine = MeasureEngine(
                 cost,
@@ -238,17 +317,39 @@ class TuningSession:
         budget = budget or Budget(max_fraction=0.001)
         tuner_cls = TUNERS[tuner_name]
         kwargs = dict(tuner_kwargs or {})
+        takes = inspect.signature(tuner_cls.__init__).parameters
         if warm_start and "s0" not in kwargs:
             s0 = self.warm_start_state(
                 wl, space, cost.name, fingerprint=cost.measure_fingerprint()
             )
-            if s0 is not None and "s0" in inspect.signature(
-                tuner_cls.__init__
-            ).parameters:
+            if s0 is not None and "s0" in takes:
                 kwargs["s0"] = s0
+        if "device" in takes and "device" not in kwargs:
+            kwargs["device"] = self.device
         tuner = tuner_cls(space, cost, seed=self.seed if seed is None else seed,
                           **kwargs)
-        result = tuner.tune(budget, engine=engine)
+        checkpoint_fn = None
+        if checkpointer is not None:
+            def checkpoint_fn(t, ctx, _ck=checkpointer):
+                # periodic snapshot at the cadence; an interrupt always
+                # flushes a final one, then unwinds the whole session
+                if _ck.interrupted or ctx.round_idx % _ck.every_rounds == 0:
+                    _ck.save(
+                        wkey,
+                        tuner_name,
+                        {
+                            "tuner": tuner_name,
+                            "tuner_state": t.state_dict(),
+                            "ctx": ctx.snapshot(),
+                        },
+                        step=ctx.round_idx,
+                    )
+                if _ck.interrupted:
+                    raise TuneInterrupted(wkey)
+
+        result = tuner.tune(
+            budget, engine=engine, checkpoint_fn=checkpoint_fn, restore=restore
+        )
         if result.best_state is not None and math.isfinite(result.best_cost):
             self.records.update(
                 wkey,
@@ -257,6 +358,16 @@ class TuningSession:
                 tuner_name,
                 result.n_trials,
                 extra={"label": wl.label, "n_workers": engine.n_workers},
+            )
+        if checkpointer is not None:
+            # mark the workload finished AFTER records.update so a crash
+            # between the two re-runs the search instead of losing the record
+            checkpointer.save(
+                wkey,
+                tuner_name,
+                {"done": True, "tuner": tuner_name,
+                 "result": _result_to_jsonable(result)},
+                step=_DONE_STEP,
             )
         if self.verbose:
             print(
@@ -281,6 +392,8 @@ class TuningSession:
         tuner_kwargs: Optional[dict] = None,
         analyze: str = "off",
         retry: Optional[RetryPolicy] = None,
+        checkpointer: Optional[TuneCheckpointer] = None,
+        resume: bool = False,
     ) -> ArchTuneReport:
         """Tune every distinct workload an architecture executes through
         one shared budget pool.
@@ -326,7 +439,8 @@ class TuningSession:
                 res = self.tune_workload(
                     wl, tuner_name, alloc, tuner_kwargs,
                     n_workers=n_workers, warm_start=warm_start, stats=stats,
-                    analyze=analyze, retry=retry,
+                    analyze=analyze, retry=retry, checkpointer=checkpointer,
+                    resume=resume,
                 )
                 if left_trials is not None:
                     left_trials -= res.n_trials

@@ -9,8 +9,12 @@ which dedups against the visited table, slices fresh states into waves
 of ``n_workers``, charges one trial per fresh state (capping the final
 wave at the budget), advances the clock by each wave's critical path,
 tracks the incumbent, and raises :class:`BudgetExhausted` when the
-budget is spent.  This is the JAX package's context without its
-snapshot/resume and sharding hooks: the trial sequence is the same.
+budget is spent.  At the top of each proposal round a tuner calls
+:meth:`TuningContext.checkpoint`, where a session-installed callback may
+snapshot the search (``Tuner.state_dict`` plus :meth:`TuningContext.snapshot`)
+for a crash-safe resume.  This is the JAX package's context without its
+sharding hook and learned filter: the trial sequence and the snapshot
+bytes are the same.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import dataclasses
 import math
 import random
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 from ..cost.base import CostBackend
 from ..measure import MeasureEngine
@@ -33,7 +37,19 @@ __all__ = [
     "TuningContext",
     "Tuner",
     "BudgetExhausted",
+    "encode_cost",
+    "decode_cost",
 ]
+
+
+def encode_cost(c: float) -> Optional[float]:
+    """JSON-safe cost: ``inf`` (a failure) round-trips as ``null`` —
+    same convention as the journal's fail rows."""
+    return c if math.isfinite(c) else None
+
+
+def decode_cost(c: Optional[float]) -> float:
+    return math.inf if c is None else float(c)
 
 
 @dataclasses.dataclass
@@ -77,6 +93,22 @@ class TuneResult:
     def cache_hit_rate(self) -> float:
         return self.n_cache_hits / max(1, self.n_trials)
 
+    def best_curve(self) -> list[tuple[int, float]]:
+        """(n_trials, best_cost_so_far) — the paper's Fig. 7a series."""
+        out, best = [], math.inf
+        for t in self.trials:
+            best = min(best, t.cost)
+            out.append((t.index + 1, best))
+        return out
+
+    def best_time_curve(self) -> list[tuple[float, float]]:
+        """(clock_s, best_cost_so_far) — the paper's Fig. 7b series."""
+        out, best = [], math.inf
+        for t in self.trials:
+            best = min(best, t.cost)
+            out.append((t.clock_s, best))
+        return out
+
 
 class BudgetExhausted(Exception):
     pass
@@ -84,7 +116,8 @@ class BudgetExhausted(Exception):
 
 class TuningContext:
     """Search-side measurement broker: dedups states, charges the budget,
-    tracks the incumbent, and drives the engine's measurement waves."""
+    tracks the incumbent, and drives the engine's measurement waves.
+    Raising :class:`BudgetExhausted` unwinds the tuner."""
 
     def __init__(
         self,
@@ -93,6 +126,7 @@ class TuningContext:
         budget: Budget,
         n_workers: Optional[int] = None,
         engine: Optional[MeasureEngine] = None,
+        checkpoint_fn: Optional[Callable[["Tuner", "TuningContext"], None]] = None,
     ):
         self.space = space
         self.cost_backend = cost
@@ -103,6 +137,11 @@ class TuningContext:
         self.best_state: Optional[State] = None
         self.best_cost = math.inf
         self.clock_s = 0.0
+        # crash-safe search state: tuners announce round boundaries via
+        # checkpoint(); the session-installed callback snapshots tuner +
+        # context state and may raise TuneInterrupted on SIGTERM
+        self.round_idx = 0
+        self._checkpoint_fn = checkpoint_fn
         if engine is None:
             engine = MeasureEngine(cost, n_workers=1 if n_workers is None else n_workers)
         elif n_workers is not None and n_workers != engine.n_workers:
@@ -117,6 +156,52 @@ class TuningContext:
         self._stats0 = (engine.stats.n_dispatched, engine.stats.n_cache_hits)
         self.wall_start = time.monotonic()
 
+    # -- crash safety --------------------------------------------------------
+    def checkpoint(self, tuner: "Tuner") -> None:
+        """Announce a round boundary — every tuner calls this at the top
+        of its proposal loop.  A consistent cut of the search lives here:
+        the tuner's own state (``state_dict``) plus this context's
+        visited/trials/best/clock.  The installed callback decides
+        whether to snapshot and raises
+        :class:`~repro_torch.core.snapshot.TuneInterrupted` after
+        flushing a final snapshot when an interrupt was requested.
+        No-op without a callback."""
+        self.round_idx += 1
+        if self._checkpoint_fn is not None:
+            self._checkpoint_fn(tuner, self)
+
+    def snapshot(self) -> dict:
+        """JSON-serializable search state (the context half of a
+        snapshot; the tuner half is ``Tuner.state_dict``)."""
+        return {
+            "visited": [[k, encode_cost(c)] for k, c in self.visited.items()],
+            "trials": [
+                [t.state.as_lists(), encode_cost(t.cost), t.clock_s]
+                for t in self.trials
+            ],
+            "best": None if self.best_state is None else self.best_state.as_lists(),
+            "best_cost": encode_cost(self.best_cost),
+            "clock_s": self.clock_s,
+            "round": self.round_idx,
+        }
+
+    def restore_snapshot(self, snap: dict) -> None:
+        """Rebuild visited/trials/best/clock from :meth:`snapshot` output
+        (states rebuilt through this context's space)."""
+        self.visited = {k: decode_cost(c) for k, c in snap["visited"]}
+        self.trials = [
+            Trial(self.space.state_from_lists(lists), decode_cost(c), i, float(tc))
+            for i, (lists, c, tc) in enumerate(snap["trials"])
+        ]
+        self.best_state = (
+            None if snap["best"] is None
+            else self.space.state_from_lists(snap["best"])
+        )
+        self.best_cost = decode_cost(snap["best_cost"])
+        self.clock_s = float(snap["clock_s"])
+        self.round_idx = int(snap.get("round", 0))
+
+    # -- paper bookkeeping ---------------------------------------------------
     def seen(self, s: State) -> bool:
         return s.key() in self.visited
 
@@ -190,15 +275,52 @@ class Tuner(abc.ABC):
     def run(self, ctx: TuningContext) -> None:
         """Search until ctx.done() or BudgetExhausted."""
 
+    # -- crash-safe resume ---------------------------------------------------
+    def state_dict(self) -> dict:
+        """JSON-serializable tuner state for crash-safe resume.  The base
+        captures the RNG stream (every tuner draws from ``self.rng``);
+        subclasses extend via ``super()`` with their search memory
+        (frontier, population, network weights, counters).  ``run`` must
+        treat restored state as already-initialized and continue from
+        it."""
+        st = self.rng.getstate()
+        return {
+            "tuner": self.name,
+            "seed": self.seed,
+            "rng": [st[0], list(st[1]), st[2]],
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        got = state.get("tuner")
+        if got is not None and got != self.name:
+            raise ValueError(
+                f"snapshot belongs to tuner {got!r}, cannot restore {self.name!r}"
+            )
+        version, internal, gauss = state["rng"]
+        self.rng.setstate((version, tuple(internal), gauss))
+
     def tune(
         self,
         budget: Budget,
         n_workers: Optional[int] = None,  # defaults to 1 without an engine
         engine: Optional[MeasureEngine] = None,
+        checkpoint_fn: Optional[Callable[["Tuner", TuningContext], None]] = None,
+        restore: Optional[dict] = None,
     ) -> TuneResult:
+        """Run the search.  ``checkpoint_fn`` receives ``(tuner, ctx)``
+        at every round boundary (see ``TuningContext.checkpoint``);
+        ``restore`` is a snapshot payload (``{"tuner_state": ...,
+        "ctx": ...}``) to continue from instead of starting fresh.  A
+        :class:`~repro_torch.core.snapshot.TuneInterrupted` raised by the
+        callback propagates to the caller — the snapshot is already
+        flushed by then."""
         ctx = TuningContext(
-            self.space, self.cost, budget, n_workers=n_workers, engine=engine
+            self.space, self.cost, budget, n_workers=n_workers, engine=engine,
+            checkpoint_fn=checkpoint_fn,
         )
+        if restore is not None:
+            self.load_state_dict(restore["tuner_state"])
+            ctx.restore_snapshot(restore["ctx"])
         try:
             self.run(ctx)
         except BudgetExhausted:

@@ -14,14 +14,30 @@ TuningRecords JSON that ``kernels/ops.py`` serves at dispatch time::
   python -m repro_torch.launch.tune --op flash --arch yi-6b \\
       --max-trials 20 --records records/yi-6b.json --warm-start
 
-``--cost hopper`` (the default) times each candidate's kernel on the
-card with CUDA events; ``--cost analytical`` uses the deterministic H100
-model instead.  Candidates run on ``--device`` (default ``cuda``); the
-command refuses to run where there is no card unless ``--device cpu``
-is given, which only the analytical model accepts.  ``--warm-start``
-seeds each search from this workload's previous best record (or the
-nearest previously-tuned shape, transplanted).  Every measurement is
-journaled next to the records file, so re-runs are served from cache.
+``--tuner`` picks one of the eight searches of ``core.tuners.TUNERS``
+(the paper's ``g-bfs`` and ``n-a2c``, its baselines ``xgboost-like``
+and ``rnn-controller``, and ``random``, ``grid``, ``sim-anneal``,
+``genetic``).  ``--cost hopper`` (the default) times each candidate's
+kernel on the card with CUDA events; ``--cost analytical`` uses the
+deterministic H100 model instead.  Candidates, and the networks of
+``n-a2c`` and ``rnn-controller``, run on ``--device`` (default
+``cuda``); the command refuses to run where there is no card unless
+``--device cpu`` is given, which only the analytical model accepts.
+``--warm-start`` seeds each search from this workload's previous best
+record (or the nearest previously-tuned shape, transplanted, or the
+kernel's heuristic state).  Every measurement is journaled next to the
+records file, so re-runs are served from cache.
+
+Each search is snapshotted at its tuner's round boundaries under
+``--checkpoint-dir`` (default ``<records>.tunestate``).  SIGTERM or
+SIGINT flushes a final snapshot at the next boundary and exits with
+code 130; ``--resume`` continues every workload from its snapshot
+(finished ones are served from their done marker), and reaches the same
+records an uninterrupted run writes::
+
+  python -m repro_torch.launch.tune --arch yi-6b --tuner n-a2c \\
+      --device cpu --cost analytical --max-trials 60 --records /tmp/r.json
+  python -m repro_torch.launch.tune ... --resume   # after a SIGTERM
 """
 
 from __future__ import annotations
@@ -30,6 +46,7 @@ import argparse
 import collections
 import contextlib
 import json
+import sys
 from typing import Optional
 
 import torch
@@ -38,7 +55,10 @@ from repro_torch.configs.registry import get_arch, get_shape
 from repro_torch.core import (
     Budget,
     HopperTimedCost,
+    SleepingCost,
     TrialJournal,
+    TuneCheckpointer,
+    TuneInterrupted,
     TuningRecords,
     TuningSession,
     Workload,
@@ -134,7 +154,23 @@ def main(argv=None) -> None:
                     help="cost oracle: the kernel timed on the card, or the "
                          "deterministic H100 model")
     ap.add_argument("--device", default="cuda",
-                    help="where candidates run (cpu only with --cost analytical)")
+                    help="where candidates and the learned tuners' networks run "
+                         "(cpu only with --cost analytical)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="crash-safe session snapshot directory (default: "
+                         "<records>.tunestate; 'none' disables snapshots)")
+    ap.add_argument("--checkpoint-every", type=int, default=1,
+                    help="snapshot the search every N tuner rounds")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore each workload's search from its latest "
+                         "snapshot (finished workloads are served from "
+                         "their done marker); measurements replay from "
+                         "the journal, so the resumed search reaches the "
+                         "same best state as an uninterrupted run")
+    ap.add_argument("--measure-delay", type=float, default=0.0,
+                    help="seconds of real lane occupancy added per "
+                         "measurement (SleepingCost wrapper) — gives "
+                         "interrupt tests a window to land in")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -163,21 +199,50 @@ def main(argv=None) -> None:
         def cost_factory(space, dtype):
             return get_op(space.op).analytical_cost(space, n_repeats=1, dtype=dtype)
 
+    if args.measure_delay > 0:
+        inner_factory = cost_factory
+
+        def cost_factory(space, dtype, _inner=inner_factory):
+            # real lane occupancy per measurement: the window that
+            # interrupt/resume tests land a SIGTERM inside
+            return SleepingCost(_inner(space, dtype), delay_s=args.measure_delay)
+
+    checkpoint_dir = args.checkpoint_dir
+    if checkpoint_dir is None:
+        checkpoint_dir = args.records + ".tunestate"
+    checkpointer = (
+        None
+        if checkpoint_dir == "none"
+        else TuneCheckpointer(checkpoint_dir, every_rounds=args.checkpoint_every)
+    )
+    if checkpointer is not None:
+        checkpointer.install_signal_handlers()
+
     records = TuningRecords(args.records)
     session = TuningSession(
-        records, cost_factory=cost_factory, seed=args.seed, journal=journal
+        records, cost_factory=cost_factory, seed=args.seed, journal=journal,
+        device=device,
     )
     budget = Budget(max_fraction=args.fraction, max_trials=args.max_trials)
     gemm0 = collections.Counter(gemm.LAUNCHES)
     flash0 = collections.Counter(flash_attention.LAUNCHES)
-    with journal if journal is not None else contextlib.nullcontext():
-        report = session.tune_arch(
-            workloads=workloads,
-            tuner_name=args.tuner,
-            budget=budget,
-            warm_start=args.warm_start,
-            analyze=args.analyze,
+    try:
+        with journal if journal is not None else contextlib.nullcontext():
+            report = session.tune_arch(
+                workloads=workloads,
+                tuner_name=args.tuner,
+                budget=budget,
+                warm_start=args.warm_start,
+                analyze=args.analyze,
+                checkpointer=checkpointer,
+                resume=args.resume,
+            )
+    except TuneInterrupted as e:
+        print(
+            f"[tune] interrupted at a round boundary ({e}); snapshot flushed "
+            f"to {checkpoint_dir} — rerun with --resume to continue"
         )
+        sys.exit(130)
     print(
         f"[tune] wrote {len(records)} records to {args.records} "
         f"(cost={args.cost} device={device} "

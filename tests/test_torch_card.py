@@ -125,3 +125,22 @@ def test_flash_launch_limits_match_the_analyzer():
     for dtype in (torch.float32, torch.bfloat16):
         for hd in FLASH_HEAD_DIMS:
             assert fa.kernel_max_threads(dtype, hd) == flash_max_threads(hd, dtype.itemsize)
+
+
+@pytest.mark.gpu
+def test_na2c_on_the_card_is_deterministic():
+    """N-A2C with its networks on the card gives the same trials twice
+    under one seed (the float32 H100 model at 256^3, warm-started)."""
+    _card()
+    from repro_torch.core import AnalyticalHopperCost, Budget, GemmConfigSpace, get_op
+    from repro_torch.core.tuners import NA2CTuner
+
+    space = GemmConfigSpace(256, 256, 256)
+    cost = AnalyticalHopperCost(space, dtype="float32")
+    s0 = get_op("gemm").default_state(space, "float32")
+    runs = [NA2CTuner(space, cost, seed=0, s0=s0, device="cuda").tune(Budget(max_trials=120))
+            for _ in range(2)]
+    assert runs[0].n_trials == 120
+    assert [(t.state.key(), t.cost) for t in runs[0].trials] == [
+        (t.state.key(), t.cost) for t in runs[1].trials
+    ]

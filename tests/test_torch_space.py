@@ -112,14 +112,23 @@ def test_launch_rule_edges():
 
 
 def test_repro_torch_imports_no_jax_and_no_repro():
-    """The port stands alone: importing every module of it loads neither
-    JAX nor anything of the JAX package."""
+    """The port stands alone: importing every module of it, and running a
+    round of each learned tuner (whose JAX twins import JAX lazily, when
+    their networks are built), loads neither JAX nor anything of the JAX
+    package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
+        "from repro_torch.core import AnalyticalHopperCost, Budget, GemmConfigSpace\n"
+        "from repro_torch.core.tuners import NA2CTuner, RNNControllerTuner\n"
+        "space = GemmConfigSpace(64, 64, 64)\n"
+        "cost = AnalyticalHopperCost(space, dtype='float32')\n"
+        "for cls, n in ((NA2CTuner, 1 + 16), (RNNControllerTuner, 1 + 8)):\n"
+        "    res = cls(space, cost, device='cpu').tune(Budget(max_trials=n + 1))\n"
+        "    assert res.n_trials == n + 1, res.n_trials  # one round trained, one more began\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'flax'))\n"
         "print(len(mods), bad)\n"
