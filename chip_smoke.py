@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card: tune -> record ->
 dispatch for yi-6b's five GEMMs and its prefill attention at full width,
 through the hand-written GEMM and flash-attention kernels, yi-6b served
-at full width on the tuned records, and the paper's tuners (N-A2C and
-its baselines) compared on the GEMM kernel.
+at full width on the tuned records, the paper's tuners (N-A2C and its
+baselines) compared on the GEMM kernel, and the tuner at scale: worker
+processes sharing the card, planted faults, sharded search, the learned
+filter and the audit.
 
     python3 chip_smoke.py
 
@@ -62,8 +64,9 @@ Phases (each prints its wall time):
      (``--tuner n-a2c --cost hopper --device cuda --warm-start``, a
      snapshot every round) over yi-6b's five bf16 GEMMs, and through the
      session on the decode product (8, 4096, 11008), which the CLI's
-     workload list does not hold, seeded from the kernel's heuristic
-     state as in phase 3, onto the same fresh records and journal; each workload's trials, launchable share, ``c_ref`` and
+     workload list does not hold, warm-started (the warm start skips the
+     tuned shapes' tiles M = 8 cannot launch), onto the same fresh records
+     and journal; each workload's trials, launchable share, ``c_ref`` and
      best time, then the decode product served through ``gemm()`` from
      the records and held against its plain version at the bf16 limit;
      (b) Fig. 7's operating point: every tuner of ``TUNERS`` once, seed 0,
@@ -75,14 +78,33 @@ Phases (each prints its wall time):
      two yardsticks: ``torch.matmul`` in float32 without TF32 and the
      bound 2·1024^3 over the FP32 CUDA-core peak (66.9 TFLOP/s, H100 SXM
      data sheet); (c) N-A2C twice with its networks on the card, on the
-     float32 H100 model at 256^3: the two trial sequences must be equal.
+     float32 H100 model at 256^3: the two trial sequences must be equal;
+ 12. the tuner at scale, at yi-6b's full width: (a) G-BFS over the five
+     bf16 GEMMs, the decode product and the prefill attention through
+     ``ProcessExecutor`` worker processes, each with its own CUDA context,
+     timing the kernels through the card's one timing gate, on a measured
+     backend wrapped in a seeded ``FaultPlan`` (crash, hang past the lane
+     timeout, corrupt value; fires once each) with retries: once with one
+     lane and once with four; every transient recovered, respawns at least
+     the planted crashes, no timed region overlapping another (the gate's
+     own count), each best state within the bf16 limit of its plain
+     version and served by dispatch from the records; (b) two concurrent
+     ``tune --shard 0/2`` / ``1/2`` processes over one journal: disjoint
+     measured sets, one elected record a workload, the lowest cost of the
+     union; (c) ``learn train`` and ``eval`` on the journals of 11(a) and
+     12(a), the analytical H100 model's rank correlation with the measured
+     times, and one ``tune --learned-filter on`` rerun, which must skip
+     candidates; (d) ``analyze --strict`` over every store of (a)-(c):
+     exit 0 and ``permanent_for_legal=0``.
 
 Launch counts of each path are zeroed just before it and read just after:
 the GEMM tuning path is phases 3-5, the flash tuning path phase 8, the
 serve phase 9, N-A2C's tuning and serve 11(a) (added to the yi-6b rows'
 ``launches_tune``), the paper's comparison 11(b) (its own row,
 ``gemm[paper/1024^3-f32]``; the CLIs' launches, made in their own
-processes, are added from their output).  Each kernel row gives ``launches_tune`` and
+processes, are added from their output), and phase 12 (the launch counts
+of its measurement workers alive at its end, read through
+``ProcessExecutor.worker_call``, its dispatch's, and its CLIs').  Each kernel row gives ``launches_tune`` and
 ``launches_serve`` and their sum as ``launches``.  GEMM rows give each
 time twice: ``ms``/``library_ms`` timed as earlier slices timed them
 (the event span holds the host's enqueue of the call), and
@@ -111,6 +133,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -122,6 +145,8 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
+#: prctl option that makes a process the reaper of its descendants' orphans
+PR_SET_CHILD_SUBREAPER = 36
 #: GEMM kernel against its plain version at K <= 4096 (see gemm_tol)
 TOL = {torch.float32: (1e-4, 8e-4), torch.bfloat16: (1.6e-2, 2e-3)}
 #: GEMM against an f32 torch.matmul: the JAX package's GEMM tolerances
@@ -190,6 +215,18 @@ NA2C_CLI_TRIALS, NA2C_DECODE_TRIALS = 100, 20
 PAPER_DIMS = (1024, 1024, 1024)
 FP32_PEAK = 66.9e12
 NA2C_REPEAT_TRIALS = 200
+#: phase 12: G-BFS's trials per workload in each lane run (seven workloads:
+#: yi-6b's five GEMMs, the decode product and the prefill attention), the
+#: lanes' kill timeout, and the planted faults (a hang sleeps past the
+#: timeout; the plan's seed is the first that plants a crash, a hang and a
+#: corrupt value on the searches' warm-start states, so each kind fires)
+SCALE_TRIALS = 10
+SCALE_LANES = 4
+SCALE_LANE_TIMEOUT_S = 4.0
+SCALE_PLAN = dict(p_crash=0.03, p_hang=0.01, p_corrupt=0.04, hang_s=10.0, fires=1)
+#: each CLI shard's pool over the five GEMMs, and the filtered rerun's pool
+SHARD_TRIALS = 30
+FILTER_TRIALS = 40
 
 
 def phase(name: str, t0: float) -> None:
@@ -933,9 +970,15 @@ def main() -> None:
         phase("10 full-width flash check, times, reduced model vs CPU", t0)
     fault_dir.cleanup()
 
+    work = tempfile.TemporaryDirectory()  # the stores phases 11 and 12 write
     t0 = time.perf_counter()
-    paper_tuners(kernels, gemm_rows, rand, flush, peak_bytes)
+    na2c_journal = paper_tuners(kernels, gemm_rows, rand, flush, peak_bytes, work.name)
     phase("11 N-A2C and the paper's baselines on the card", t0)
+
+    t0 = time.perf_counter()
+    tuning_at_scale(kernels, gemm_rows, rand, work.name, na2c_journal)
+    phase("12 the tuner at scale: process lanes, faults, shards, learned filter, audit", t0)
+    work.cleanup()
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -958,9 +1001,11 @@ def journal_summary(path: str) -> dict:
     return out
 
 
-def paper_tuners(kernels: list, gemm_rows: dict, rand, flush, peak_bytes: float) -> None:
+def paper_tuners(kernels: list, gemm_rows: dict, rand, flush, peak_bytes: float,
+                 workdir: str) -> str:
     """Phase 11: N-A2C on the served path, the paper's comparison at
-    Fig. 7's operating point, and N-A2C's determinism on the card."""
+    Fig. 7's operating point, and N-A2C's determinism on the card.
+    Returns the journal of (a), which phase 12 learns from."""
     from repro_torch.core import (
         AnalyticalHopperCost, Budget, GemmConfigSpace, TrialJournal, TuneCheckpointer,
         TuningRecords, TuningSession, get_op,
@@ -969,64 +1014,66 @@ def paper_tuners(kernels: list, gemm_rows: dict, rand, flush, peak_bytes: float)
     from repro_torch.core.session import Workload
     from repro_torch.core.tuners import TUNERS, NA2CTuner
     from repro_torch.kernels import ops
-    from repro_torch.kernels.gemm import (
-        LAUNCHES, default_config, gemm_plain, gemm_tiled, kernel_config_from_state,
-        state_from_config,
-    )
+    from repro_torch.kernels.gemm import LAUNCHES, gemm_plain, gemm_tiled, kernel_config_from_state
 
     # -- (a) N-A2C on the served path: counts zeroed here, read after the serve
-    with tempfile.TemporaryDirectory() as tmp:
-        rec = os.path.join(tmp, "na2c.json")
-        LAUNCHES.clear()
-        ops.reset_dispatch_stats()
-        out = run_cli(["repro_torch.launch.tune", "--arch", "yi-6b", "--shape", "train_4k",
-                       "--tuner", "n-a2c", "--cost", "hopper", "--device", "cuda",
-                       "--warm-start", "--max-trials", str(NA2C_CLI_TRIALS),
-                       "--checkpoint-every", "1", "--records", rec])
-        cli_launches = json.loads(re.search(r"kernel_launches=(.*)", out).group(1))
-        records = TuningRecords(rec)
-        with TrialJournal(rec + ".journal.jsonl") as journal:
-            session = TuningSession(records, journal=journal, verbose=True, device="cuda")
-            wl = Workload("gemm", DECODE_TUNED, dtype="bfloat16", label="yi-6b/decode_ffn_in")
-            # seeded from the kernel's heuristic state, as phase 3 seeds it: a
-            # warm start would transplant the nearest tuned shape's state,
-            # a wgmma tile the bandwidth kernel cannot launch at M = 8
-            m, k, n = DECODE_TUNED
-            s0 = state_from_config(default_config(m, k, n), m, k, n)
-            res = session.tune_workload(
-                wl, "n-a2c", Budget(max_trials=NA2C_DECODE_TRIALS), tuner_kwargs={"s0": s0},
-                checkpointer=TuneCheckpointer(rec + ".tunestate", every_rounds=1))
-        if res.best_state is None:
-            raise SystemExit("N-A2C found no launchable state of the decode product")
-        set_global_records(TuningRecords(rec))
-        a, b = rand((m, k), torch.bfloat16), rand((k, n), torch.bfloat16)
-        cfg, src = ops.kernel_config(m, k, n, torch.bfloat16)
-        got = ops.gemm(a, b)
-        torch.cuda.synchronize()
-        launches = collections.Counter(LAUNCHES)
-        if src != "records" or ops.dispatch_stats()["gemm"]["records"] < 1:
-            raise SystemExit(f"the decode product was not served from N-A2C's record ({src})")
-        err = check_close(f"N-A2C-tuned decode {DECODE_TUNED} {cfg}", got, gemm_plain(a, b, cfg),
-                          torch.bfloat16, gemm_tol(k))
-        print(f"[na2c] served {DECODE_TUNED} through gemm() from its record: {cfg} "
-              f"max_abs_err={err}", flush=True)
-        set_global_records(TuningRecords())
-        for shape, count in cli_launches.items():
-            launches[tuple(int(d) for d in shape.split("x"))] += count
-        n_snap = len(os.listdir(rec + ".tunestate"))
-        for key, (n_tr, fin, best, first) in journal_summary(rec + ".journal.jsonl").items():
-            print(f"[na2c] {key}: trials={n_tr} launchable={fin} ({fin / n_tr:.3f}) "
-                  f"best_ms={best * 1e3:.4f} c_ref={first if math.isfinite(first) else 1.0}",
-                  flush=True)
-        print(f"[na2c] snapshot directories: {n_snap}; kernel launches on the path: "
-              f"{sum(launches.values())} ({sum(cli_launches.values())} in the CLI process)")
-        for dims, count in launches.items():
-            if dims in gemm_rows:
-                gemm_rows[dims]["launches_tune"] += count
-                gemm_rows[dims]["launches"] += count
-        if launches.get(DECODE_TUNED, 0) == 0 or not cli_launches:
-            raise SystemExit("N-A2C's path never launched the GEMM kernel")
-        del a, b, got
+    rec = os.path.join(workdir, "na2c.json")
+    LAUNCHES.clear()
+    ops.reset_dispatch_stats()
+    out = run_cli(["repro_torch.launch.tune", "--arch", "yi-6b", "--shape", "train_4k",
+                   "--tuner", "n-a2c", "--cost", "hopper", "--device", "cuda",
+                   "--warm-start", "--max-trials", str(NA2C_CLI_TRIALS),
+                   "--checkpoint-every", "1", "--records", rec])
+    cli_launches = json.loads(re.search(r"kernel_launches=(.*)", out).group(1))
+    records = TuningRecords(rec)
+    with TrialJournal(rec + ".journal.jsonl") as journal:
+        session = TuningSession(records, journal=journal, verbose=True, device="cuda")
+        wl = Workload("gemm", DECODE_TUNED, dtype="bfloat16", label="yi-6b/decode_ffn_in")
+        # warm-started like the CLI's workloads: the session skips the
+        # tuned shapes' wgmma tiles, which M = 8 cannot launch
+        m, k, n = DECODE_TUNED
+        res = session.tune_workload(
+            wl, "n-a2c", Budget(max_trials=NA2C_DECODE_TRIALS), warm_start=True,
+            checkpointer=TuneCheckpointer(rec + ".tunestate", every_rounds=1))
+        s0 = res.trials[0].state
+        if not math.isfinite(res.trials[0].cost):
+            raise SystemExit(f"the warm start of {DECODE_TUNED} seeded {s0.as_lists()}, "
+                             f"which the kernel cannot launch")
+        print(f"[na2c] warm-started {DECODE_TUNED} from {s0.as_lists()} "
+              f"({kernel_config_from_state(s0)}), seed_ms={res.trials[0].cost * 1e3:.4f}",
+              flush=True)
+    if res.best_state is None:
+        raise SystemExit("N-A2C found no launchable state of the decode product")
+    set_global_records(TuningRecords(rec))
+    a, b = rand((m, k), torch.bfloat16), rand((k, n), torch.bfloat16)
+    cfg, src = ops.kernel_config(m, k, n, torch.bfloat16)
+    got = ops.gemm(a, b)
+    torch.cuda.synchronize()
+    launches = collections.Counter(LAUNCHES)
+    if src != "records" or ops.dispatch_stats()["gemm"]["records"] < 1:
+        raise SystemExit(f"the decode product was not served from N-A2C's record ({src})")
+    err = check_close(f"N-A2C-tuned decode {DECODE_TUNED} {cfg}", got, gemm_plain(a, b, cfg),
+                      torch.bfloat16, gemm_tol(k))
+    print(f"[na2c] served {DECODE_TUNED} through gemm() from its record: {cfg} "
+          f"max_abs_err={err}", flush=True)
+    set_global_records(TuningRecords())
+    for shape, count in cli_launches.items():
+        launches[tuple(int(d) for d in shape.split("x"))] += count
+    n_snap = len(os.listdir(rec + ".tunestate"))
+    for key, (n_tr, fin, best, first) in journal_summary(rec + ".journal.jsonl").items():
+        print(f"[na2c] {key}: trials={n_tr} launchable={fin} ({fin / n_tr:.3f}) "
+              f"best_ms={best * 1e3:.4f} c_ref={first if math.isfinite(first) else 1.0}",
+              flush=True)
+    print(f"[na2c] snapshot directories: {n_snap}; kernel launches on the path: "
+          f"{sum(launches.values())} ({sum(cli_launches.values())} in the CLI process)")
+    for dims, count in launches.items():
+        if dims in gemm_rows:
+            gemm_rows[dims]["launches_tune"] += count
+            gemm_rows[dims]["launches"] += count
+    if launches.get(DECODE_TUNED, 0) == 0 or not cli_launches:
+        raise SystemExit("N-A2C's path never launched the GEMM kernel")
+    del a, b, got
+    na2c_journal = rec + ".journal.jsonl"
 
     # -- (b) the paper's comparison at Fig. 7's operating point --------------------
     # how much of the space each dtype's kernels can launch at all
@@ -1118,6 +1165,281 @@ def paper_tuners(kernels: list, gemm_rows: dict, rand, flush, peak_bytes: float)
           flush=True)
     if seqs[0] != seqs[1] or len(seqs[0]) != NA2C_REPEAT_TRIALS:
         raise SystemExit("N-A2C on the card gave two different trial sequences")
+    return na2c_journal
+
+
+def tuning_at_scale(kernels: list, gemm_rows: dict, rand, workdir: str,
+                    na2c_journal: str) -> None:
+    """Phase 12: the tune path at scale on the card, at yi-6b's full width.
+    (a) G-BFS on yi-6b's five bf16 GEMMs, the decode product and the
+    prefill attention through worker processes that each open the card
+    and time the kernels through its one timing gate, over a measured
+    backend with planted crashes, hangs and corrupt values, retried; once
+    with one lane and once with ``SCALE_LANES``; (b) two concurrent
+    ``tune --shard i/2`` processes over one journal; (c) ``learn train``
+    and ``eval`` on the journals of phase 11 and (a), the analytical
+    model's rank order against the measured times, and a ``tune
+    --learned-filter on`` rerun; (d) ``analyze --strict`` over every store
+    of (a)-(c)."""
+    import numpy as np
+
+    from repro_torch.core import (
+        AnalyticalHopperCost, Budget, FaultInjectionCost, FaultPlan, HopperTimedCost,
+        ProcessExecutor, RetryPolicy, TrialJournal, TuningRecords, TuningSession, get_op,
+        parse_workload_key_generic, state_from_lists,
+    )
+    from repro_torch.core.cost.measured import TimingGate, timing_lock_path
+    from repro_torch.core.learn import spearman_rank_corr
+    from repro_torch.core.records import iter_journal_rows, set_global_records
+    from repro_torch.core.session import Workload
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gemm import LAUNCHES, gemm_plain, gemm_tiled, kernel_config_from_state
+    from repro_torch.launch.tune import flash_workloads_for_arch, workloads_for_arch
+
+    workloads = (workloads_for_arch("yi-6b", "train_4k")
+                 + [Workload("gemm", DECODE_TUNED, dtype="bfloat16", label="yi-6b/decode_ffn_in")]
+                 + flash_workloads_for_arch("yi-6b", "train_4k"))
+    seeds = [get_op(wl.op).default_state(wl.space(), wl.dtype).key() for wl in workloads]
+    plan = next(p for p in (FaultPlan(seed=i, **SCALE_PLAN) for i in range(10_000))
+                if {"crash", "hang", "corrupt"} <= {p.fault_for(k) for k in seeds})
+    gate = TimingGate(timing_lock_path("cuda"))
+    gate0 = gate.stats()
+    LAUNCHES.clear()
+    fa.LAUNCHES.clear()
+    ops.reset_dispatch_stats()
+
+    # -- (a) process lanes sharing the card, planted faults, retries ----------------
+    launches, flash_launches, runs = collections.Counter(), 0, {}
+    for n_lanes in (1, SCALE_LANES):
+        root = os.path.join(workdir, f"lanes{n_lanes}")
+        rec = os.path.join(root, "yi-6b.json")
+
+        def factory(space, dtype="bfloat16", _dir=os.path.join(root, "faults")):
+            return FaultInjectionCost(HopperTimedCost(space, dtype=dtype), plan, fault_dir=_dir)
+
+        t = time.perf_counter()
+        # a budget no slot exhausts: a degraded slot would measure in this
+        # process, where a planted crash would end the script
+        with ProcessExecutor(timeout_s=SCALE_LANE_TIMEOUT_S, max_respawns=1000) as ex, \
+                TrialJournal(rec + ".journal.jsonl") as journal:
+            session = TuningSession(TuningRecords(rec), cost_factory=factory, journal=journal,
+                                    verbose=False, device="cuda")
+            t_spawn = time.perf_counter()
+            ex.warm_up(n_lanes)  # the workers' start, before any backend exists
+            spawn_s = time.perf_counter() - t_spawn
+            report = session.tune_arch(
+                workloads=workloads, tuner_name="g-bfs", n_workers=n_lanes, warm_start=True,
+                budget=Budget(max_trials=SCALE_TRIALS * len(workloads)), executor=ex,
+                retry=RetryPolicy(max_attempts=3, backoff_s=0.05, seed=0))
+            workers = ex.worker_call("repro_torch.core.cost.measured:worker_stats")
+            fstats = ex.fault_stats()
+        wall = time.perf_counter() - t
+        fates = collections.Counter(plan.fault_for(t.state.key())
+                                    for r in report.distinct_results() for t in r.trials)
+        st = report.stats
+        search_s = sum(r.wall_s for r in report.distinct_results())
+        print(f"[scale] lanes={n_lanes} wall_s={wall:.2f} (workers' start {spawn_s:.2f}, "
+              f"searches {search_s:.2f}, the rest the backends' builds and prewarm) "
+              f"trials={report.total_trials} "
+              f"clock_s={report.total_clock_s:.2f} planted_on_measured="
+              f"crash:{fates['crash']},hang:{fates['hang']},corrupt:{fates['corrupt']} "
+              f"retries={st.n_retries} recovered={st.n_transient_recovered} "
+              f"failed_transient={st.n_failed_transient} stragglers={st.n_stragglers} "
+              f"fault_stats={fstats}", flush=True)
+        print(f"[scale] lanes={n_lanes} search wall by workload: " + ", ".join(
+            f"{label} {r.wall_s:.2f} s" for label, r in report.results.items()), flush=True)
+        for w in workers:
+            print(f"[scale] lanes={n_lanes} worker {w['pid']}: peak_allocated="
+                  f"{w['peak_allocated'] / 1e9:.3f} GB peak_reserved="
+                  f"{w['peak_reserved'] / 1e9:.3f} GB", flush=True)
+        planted = fates["crash"] + fates["hang"] + fates["corrupt"]
+        if st.n_failed_transient or st.n_transient_recovered < planted:
+            raise SystemExit(f"lanes={n_lanes}: {st.n_failed_transient} transients not "
+                             f"recovered ({st.n_transient_recovered} of {planted} planted)")
+        if fstats["n_respawns"] < fates["crash"] or fstats["n_degraded_lanes"]:
+            raise SystemExit(f"lanes={n_lanes}: {fstats} for {fates['crash']} planted crashes")
+        if min(fates["crash"], fates["hang"], fates["corrupt"]) < 1:
+            raise SystemExit(f"lanes={n_lanes}: a planted fault kind never fired: {fates}")
+        for w in workers:  # the launches of the workers alive at the end
+            for shape, count in w["gemm_launches"].items():
+                launches[tuple(int(d) for d in shape.split("x"))] += count
+            flash_launches += sum(w["flash_launches"].values())
+        runs[n_lanes] = (report, rec, wall)
+    gate1 = gate.stats()
+    overlaps = gate1["overlaps"] - gate0["overlaps"]
+    print(f"[scale] timing gate {gate.lock_path}: {gate1['entries'] - gate0['entries']} "
+          f"timed regions, {overlaps} found another holder inside", flush=True)
+    if overlaps or gate1["entries"] == gate0["entries"]:
+        raise SystemExit(f"timed regions overlapped on the card: {gate0} -> {gate1}")
+    report, rec4, wall4 = runs[SCALE_LANES]
+    print(f"[scale] 1 lane {runs[1][2]:.2f} s vs {SCALE_LANES} lanes {wall4:.2f} s "
+          f"({runs[1][2] / wall4:.2f}x) for {report.total_trials} trials each", flush=True)
+    # the records, filed under the measured backend's name (the planted-fault
+    # wrapper names its own), served by dispatch as phase 5 serves them
+    serve_rec = os.path.join(workdir, "served.json")
+    with open(rec4) as f:
+        tuned = {k.replace("/faulty(hopper_timed)", "/hopper_timed"): v
+                 for k, v in json.load(f).items()}
+    with open(serve_rec, "w") as f:
+        json.dump(tuned, f, indent=1, sort_keys=True)
+    set_global_records(TuningRecords(serve_rec))
+    bests = {}
+    for wl in workloads:
+        res = report.results[wl.label]
+        if res.best_state is None or not math.isfinite(res.best_cost):
+            raise SystemExit(f"{wl.label}: no launchable state in the lane run")
+        bests[wl.label] = res.best_state
+        if wl.op == "gemm":
+            m, k, n = wl.dims
+            cfg, src = ops.kernel_config(m, k, n, torch.bfloat16)
+            a, b = rand((m, k), torch.bfloat16), rand((k, n), torch.bfloat16)
+            err = check_close(f"[scale] gemm() {wl.label}", ops.gemm(a, b),
+                              torch.matmul(a.float(), b.float()), torch.bfloat16, MATMUL_TOL)
+            if src != "records" or cfg != kernel_config_from_state(res.best_state):
+                raise SystemExit(f"{wl.label}: dispatch took {cfg} ({src}), not the record")
+            print(f"[scale] served {wl.label} from its record: {cfg} max_abs_err={err}",
+                  flush=True)
+            del a, b
+        else:
+            sq, skv, hd = wl.dims
+            blocks = ops.flash_schedule(sq, skv, hd, "bfloat16", grid_y=wl.space().heads)
+            if blocks != (res.best_state.block_q, res.best_state.block_kv):
+                raise SystemExit(f"{wl.label}: dispatch took blocks {blocks}, not the record")
+            print(f"[scale] served {wl.label} from its record: blocks {blocks}", flush=True)
+    stats = ops.dispatch_stats()["gemm"]
+    if stats.get("records", 0) < len(workloads) - 1:
+        raise SystemExit(f"[scale] dispatch {stats}: the tuned products were not served")
+    launches.update(LAUNCHES)  # dispatch's launches; the checks below are not counted
+    set_global_records(TuningRecords())
+    for wl in workloads:  # every best state launches within the bf16 limit
+        st, best_cost = bests[wl.label], report.results[wl.label].best_cost
+        if wl.op == "gemm":
+            m, k, n = wl.dims
+            cfg = kernel_config_from_state(st)
+            a, b = rand((m, k), torch.bfloat16), rand((k, n), torch.bfloat16)
+            err = check_close(f"[scale] best {wl.label} {cfg}", gemm_tiled(a, b, cfg),
+                              gemm_plain(a, b, cfg), torch.bfloat16, gemm_tol(k))
+            del a, b
+        else:
+            sp = wl.space()
+            q = rand((1, sp.seq_q, sp.heads, sp.head_dim), torch.bfloat16)
+            k_ = rand((1, sp.seq_kv, sp.kv_heads, sp.head_dim), torch.bfloat16)
+            v = rand((1, sp.seq_kv, sp.kv_heads, sp.head_dim), torch.bfloat16)
+            blocks = (st.block_q, st.block_kv)
+            err = check_close(f"[scale] best {wl.label} {blocks}",
+                              fa.flash_attention(q, k_, v, *blocks),
+                              fa.flash_attention_plain(q, k_, v, *blocks), torch.bfloat16,
+                              FLASH_TOL)
+            del q, k_, v
+        print(f"[scale] best {wl.label}: {st.as_lists()} {best_cost * 1e3:.4f} ms "
+              f"max_abs_err={err}", flush=True)
+        torch.cuda.empty_cache()
+
+    # -- (b) two shards of one search, concurrent, over one journal ---------------------
+    root = os.path.join(workdir, "shards")
+    os.makedirs(root)
+    shard_rec, shard_jnl = os.path.join(root, "yi-6b.json"), os.path.join(root, "shared.jsonl")
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.tune", "--arch", "yi-6b", "--tuner", "g-bfs",
+         "--cost", "hopper", "--warm-start", "--max-trials", str(SHARD_TRIALS),
+         "--records", shard_rec, "--journal", shard_jnl, "--shard", f"{i}/2",
+         "--shard-wait", "300", "--checkpoint-dir", "none"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=HERE)
+        for i in range(2)]
+    outs = []
+    for i, proc in enumerate(procs):
+        out, _ = proc.communicate(timeout=600)
+        print(out, end="")
+        if proc.returncode != 0:
+            raise SystemExit(f"shard {i}/2 failed ({proc.returncode})")
+        outs.append(out)
+    rows = list(iter_journal_rows(shard_jnl))
+    measured = [{(r["w"], r["k"]) for r in rows if r.get("shard", [None])[0] == i}
+                for i in range(2)]
+    with open(shard_rec) as f:
+        shard_records = json.load(f)
+    if not measured[0] or not measured[1] or measured[0] & measured[1]:
+        raise SystemExit(f"shards measured {len(measured[0])} and {len(measured[1])} states, "
+                         f"{len(measured[0] & measured[1])} of them both")
+    if len(shard_records) != 5:
+        raise SystemExit(f"{len(shard_records)} records for yi-6b's five GEMMs")
+    for key, r in shard_records.items():
+        union = [row["c"] for row in rows if row["w"].split("?")[0] == key
+                 and row.get("c") is not None]
+        if r["cost"] != min(union) or r.get("n_shards") != 2:
+            raise SystemExit(f"{key}: elected {r['cost']} of {r.get('n_shards')} shards, "
+                             f"lowest in the union {min(union)}")
+    for out in outs:
+        for shape, count in json.loads(re.search(r"kernel_launches=(.*)", out).group(1)).items():
+            launches[tuple(int(d) for d in shape.split("x"))] += count
+    print(f"[scale] shards 0/2 and 1/2: {time.perf_counter() - t:.2f} s, measured "
+          f"{len(measured[0])} + {len(measured[1])} disjoint states, one elected record for "
+          f"each of {len(shard_records)} workloads, each the lowest cost of the union",
+          flush=True)
+
+    # -- (c) the learned filter: train and evaluate, then one filtered run --------------
+    journals = [na2c_journal, rec4 + ".journal.jsonl", runs[1][1] + ".journal.jsonl"]
+    args = [a for j in journals for a in ("--journal", j)] + ["--op", "gemm",
+                                                              "--dtype", "bfloat16"]
+    run_cli(["repro_torch.launch.learn", "train", *args])
+    out = run_cli(["repro_torch.launch.learn", "eval", *args])
+    corr = re.search(r"held_out_rank_corr=(\S+)", out).group(1)
+    # the analytical H100 model's rank order against the same measured times
+    y, pred, groups, names = [], [], [], {}
+    for j in journals:
+        for row in iter_journal_rows(j):
+            parsed = parse_workload_key_generic(row["w"].split("?")[0])
+            if row.get("c") is None or "pred" in row or parsed is None or parsed[0] != "gemm":
+                continue
+            op, dims, dtype, _ = parsed
+            model = AnalyticalHopperCost(get_op(op).make_space(dims), dtype=dtype)
+            c = model.cost(state_from_lists(op, row["s"]))
+            if math.isfinite(c):
+                y.append(row["c"])
+                pred.append(c)
+                groups.append(names.setdefault(row["w"].split("?")[0], len(names)))
+    model_corr = spearman_rank_corr(np.asarray(y), np.asarray(pred), np.asarray(groups))
+    print(f"[scale] learned model held-out rank correlation {corr}; analytical H100 model "
+          f"vs measured times: spearman={model_corr:.4f} over {len(y)} rows in "
+          f"{len(names)} workloads", flush=True)
+    out = run_cli(["repro_torch.launch.tune", "--arch", "yi-6b", "--tuner", "g-bfs",
+                   "--cost", "hopper", "--warm-start", "--max-trials", str(FILTER_TRIALS),
+                   "--records", serve_rec, "--journal", rec4 + ".journal.jsonl",
+                   "--workers", "4", "--learned-filter", "on", "--filter-min-rows", "8",
+                   "--checkpoint-dir", "none"])
+    avoided = int(re.search(r"trials_avoided_learned=(\d+)", out).group(1))
+    for shape, count in json.loads(re.search(r"kernel_launches=(.*)", out).group(1)).items():
+        launches[tuple(int(d) for d in shape.split("x"))] += count
+    print(f"[scale] --learned-filter on: {avoided} candidates skipped on the model's say-so",
+          flush=True)
+    if avoided < 1:
+        raise SystemExit("the learned filter skipped no candidate")
+
+    # -- (d) the audit, on the Hopper kernels' rules, of every store above ---------------
+    stores = {runs[1][1]: runs[1][1] + ".journal.jsonl", rec4: rec4 + ".journal.jsonl",
+              serve_rec: None, shard_rec: shard_jnl}
+    out = run_cli(["repro_torch.launch.analyze", "--strict"]
+                  + [a for r in stores for a in ("--records", r)]
+                  + [a for j in stores.values() if j for a in ("--journal", j)])
+    if "permanent_for_legal=0" not in out:
+        raise SystemExit("the audit found permanent failures cached for legal schedules")
+
+    for dims, count in launches.items():
+        if dims in gemm_rows:
+            gemm_rows[dims]["launches_tune"] += count
+            gemm_rows[dims]["launches"] += count
+    for row in kernels:
+        if row["name"].startswith("flash_attention["):
+            row["launches_tune"] += flash_launches
+            row["launches"] += flash_launches
+    print(f"[launches] phase 12: GEMM {sum(launches.values())} (workers alive at the end, "
+          f"dispatch and the CLIs), flash {flash_launches}", flush=True)
+    if not all(launches.get(wl.dims, 0) for wl in workloads if wl.op == "gemm") \
+            or not flash_launches:
+        raise SystemExit(f"phase 12 never launched a kernel on {dict(launches)}")
 
 
 def profile_split(label: str, fn):
@@ -1205,5 +1527,78 @@ def _map(tree, fn):
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+def become_subreaper() -> None:
+    """Make this process the reaper of its descendants' orphans, so a
+    process that outlives its parent (a lane's forkserver once a CLI has
+    exited) is still this script's child and :func:`stop_children` finds
+    it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def _children() -> list[int]:
+    me, out = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # after the command's closing parenthesis: state, then the parent's pid
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            out.append(int(d))
+    return out
+
+
+def _reaped(pid: int) -> bool:
+    try:
+        return os.waitpid(pid, os.WNOHANG)[0] == pid
+    except ChildProcessError:
+        return True
+
+
+def stop_children() -> None:
+    """Stop every process this script started that still runs: the
+    process lanes' forkserver and resource tracker (Python would stop
+    them only as the interpreter ends, and they outlive it for a moment),
+    then any other child or orphan, by SIGTERM and after 5 s SIGKILL.
+    Says on stderr what it had to stop."""
+    executor = sys.modules.get("repro_torch.core.executor")
+    if executor is not None:
+        executor.stop_worker_servers()
+    left = _children()
+    if left:
+        names = {}
+        for pid in left:
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    names[pid] = f.read().replace(b"\0", b" ").decode(errors="replace")[:120]
+            except OSError:
+                names[pid] = "?"
+        print(f"[procs] stopping {len(left)} processes left running: {names}",
+              file=sys.stderr, flush=True)
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in left:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + 5.0
+        while left and time.monotonic() < deadline:
+            left = [pid for pid in left if not _reaped(pid)]
+            time.sleep(0.05)
+    print(f"[procs] {len(_children())} processes of this script left running",
+          file=sys.stderr, flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    become_subreaper()
+    try:
+        main()
+    finally:
+        stop_children()

@@ -7,6 +7,10 @@ Public surface:
   ops.* (OpSpec / get_op / OPS)           — the operator registry
   cost.*                                  — measured and analytical oracles
   analysis.* (ScheduleAnalyzer, HopperSpec) — compile-free legality verdicts
+  executor.* (Simulated/Thread/ProcessExecutor) — measurement lanes
+  fault.* (RetryPolicy, FaultPlan)        — failure taxonomy, retries, fault injection
+  shard.* (ShardSpec)                     — sharded search over one journal
+  learn.*  (RankingCostModel / ProposalFilter) — journal-trained cost models
   tuners.*                                — G-BFS, N-A2C and the paper's baselines
   TuneCheckpointer / TuneInterrupted      — crash-safe snapshots and resume
   TuningSession / Workload                — orchestration
@@ -32,9 +36,31 @@ from .cost import (
     HopperTimedCost,
     SleepingCost,
 )
-from .executor import LaneExecutor, LaneResult, SimulatedExecutor
+from .executor import (
+    EXECUTORS,
+    LaneExecutor,
+    LaneResult,
+    ProcessExecutor,
+    SimulatedExecutor,
+    ThreadExecutor,
+    make_executor,
+)
+from .fault import (
+    PERMANENT_KINDS,
+    TRANSIENT_KINDS,
+    FaultInjectionCost,
+    FaultPlan,
+    RetryPolicy,
+    classify_error,
+)
 from .flash_space import FlashAttnConfigSpace, FlashScheduleState
-from .fault import PERMANENT_KINDS, TRANSIENT_KINDS, RetryPolicy, classify_error
+from .learn import (
+    JournalDataset,
+    ProposalFilter,
+    RankingCostModel,
+    build_dataset,
+    learn_cache_dir_for,
+)
 from .measure import MeasureEngine, MeasureOutcome, MeasureStats
 from .ops import OPS, OpSpec, get_op, op_names, register_op
 from .records import (
@@ -46,6 +72,16 @@ from .records import (
     workload_key_for,
 )
 from .session import ArchTuneReport, TuningSession, Workload
+from .shard import (
+    ShardSpec,
+    await_markers,
+    elect_best,
+    parse_shard,
+    read_done_markers,
+    shard_dir_for,
+    shard_of,
+    write_done_marker,
+)
 from .snapshot import TuneCheckpointer, TuneInterrupted
 from .space import FactoredSearchSpace, SearchSpace, State, state_from_lists
 from .tuners import (
@@ -71,8 +107,14 @@ __all__ = [
     "FlashAttnConfigSpace", "FlashScheduleState",
     "AnalyticalHopperCost", "CostBackend", "CountingCost",
     "FlashAnalyticalHopperCost", "HopperTimedCost", "SleepingCost",
-    "LaneExecutor", "LaneResult", "SimulatedExecutor",
-    "PERMANENT_KINDS", "TRANSIENT_KINDS", "RetryPolicy", "classify_error",
+    "EXECUTORS", "LaneExecutor", "LaneResult", "ProcessExecutor",
+    "SimulatedExecutor", "ThreadExecutor", "make_executor",
+    "PERMANENT_KINDS", "TRANSIENT_KINDS", "FaultInjectionCost", "FaultPlan",
+    "RetryPolicy", "classify_error",
+    "JournalDataset", "ProposalFilter", "RankingCostModel", "build_dataset",
+    "learn_cache_dir_for",
+    "ShardSpec", "await_markers", "elect_best", "parse_shard",
+    "read_done_markers", "shard_dir_for", "shard_of", "write_done_marker",
     "MeasureEngine", "MeasureOutcome", "MeasureStats",
     "OPS", "OpSpec", "get_op", "op_names", "register_op",
     "TrialJournal", "TuningRecords", "global_records",

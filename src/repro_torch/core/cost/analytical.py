@@ -27,11 +27,15 @@ kernel cannot launch cost ``inf`` (the shared rule of
   CTAs can draw: each at most ``_SM_BYTES_S``, and no more than the
   bytes its ring keeps in flight over ``_LATENCY_S``.
 
-The largest of the times is the cost.
+The largest of the times is the cost.  With ``noise_sigma > 0`` each
+repeat is multiplied by the JAX package's seeded lognormal draw
+(:func:`~repro_torch.core.cost.base.lognormal_noise`), so a search can be
+run against a noisy oracle as the paper's measurements are.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 from ..analysis import (
@@ -44,7 +48,7 @@ from ..analysis import (
     gemm_stages,
 )
 from ..space import State
-from .base import CostBackend
+from .base import CostBackend, lognormal_noise, space_from_spec, space_spec
 
 __all__ = ["AnalyticalHopperCost"]
 
@@ -76,15 +80,24 @@ class AnalyticalHopperCost(CostBackend):
     name = "analytical_h100"
 
     def __init__(self, space, n_repeats: int = 1, dtype: str = "bfloat16",
-                 spec: HopperSpec | None = None):
+                 spec: HopperSpec | None = None, noise_sigma: float = 0.0,
+                 seed: int = 0):
         super().__init__(space, n_repeats, dtype)
         self.in_bytes = dtype_in_bytes(dtype)
         self.spec = spec or HopperSpec()
+        self.noise_sigma = noise_sigma
+        self.seed = seed
         self.analyzer = ScheduleAnalyzer(space, self.spec, self.in_bytes)
 
     def cost_once(self, s: State, repeat_idx: int) -> float:
         if self.analyzer.analyze(s).illegal:
             return math.inf
+        base = self._base_cost(s)
+        if self.noise_sigma <= 0.0:
+            return base
+        return float(base * lognormal_noise(self.seed, s.key(), repeat_idx, self.noise_sigma))
+
+    def _base_cost(self, s: State) -> float:
         kind = gemm_kernel_kind(s.block_m, self.in_bytes)
         if kind == "wgmma":
             return self._wgmma_cost(s)
@@ -142,4 +155,42 @@ class AnalyticalHopperCost(CostBackend):
         # the bf16 model is of the tensor-core and bandwidth kernels: costs
         # of the SIMT model it replaced are not served from a journal
         model = "|wgmma" if self.in_bytes == 2 else ""
-        return f"r{self.n_repeats}|{self.dtype}{model}" + self.space_fingerprint()
+        return (f"r{self.n_repeats}|{self.dtype}{model}" + noise_part(self)
+                + self.space_fingerprint())
+
+    def worker_spec(self):
+        return analytical_worker_spec(self)
+
+
+def noise_part(backend) -> str:
+    """Fingerprint part of a noisy model (nothing for a noise-free one,
+    whose journals stay valid)."""
+    if backend.noise_sigma <= 0.0:
+        return ""
+    return f"|noise{backend.noise_sigma:g}|seed{backend.seed}"
+
+
+def analytical_worker_spec(backend):
+    """The worker spec of an analytical model (GEMM or flash): its space,
+    dtype, card spec, repeats and noise."""
+    sp = space_spec(backend.space)
+    if sp is None:  # a constraint closure does not survive the round trip
+        return None
+    return (
+        "repro_torch.core.cost.analytical:_analytical_from_spec",
+        {**sp, "cls": type(backend).__name__, "n_repeats": backend.n_repeats,
+         "dtype": backend.dtype, "spec": dataclasses.asdict(backend.spec),
+         "noise_sigma": backend.noise_sigma, "seed": backend.seed},
+    )
+
+
+def _analytical_from_spec(op, dims, depths, space_kwargs, cls, n_repeats,
+                          dtype, spec, noise_sigma, seed):
+    """Worker-process factory (see ``CostBackend.worker_spec``)."""
+    from .flash_analytical import FlashAnalyticalHopperCost
+
+    factory = {"AnalyticalHopperCost": AnalyticalHopperCost,
+               "FlashAnalyticalHopperCost": FlashAnalyticalHopperCost}[cls]
+    return factory(space_from_spec(op, dims, depths, space_kwargs),
+                   n_repeats=n_repeats, dtype=dtype, spec=HopperSpec(**spec),
+                   noise_sigma=noise_sigma, seed=seed)

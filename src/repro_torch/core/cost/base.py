@@ -8,18 +8,69 @@ Backends expose ``cost(s)`` (one state) and ``batch_cost(states)`` (a
 wave of the measurement engine's lanes).  Whatever the override,
 ``batch_cost(states)[i]`` must equal ``cost(states[i])`` for a fresh
 backend — batching changes time accounting, never values.
+
+For process-backed measurement lanes
+(:class:`~repro_torch.core.executor.ProcessExecutor`) a backend also
+advertises a **worker spec**: a picklable ``("module:callable",
+kwargs)`` recipe that a worker process rebuilds an equivalent backend
+from (the backend itself, with its operands on the card, is never
+pickled).  ``worker_spec()`` returns ``None`` for a backend that cannot
+be shipped.
 """
 
 from __future__ import annotations
 
 import abc
+import importlib
 import math
+import operator
+import os
 import time
-from typing import Sequence
+import zlib
+from typing import Optional, Sequence
+
+import numpy as np
 
 from ..space import SearchSpace, State
 
-__all__ = ["CostBackend", "CountingCost", "SleepingCost"]
+__all__ = [
+    "CostBackend", "CountingCost", "SleepingCost", "backend_from_spec",
+    "lognormal_noise",
+]
+
+
+def backend_from_spec(spec: tuple[str, dict]) -> "CostBackend":
+    """Rebuild a backend from a :meth:`CostBackend.worker_spec` recipe —
+    the worker-process side of the executor boundary."""
+    entry, kwargs = spec
+    mod_name, _, attr = entry.partition(":")
+    fn = operator.attrgetter(attr)(importlib.import_module(mod_name))
+    return fn(**kwargs)
+
+
+def lognormal_noise(seed: int, state_key: str, repeat_idx: int, sigma: float) -> float:
+    """The analytical models' deterministic per-(state, repeat)
+    measurement jitter: a lognormal factor drawn from a generator seeded
+    by a CRC of ``seed|state_key|repeat_idx`` (stable across processes,
+    where ``hash()`` is salted), the JAX package's draw bit for bit."""
+    h = zlib.crc32(f"{seed}|{state_key}|{repeat_idx}".encode()) & 0xFFFFFFFF
+    return np.random.default_rng(h).lognormal(0.0, sigma)
+
+
+def space_spec(space: SearchSpace) -> Optional[dict]:
+    """The picklable description a worker rebuilds ``space`` from (see
+    :func:`space_from_spec`), or ``None`` when it carries a closure."""
+    kw = space.spec_kwargs()
+    if kw is None:
+        return None
+    return {"op": space.op, "dims": list(space.dims),
+            "depths": list(space.depths), "space_kwargs": kw}
+
+
+def space_from_spec(op: str, dims: list, depths: list, space_kwargs: dict) -> SearchSpace:
+    from ..ops import get_op  # lazy: the registry imports cost modules
+
+    return get_op(op).make_space(tuple(dims), tuple(depths), **space_kwargs)
 
 
 class CostBackend(abc.ABC):
@@ -73,6 +124,14 @@ class CostBackend(abc.ABC):
             return ""
         return "|" + ",".join(f"{k}={v!r}" for k, v in sorted(kw.items()))
 
+    def worker_spec(self) -> Optional[tuple[str, dict]]:
+        """Picklable ``("module:callable", kwargs)`` recipe that rebuilds
+        an equivalent backend inside a measurement worker process, or
+        ``None`` when this backend cannot cross a process boundary (see
+        :func:`backend_from_spec`).  The rebuilt backend must produce the
+        same costs as this one."""
+        return None
+
 
 class CountingCost(CostBackend):
     """Wraps another backend, counting measurements and charging a
@@ -122,26 +181,87 @@ class CountingCost(CostBackend):
         return out
 
 
-class SleepingCost(CostBackend):
-    """Returns the inner backend's costs but occupies ``delay_s`` of real
-    wall clock per measurement, as a device occupies a measurement lane:
-    it gives an interrupt a window to land in mid-search (the tune CLI's
-    ``--measure-delay``).  The JAX package's class of this name also
-    injects lane failures; that part is not ported yet."""
+def _sleeping_from_spec(
+    inner: tuple[str, dict],
+    delay_s: float,
+    hang_s: float,
+    raise_keys: list,
+    exit_keys: list,
+    hang_keys: list,
+) -> "SleepingCost":
+    return SleepingCost(
+        backend_from_spec(inner),
+        delay_s=delay_s,
+        hang_s=hang_s,
+        raise_keys=raise_keys,
+        exit_keys=exit_keys,
+        hang_keys=hang_keys,
+    )
 
-    def __init__(self, inner: CostBackend, delay_s: float = 0.05):
+
+class SleepingCost(CostBackend):
+    """Hardware-in-the-loop stand-in: returns the inner backend's costs
+    but occupies ``delay_s`` of real wall clock per measurement, as a
+    device occupies a measurement lane.  Real lanes (threads, processes)
+    overlap the sleeps; the simulated lane cannot.  It also gives an
+    interrupt a window to land in mid-search (the tune CLI's
+    ``--measure-delay``).
+
+    Failure injection, for the executor's isolation tests: states whose
+    ``key()`` is in ``raise_keys`` raise, ``exit_keys`` hard-kill the
+    measuring process via ``os._exit`` (only meaningful under a
+    :class:`~repro_torch.core.executor.ProcessExecutor`; in-process it
+    kills the session, which is the failure process lanes exist to
+    contain), and ``hang_keys`` sleep ``hang_s`` to trip the lane
+    timeout.
+    """
+
+    def __init__(
+        self,
+        inner: CostBackend,
+        delay_s: float = 0.05,
+        hang_s: float = 3600.0,
+        raise_keys: Sequence[str] = (),
+        exit_keys: Sequence[str] = (),
+        hang_keys: Sequence[str] = (),
+    ):
         super().__init__(inner.space, n_repeats=1, dtype=inner.dtype)
         self.inner = inner
         self.name = f"sleeping({inner.name})"
         self.delay_s = delay_s
+        self.hang_s = hang_s
+        self.raise_keys = frozenset(raise_keys)
+        self.exit_keys = frozenset(exit_keys)
+        self.hang_keys = frozenset(hang_keys)
 
     def cost_once(self, s: State, repeat_idx: int) -> float:  # pragma: no cover
         raise RuntimeError("SleepingCost delegates via cost()")
 
     def cost(self, s: State) -> float:
-        time.sleep(self.delay_s)
+        key = s.key()
+        if key in self.exit_keys:
+            os._exit(13)  # simulated segfault: no exception, no cleanup
+        if key in self.raise_keys:
+            raise RuntimeError(f"injected measurement failure for {key}")
+        time.sleep(self.hang_s if key in self.hang_keys else self.delay_s)
         return self.inner.cost(s)
 
     def measure_fingerprint(self) -> str:
         # sleeping changes lane occupancy, never the measured value
         return self.inner.measure_fingerprint()
+
+    def worker_spec(self) -> Optional[tuple[str, dict]]:
+        inner_spec = self.inner.worker_spec()
+        if inner_spec is None:
+            return None
+        return (
+            "repro_torch.core.cost.base:_sleeping_from_spec",
+            {
+                "inner": inner_spec,
+                "delay_s": self.delay_s,
+                "hang_s": self.hang_s,
+                "raise_keys": sorted(self.raise_keys),
+                "exit_keys": sorted(self.exit_keys),
+                "hang_keys": sorted(self.hang_keys),
+            },
+        )

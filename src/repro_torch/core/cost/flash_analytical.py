@@ -28,7 +28,8 @@ count), scaled by how full the last wave of CTAs leaves the SMs:
   visit (the kernel streams them), at the card's memory rate.
 
 The larger of compute and memory, plus the barriers, serialised over the
-visits of one CTA's sequential loop, is the cost.
+visits of one CTA's sequential loop, is the cost; with ``noise_sigma >
+0`` each repeat takes the GEMM model's seeded lognormal factor.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from ..analysis import (
     flash_threads,
 )
 from ..flash_space import FlashAttnConfigSpace, FlashScheduleState
-from .base import CostBackend
+from .base import CostBackend, lognormal_noise
 
 __all__ = ["FlashAnalyticalHopperCost"]
 
@@ -70,10 +71,13 @@ class FlashAnalyticalHopperCost(CostBackend):
     name = "analytical_h100"
 
     def __init__(self, space: FlashAttnConfigSpace, n_repeats: int = 1,
-                 dtype: str = "bfloat16", spec: HopperSpec | None = None):
+                 dtype: str = "bfloat16", spec: HopperSpec | None = None,
+                 noise_sigma: float = 0.0, seed: int = 0):
         super().__init__(space, n_repeats, dtype)
         self.in_bytes = dtype_in_bytes(dtype)
         self.spec = spec or HopperSpec()
+        self.noise_sigma = noise_sigma
+        self.seed = seed
         self.analyzer = ScheduleAnalyzer(space, self.spec, self.in_bytes)
         # visits depend only on the block schedule: memoize per (bq, bkv)
         self._visits_cache: dict[tuple[int, int], int] = {}
@@ -95,6 +99,12 @@ class FlashAnalyticalHopperCost(CostBackend):
     def cost_once(self, s: FlashScheduleState, repeat_idx: int) -> float:
         if self.analyzer.analyze(s).illegal:
             return math.inf
+        base = self._base_cost(s)
+        if self.noise_sigma <= 0.0:
+            return base
+        return float(base * lognormal_noise(self.seed, s.key(), repeat_idx, self.noise_sigma))
+
+    def _base_cost(self, s: FlashScheduleState) -> float:
         sp = self.space
         bq, bkv, hd = s.block_q, s.block_kv, sp.head_dim
         heads = sp.heads
@@ -126,5 +136,13 @@ class FlashAnalyticalHopperCost(CostBackend):
     def measure_fingerprint(self) -> str:
         # the bf16 model is of the tensor-core kernel: costs of the CUDA-core
         # model it replaced are not served from a journal
+        from .analytical import noise_part
+
         model = "|wgmma" if self.in_bytes == 2 else ""
-        return f"r{self.n_repeats}|{self.dtype}{model}" + self.space_fingerprint()
+        return (f"r{self.n_repeats}|{self.dtype}{model}" + noise_part(self)
+                + self.space_fingerprint())
+
+    def worker_spec(self):
+        from .analytical import analytical_worker_spec
+
+        return analytical_worker_spec(self)

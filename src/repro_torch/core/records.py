@@ -31,7 +31,7 @@ import re
 import tempfile
 import threading
 import time
-from typing import Optional, Sequence
+from typing import Iterable, Optional, Sequence
 
 from .fault import PERMANENT_KINDS, TRANSIENT_KINDS
 from .space import State, state_from_lists
@@ -39,6 +39,7 @@ from .space import State, state_from_lists
 __all__ = [
     "TuningRecords",
     "TrialJournal",
+    "iter_journal_rows",
     "workload_key_for",
     "parse_workload_key_generic",
     "op_of_workload_key",
@@ -249,6 +250,9 @@ class TrialJournal:
         self._best: dict[str, tuple[float, list]] = {}
         self._ops: dict[str, str] = {}  # workload -> op (schema guard)
         self._static_seen: dict[str, set] = {}  # audit rows already journaled
+        # learned-filter skip rows already journaled (provenance only —
+        # a prediction must never be served as a measurement)
+        self._pred_seen: dict[str, set] = {}
         # transient-failure provenance rows already journaled (kept OUT of
         # the cost table — see record_failure)
         self._transient_seen: dict[str, set] = {}
@@ -303,9 +307,13 @@ class TrialJournal:
                         ).add(row["k"])
                         continue
                     if isinstance(row, dict) and "pred" in row:
-                        # learned-filter skip row written by the JAX
-                        # package (a *prediction*, not a measurement):
-                        # provenance only, never a cacheable inf "failure"
+                        # learned-filter skip row (a *prediction*, not a
+                        # measurement): provenance only — without this
+                        # branch the row would fall through below and be
+                        # ingested as a cacheable inf "failure"
+                        self._pred_seen.setdefault(
+                            row["w"], set()
+                        ).add(row["k"])
                         continue
                     if (
                         isinstance(row, dict)
@@ -428,11 +436,15 @@ class TrialJournal:
 
     def record(self, workload: str, state: State, cost: float,
                op: Optional[str] = None, kind: Optional[str] = None,
-               attempts: Optional[int] = None) -> None:
+               attempts: Optional[int] = None,
+               shard: Optional[Sequence[int]] = None) -> None:
         """Journal one measurement.  ``inf`` costs are failure rows; they
         carry a failure ``kind`` (default ``"build"`` — the
         backend-says-infeasible case) and optionally the number of
-        measurement ``attempts`` that led to the verdict."""
+        measurement ``attempts`` that led to the verdict.  ``shard`` is
+        the measuring engine's ``(index, count)`` in a sharded search —
+        pure provenance (the audit CLI recomputes ownership from it);
+        unsharded rows keep the unsharded format."""
         if op is None:
             op = op_of_workload_key(workload)
         with self._lock:
@@ -450,10 +462,13 @@ class TrialJournal:
                     row["kind"] = kind or "build"
                     if attempts is not None and attempts > 1:
                         row["attempts"] = int(attempts)
+                if shard is not None:
+                    row["shard"] = [int(shard[0]), int(shard[1])]
                 self._append_row(row)
 
     def record_failure(self, workload: str, state: State, kind: str,
-                       attempts: int = 1, op: Optional[str] = None) -> None:
+                       attempts: int = 1, op: Optional[str] = None,
+                       shard: Optional[Sequence[int]] = None) -> None:
         """Journal a lane failure with taxonomy provenance.
 
         *Permanent* kinds (a deterministic raise) are cacheable facts
@@ -466,7 +481,7 @@ class TrialJournal:
         is infeasible"."""
         if kind in PERMANENT_KINDS:
             self.record(workload, state, math.inf, op=op, kind=kind,
-                        attempts=attempts)
+                        attempts=attempts, shard=shard)
             return
         if op is None:
             op = op_of_workload_key(workload)
@@ -481,6 +496,8 @@ class TrialJournal:
             row = {"w": workload, "k": key, "s": state.as_lists(), "op": op,
                    "c": None, "fail": True, "kind": str(kind),
                    "attempts": int(attempts)}
+            if shard is not None:
+                row["shard"] = [int(shard[0]), int(shard[1])]
             self._append_row(row)
 
     def record_static(self, workload: str, state: State, reason: str,
@@ -506,6 +523,30 @@ class TrialJournal:
                    "op": op, "c": None, "static": str(reason)}
             self._append_row(row)
 
+
+    def record_predicted(self, workload: str, state: State, score: float,
+                         op: Optional[str] = None) -> None:
+        """Journal a learned-filter skip as a **provenance row**:
+        ``{"c": null, "pred": <score>}`` — the model's rank score, not a
+        runtime.  Like :meth:`record_static` this never enters the cost
+        table: the candidate was never measured, and a later unfiltered
+        run must measure it rather than cache-hit a guess.  Legacy
+        readers that ignore the ``pred`` field see ``c=None`` (a
+        failure row), which is safe."""
+        if op is None:
+            op = op_of_workload_key(workload)
+        with self._lock:
+            seen = self._pred_seen.setdefault(workload, set())
+            key = state.key()
+            if key in seen:
+                return
+            seen.add(key)
+            if not self.path:
+                return
+            row = {"w": workload, "k": key, "s": state.as_lists(),
+                   "op": op, "c": None, "pred": float(score)}
+            self._append_row(row)
+
     def close(self) -> None:
         """Release the append descriptor; the in-memory view (and
         ``_read_pos``) survive, so the journal stays usable — the next
@@ -514,6 +555,37 @@ class TrialJournal:
             if self._fd is not None:
                 os.close(self._fd)
                 self._fd = None
+
+
+_GLOBAL = TuningRecords()
+
+
+def global_records() -> TuningRecords:
+    return _GLOBAL
+
+
+def set_global_records(records: TuningRecords) -> None:
+    global _GLOBAL
+    _GLOBAL = records
+    _notify_change()
+
+
+def iter_journal_rows(path: str) -> Iterable[dict]:
+    """Yield every parseable row dict of a journal file, skipping blank
+    and torn lines — the audit CLI's raw view (it needs the rows, not
+    the deduped cost table :class:`TrialJournal` builds)."""
+    if not os.path.exists(path):
+        return
+    with open(path, "rb") as f:
+        for line in f:
+            if not line.strip():
+                continue
+            try:
+                row = json.loads(line)
+            except ValueError:
+                continue  # torn tail from a crashed writer
+            if isinstance(row, dict):
+                yield row
 
 
 _GLOBAL = TuningRecords()

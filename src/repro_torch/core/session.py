@@ -25,8 +25,18 @@ interrupted one mid-search.
 The default cost is :class:`~repro_torch.core.cost.HopperTimedCost`:
 candidates are timed on the card.  The session's ``device`` is handed to
 every tuner that takes one (the learned tuners' networks run there).
-This is the JAX package's session without sharding, lane executors and
-the learned filter.
+A session may measure through real lanes (``executor``: threads or
+worker processes, see :mod:`~repro_torch.core.executor`), filter
+proposals with a journal-trained model (``learned_filter``), and run as
+one shard of a search split over processes that share the journal
+(``shard``), electing and merging the shards' bests into one record.
+
+One thing differs from the JAX package's session: a warm start skips a
+donor whose transplant the Hopper kernel cannot launch (the analyzer
+calls it ILLEGAL for the workload's dtype) and tries the next donor,
+then the kernel's heuristic state.  On the TPU every transplant is
+legal; on Hopper, a 128-row ``wgmma`` tile transplanted into an
+``M = 8`` product is not.
 """
 
 from __future__ import annotations
@@ -36,8 +46,11 @@ import inspect
 import math
 from typing import Callable, Optional, Sequence
 
+from .analysis import ScheduleAnalyzer, dtype_in_bytes
 from .cost import CostBackend
+from .executor import LaneExecutor, make_executor
 from .fault import RetryPolicy
+from .learn import ProposalFilter
 from .measure import MeasureEngine, MeasureStats
 from .records import (
     TrialJournal,
@@ -45,6 +58,13 @@ from .records import (
     donor_distance,
     parse_workload_key_generic,
     workload_key_for,
+)
+from .shard import (
+    ShardSpec,
+    await_markers,
+    elect_best,
+    shard_dir_for,
+    write_done_marker,
 )
 from .snapshot import TuneCheckpointer, TuneInterrupted
 from .space import SearchSpace, State
@@ -204,7 +224,9 @@ class TuningSession:
         previously-tuned shape of the *same op* transplanted into this
         space, else the state of the kernel's heuristic config.  Donor
         scans are scoped to the workload's op and dtype — a bf16-tuned
-        best must never seed an int8 search (the tile economics differ).
+        best must never seed an int8 search (the tile economics differ) —
+        and a transplant the kernel cannot launch for this dtype is
+        skipped for the next donor.
         ``fingerprint`` scopes the journal search to entries measured
         under the same backend settings (see ``measure_fingerprint``)."""
         wkey = wl.key(backend_name)
@@ -245,15 +267,26 @@ class TuningSession:
                                        fixed_tail=n_fixed)
                     if d is not None:
                         donors.append((d, near, best[0]))
+        analyzer = ScheduleAnalyzer(space, in_bytes=dtype_in_bytes(wl.dtype))
         for d, _key, src in sorted(donors, key=lambda t: (t[0], t[1])):
             s = space.transplant(src)
-            if s is not None:
+            if s is not None and not analyzer.analyze(s).illegal:
                 return s
         # no donor: start from the kernel's heuristic config — the
         # paper's untiled s0 is a state the Hopper kernel cannot launch
         from .ops import get_op
 
         return get_op(wl.op).default_state(space, wl.dtype)
+
+    @staticmethod
+    def _record_extra(wl: Workload, engine: MeasureEngine) -> dict:
+        """A record's provenance fields; a workload tuned on a non-default
+        space (flash's head layout) also records the space's kwargs, so
+        the audit judges the record on the space it was tuned in."""
+        extra = {"label": wl.label, "n_workers": engine.n_workers}
+        if wl.space_kwargs:
+            extra["space_kwargs"] = dict(wl.space_kwargs)
+        return extra
 
     # -- single workload -----------------------------------------------------
     def tune_workload(
@@ -267,16 +300,41 @@ class TuningSession:
         warm_start: bool = False,
         engine: Optional[MeasureEngine] = None,
         stats: Optional[MeasureStats] = None,
+        executor: Optional[LaneExecutor] = None,
+        reload_every: int = 0,
         analyze: str = "off",
         retry: Optional[RetryPolicy] = None,
         checkpointer: Optional[TuneCheckpointer] = None,
         resume: bool = False,
+        learned_filter: str = "off",
+        filter_keep: float = 0.5,
+        filter_retrain_every: int = 8,
+        filter_min_rows: int = 32,
+        shard: Optional[ShardSpec] = None,
+        shard_wait_s: float = 60.0,
     ) -> TuneResult:
+        if learned_filter not in ("off", "on"):
+            raise ValueError(
+                f"learned_filter must be 'off' or 'on', got {learned_filter!r}"
+            )
+        if shard is not None and not shard.enabled:
+            shard = None  # 0/1 is the unsharded engine, bit-identical
+        if shard is not None and self.journal is None:
+            raise ValueError(
+                "sharded tuning (shard I/N with N > 1) needs a shared journal "
+                "— siblings exchange measurements and done markers through it"
+            )
         space = wl.space()
         # the workload's dtype picks the kernel, its launch rule and its
         # model: a cost for another dtype would rank the wrong kernel
         cost = self.cost_factory(space, dtype=wl.dtype)
         wkey = wl.key(cost.name)
+        if engine is not None and executor is not None and engine.executor is not executor:
+            # the engine owns the measurement model — reject conflicts,
+            # don't silently drop them
+            raise ValueError(
+                "executor=... conflicts with the provided engine's executor"
+            )
         if engine is not None and analyze != "off" and engine.analyze != analyze:
             raise ValueError(
                 "analyze=... conflicts with the provided engine's analyze mode"
@@ -285,11 +343,27 @@ class TuningSession:
             raise ValueError(
                 "retry=... conflicts with the provided engine's retry policy"
             )
+        if engine is not None and learned_filter == "on" and engine.learned_filter is None:
+            raise ValueError(
+                "learned_filter='on' conflicts with the provided engine "
+                "(it has no ProposalFilter)"
+            )
+        if engine is not None and shard is not None and engine.shard != shard:
+            raise ValueError(
+                f"shard={shard} conflicts with the provided engine's "
+                f"{engine.shard}"
+            )
+        # each shard owns its own search state: a shard-suffixed snapshot
+        # identity keeps two hosts resuming one workload from colliding
+        tuner_id = (
+            tuner_name if shard is None
+            else f"{tuner_name}@shard{shard.index}of{shard.count}"
+        )
         # -- crash-safe resume: serve finished workloads from their done
         # snapshot, restore interrupted ones mid-search -----------------------
         restore = None
         if checkpointer is not None and resume:
-            payload = checkpointer.load(wkey, tuner_name)
+            payload = checkpointer.load(wkey, tuner_id)
             if payload is not None and payload.get("done"):
                 result = _result_from_jsonable(payload["result"], space)
                 if self.verbose:
@@ -303,17 +377,40 @@ class TuningSession:
         elif checkpointer is not None:
             # fresh run: stale snapshots (incl. a previous done marker)
             # must not shadow this run for a later --resume
-            checkpointer.clear(wkey, tuner_name)
+            checkpointer.clear(wkey, tuner_id)
         if engine is None:
+            flt = None
+            if learned_filter == "on":
+                # per-workload filter: the model's scope is this space's
+                # op/feature-width + the backend's dtype/fingerprint, and
+                # its cache lives next to the session journal
+                flt = ProposalFilter(
+                    space,
+                    self.journal,
+                    dtype=wl.dtype,
+                    fingerprint=cost.measure_fingerprint(),
+                    keep=filter_keep,
+                    retrain_every=filter_retrain_every,
+                    min_rows=filter_min_rows,
+                )
             engine = MeasureEngine(
                 cost,
                 n_workers=n_workers,
                 journal=self.journal,
                 workload_key=wkey,
                 stats=stats,
+                executor=executor,
+                reload_every=reload_every,
                 analyze=analyze,
                 retry=retry,
+                learned_filter=flt,
+                shard=shard,
             )
+        warm_up = getattr(engine.executor, "warm_up", None)
+        if warm_up is not None:
+            # process lanes build this workload's backend (CUDA context,
+            # operands, kernel library) before the first timed wave
+            warm_up(engine.n_workers, backend=cost)
         budget = budget or Budget(max_fraction=0.001)
         tuner_cls = TUNERS[tuner_name]
         kwargs = dict(tuner_kwargs or {})
@@ -336,7 +433,7 @@ class TuningSession:
                 if _ck.interrupted or ctx.round_idx % _ck.every_rounds == 0:
                     _ck.save(
                         wkey,
-                        tuner_name,
+                        tuner_id,
                         {
                             "tuner": tuner_name,
                             "tuner_state": t.state_dict(),
@@ -350,21 +447,63 @@ class TuningSession:
         result = tuner.tune(
             budget, engine=engine, checkpoint_fn=checkpoint_fn, restore=restore
         )
-        if result.best_state is not None and math.isfinite(result.best_cost):
+        if shard is not None:
+            # elect-and-merge: publish this shard's best, wait for the
+            # siblings' done markers, and keep-best-merge the elected
+            # winner (lowest journaled cost, ties -> lowest shard index)
+            # into the records table.  Every shard runs this — the merge
+            # is idempotent, so no coordinator is needed.
+            root = shard_dir_for(self.journal.path)
+            write_done_marker(
+                root,
+                engine.journal_key,
+                shard,
+                None if result.best_state is None else result.best_state.as_lists(),
+                result.best_cost,
+                result.n_trials,
+            )
+            markers = await_markers(
+                root, engine.journal_key, shard, timeout_s=shard_wait_s
+            )
+            if len(markers) < shard.count and self.verbose:
+                missing = sorted(set(range(shard.count)) - set(markers))
+                print(
+                    f"[tune] {wl.label or wkey} shard {shard}: warning — "
+                    f"sibling shard(s) {missing} never reported within "
+                    f"{shard_wait_s:.0f}s; electing over the partial set"
+                )
+            # pick up the siblings' measurements before anyone reads best_state
+            self.journal.reload()
+            won = elect_best(markers)
+            if won is not None:
+                win_idx, win_lists, win_cost = won
+                self.records.update(
+                    wkey,
+                    space.state_from_lists(win_lists),
+                    win_cost,
+                    tuner_name,
+                    result.n_trials,
+                    extra={
+                        **self._record_extra(wl, engine),
+                        "shard_winner": win_idx,
+                        "n_shards": shard.count,
+                    },
+                )
+        elif result.best_state is not None and math.isfinite(result.best_cost):
             self.records.update(
                 wkey,
                 result.best_state,
                 result.best_cost,
                 tuner_name,
                 result.n_trials,
-                extra={"label": wl.label, "n_workers": engine.n_workers},
+                extra=self._record_extra(wl, engine),
             )
         if checkpointer is not None:
             # mark the workload finished AFTER records.update so a crash
             # between the two re-runs the search instead of losing the record
             checkpointer.save(
                 wkey,
-                tuner_name,
+                tuner_id,
                 {"done": True, "tuner": tuner_name,
                  "result": _result_to_jsonable(result)},
                 step=_DONE_STEP,
@@ -390,10 +529,18 @@ class TuningSession:
         warm_start: bool = False,
         workloads: Optional[Sequence[Workload]] = None,
         tuner_kwargs: Optional[dict] = None,
+        executor: Optional[LaneExecutor | str] = None,
+        reload_every: int = 0,
         analyze: str = "off",
         retry: Optional[RetryPolicy] = None,
         checkpointer: Optional[TuneCheckpointer] = None,
         resume: bool = False,
+        learned_filter: str = "off",
+        filter_keep: float = 0.5,
+        filter_retrain_every: int = 8,
+        filter_min_rows: int = 32,
+        shard: Optional[ShardSpec] = None,
+        shard_wait_s: float = 60.0,
     ) -> ArchTuneReport:
         """Tune every distinct workload an architecture executes through
         one shared budget pool.
@@ -404,7 +551,18 @@ class TuningSession:
         (``max_fraction`` stays per-workload).  Workloads with identical
         ``(op, dims, dtype, depths, space_kwargs)`` are tuned once and share the
         result; all engines share the session journal and one
-        :class:`MeasureStats`."""
+        :class:`MeasureStats`.
+
+        ``executor`` selects how measurement lanes run — a
+        :class:`~repro_torch.core.executor.LaneExecutor`, or a name
+        (``"sim"``/``"thread"``/``"process"``) built here and closed when
+        the arch finishes; all workloads share it, so process lanes pay
+        worker start-up once.  ``reload_every=N`` makes every engine merge
+        sibling journal rows every N waves.  ``shard=ShardSpec(i, n)``
+        makes this process shard ``i`` of an ``n``-way search over the
+        same journal: each engine measures only the candidates it owns
+        (see :mod:`~repro_torch.core.shard`) and every workload's shards
+        elect and merge one record when they finish."""
         if workloads is None:
             if arch is None:
                 raise ValueError("tune_arch needs an arch name or explicit workloads")
@@ -420,6 +578,8 @@ class TuningSession:
             unique.setdefault(shape_key, wl)
             labels.setdefault(shape_key, []).append(wl.label or f"wl{i}")
         results: dict[str, TuneResult] = {}
+        owns_executor = isinstance(executor, str)
+        exec_obj = make_executor(executor) if isinstance(executor, str) else executor
         left_trials = budget.max_trials
         left_time = budget.max_time_s
         n_left = len(unique)
@@ -439,8 +599,13 @@ class TuningSession:
                 res = self.tune_workload(
                     wl, tuner_name, alloc, tuner_kwargs,
                     n_workers=n_workers, warm_start=warm_start, stats=stats,
+                    executor=exec_obj, reload_every=reload_every,
                     analyze=analyze, retry=retry, checkpointer=checkpointer,
                     resume=resume,
+                    learned_filter=learned_filter, filter_keep=filter_keep,
+                    filter_retrain_every=filter_retrain_every,
+                    filter_min_rows=filter_min_rows,
+                    shard=shard, shard_wait_s=shard_wait_s,
                 )
                 if left_trials is not None:
                     left_trials -= res.n_trials
@@ -454,11 +619,14 @@ class TuningSession:
                 # drop the append descriptor between archs; the journal
                 # stays usable (record() reopens lazily)
                 self.journal.close()
+            if owns_executor and exec_obj is not None:
+                exec_obj.close()
         report = ArchTuneReport(
             results=results,
             stats=stats,
             n_workers=max(1, n_workers),
             n_unique_shapes=len(unique),
+            executor=exec_obj.name if exec_obj is not None else "sim",
         )
         if self.verbose:
             print(

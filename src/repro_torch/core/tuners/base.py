@@ -12,9 +12,8 @@ tracks the incumbent, and raises :class:`BudgetExhausted` when the
 budget is spent.  At the top of each proposal round a tuner calls
 :meth:`TuningContext.checkpoint`, where a session-installed callback may
 snapshot the search (``Tuner.state_dict`` plus :meth:`TuningContext.snapshot`)
-for a crash-safe resume.  This is the JAX package's context without its
-sharding hook and learned filter: the trial sequence and the snapshot
-bytes are the same.
+for a crash-safe resume (the learned filter's cadence included).  The
+trial sequence and the snapshot bytes are the JAX package's.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ from typing import Callable, Optional, Sequence
 
 from ..cost.base import CostBackend
 from ..measure import MeasureEngine
+from ..shard import ShardSpec
 from ..space import SearchSpace, State
 
 __all__ = [
@@ -127,6 +127,7 @@ class TuningContext:
         n_workers: Optional[int] = None,
         engine: Optional[MeasureEngine] = None,
         checkpoint_fn: Optional[Callable[["Tuner", "TuningContext"], None]] = None,
+        shard: Optional[ShardSpec] = None,
     ):
         self.space = space
         self.cost_backend = cost
@@ -143,12 +144,20 @@ class TuningContext:
         self.round_idx = 0
         self._checkpoint_fn = checkpoint_fn
         if engine is None:
-            engine = MeasureEngine(cost, n_workers=1 if n_workers is None else n_workers)
-        elif n_workers is not None and n_workers != engine.n_workers:
-            raise ValueError(
-                f"n_workers={n_workers} conflicts with the provided "
-                f"engine's {engine.n_workers}"
+            engine = MeasureEngine(
+                cost, n_workers=1 if n_workers is None else n_workers, shard=shard
             )
+        else:
+            if n_workers is not None and n_workers != engine.n_workers:
+                raise ValueError(
+                    f"n_workers={n_workers} conflicts with the provided "
+                    f"engine's {engine.n_workers}"
+                )
+            if shard is not None and shard.enabled and shard != engine.shard:
+                raise ValueError(
+                    f"shard={shard} conflicts with the provided "
+                    f"engine's {engine.shard}"
+                )
         self.engine = engine
         self.n_workers = engine.n_workers
         # engine stats may be shared across contexts (tune_arch): snapshot
@@ -173,7 +182,7 @@ class TuningContext:
     def snapshot(self) -> dict:
         """JSON-serializable search state (the context half of a
         snapshot; the tuner half is ``Tuner.state_dict``)."""
-        return {
+        snap = {
             "visited": [[k, encode_cost(c)] for k, c in self.visited.items()],
             "trials": [
                 [t.state.as_lists(), encode_cost(t.cost), t.clock_s]
@@ -184,6 +193,13 @@ class TuningContext:
             "clock_s": self.clock_s,
             "round": self.round_idx,
         }
+        flt = self.engine.learned_filter
+        if flt is not None:
+            # without this, a resumed --learned-filter run restarts the
+            # retrain cadence and re-derives the model, skipping a
+            # different candidate sequence than the uninterrupted run
+            snap["filter"] = flt.state_dict()
+        return snap
 
     def restore_snapshot(self, snap: dict) -> None:
         """Rebuild visited/trials/best/clock from :meth:`snapshot` output
@@ -200,6 +216,9 @@ class TuningContext:
         self.best_cost = decode_cost(snap["best_cost"])
         self.clock_s = float(snap["clock_s"])
         self.round_idx = int(snap.get("round", 0))
+        flt = self.engine.learned_filter
+        if flt is not None and "filter" in snap:  # pre-filter snapshots lack it
+            flt.load_state_dict(snap["filter"])
 
     # -- paper bookkeeping ---------------------------------------------------
     def seen(self, s: State) -> bool:

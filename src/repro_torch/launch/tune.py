@@ -38,6 +38,15 @@ records an uninterrupted run writes::
   python -m repro_torch.launch.tune --arch yi-6b --tuner n-a2c \\
       --device cpu --cost analytical --max-trials 60 --records /tmp/r.json
   python -m repro_torch.launch.tune ... --resume   # after a SIGTERM
+
+At scale: ``--workers N --executor process`` measures N candidates at a
+time in worker processes that share the card through one timing lock
+(``--retries`` re-queues a lane that crashed, hung or returned a corrupt
+value); ``--shard I/N`` makes this process shard I of N processes that
+share one ``--journal``; ``--learned-filter on`` measures only the part
+of each wave a model trained on the journal ranks best
+(``python -m repro_torch.launch.learn``).  ``python -m
+repro_torch.launch.analyze`` audits what a run wrote.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from repro_torch.configs.registry import get_arch, get_shape
 from repro_torch.core import (
     Budget,
     HopperTimedCost,
+    RetryPolicy,
     SleepingCost,
     TrialJournal,
     TuneCheckpointer,
@@ -64,6 +74,8 @@ from repro_torch.core import (
     Workload,
     get_op,
 )
+from repro_torch.core.executor import EXECUTORS, stop_worker_servers
+from repro_torch.core.shard import parse_shard
 from repro_torch.core.tuners import TUNERS
 from repro_torch.kernels import flash_attention, gemm
 
@@ -143,9 +155,22 @@ def main(argv=None) -> None:
     ap.add_argument("--journal", default=None,
                     help="trial-journal path (default: <records>.journal.jsonl; "
                          "'none' disables the persistent cache)")
+    ap.add_argument("--noise", type=float, default=0.05,
+                    help="lognormal sigma of the analytical model's seeded "
+                         "measurement noise (--cost analytical only)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--workers", type=int, default=1,
+                    help="parallel measurement lanes per engine")
+    ap.add_argument("--executor", default="sim", choices=sorted(EXECUTORS),
+                    help="how lanes run: simulated clock (bit-identical), "
+                         "threads, or crash-isolated worker processes that "
+                         "each open the card and share its timing lock")
     ap.add_argument("--warm-start", action="store_true",
                     help="seed each search from the nearest tuned shape")
+    ap.add_argument("--reload-every", type=int, default=0,
+                    help="merge sibling engines' journal rows every N "
+                         "measurement waves (mid-search cache sharing "
+                         "between concurrent runs; 0 disables)")
     ap.add_argument("--analyze", default="off", choices=["off", "warn", "prune"],
                     help="static schedule pre-filter (repro_torch.core.analysis): "
                          "'warn' counts advisory flags, 'prune' rejects "
@@ -156,6 +181,29 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="where candidates and the learned tuners' networks run "
                          "(cpu only with --cost analytical)")
+    ap.add_argument("--learned-filter", default="off", choices=["off", "on"],
+                    help="learned proposal filter (repro_torch.core.learn): "
+                         "score each wave's candidates with a journal-trained "
+                         "rank model and measure only the predicted-best "
+                         "fraction; skipped candidates are journaled as "
+                         "{'c': null, 'pred': score} provenance rows")
+    ap.add_argument("--filter-keep", type=float, default=0.5,
+                    help="fraction of each wave's candidates the learned "
+                         "filter really measures (at least 1 per wave)")
+    ap.add_argument("--filter-retrain-every", type=int, default=8,
+                    help="retrain the filter's model from fresh journal "
+                         "rows every N measurement waves")
+    ap.add_argument("--filter-min-rows", type=int, default=32,
+                    help="journal rows (same op/dtype/fingerprint) required "
+                         "before the filter starts dropping candidates")
+    ap.add_argument("--retries", type=int, default=1,
+                    help="max measurement attempts per candidate: transient "
+                         "lane failures (crash/timeout/spawn/corrupt) are "
+                         "re-queued into later waves with exponential "
+                         "backoff (1 = no retry)")
+    ap.add_argument("--retry-backoff", type=float, default=0.25,
+                    help="base backoff seconds between retry attempts "
+                         "(doubled per attempt, deterministic jitter)")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="crash-safe session snapshot directory (default: "
                          "<records>.tunestate; 'none' disables snapshots)")
@@ -167,11 +215,28 @@ def main(argv=None) -> None:
                          "their done marker); measurements replay from "
                          "the journal, so the resumed search reaches the "
                          "same best state as an uninterrupted run")
+    ap.add_argument("--shard", default="0/1",
+                    help="run as shard I/N of an N-way sharded search: N "
+                         "processes sharing one --journal each measure only "
+                         "the candidates they own, defer the rest to their "
+                         "siblings, and elect the merged best into the "
+                         "records when done (default 0/1: unsharded)")
+    ap.add_argument("--shard-wait", type=float, default=60.0,
+                    help="seconds to wait for sibling shards' done markers "
+                         "before electing over whatever reported")
     ap.add_argument("--measure-delay", type=float, default=0.0,
                     help="seconds of real lane occupancy added per "
                          "measurement (SleepingCost wrapper) — gives "
                          "interrupt tests a window to land in")
     args = ap.parse_args(argv)
+
+    try:
+        shard = parse_shard(args.shard)
+    except ValueError as e:
+        ap.error(str(e))
+    if shard.enabled and args.journal == "none":
+        ap.error("--shard needs a shared --journal (it is the shards' "
+                 "only communication channel)")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -197,7 +262,9 @@ def main(argv=None) -> None:
                                    device=device)
     else:
         def cost_factory(space, dtype):
-            return get_op(space.op).analytical_cost(space, n_repeats=1, dtype=dtype)
+            return get_op(space.op).analytical_cost(
+                space, n_repeats=1, dtype=dtype, noise_sigma=args.noise, seed=args.seed
+            )
 
     if args.measure_delay > 0:
         inner_factory = cost_factory
@@ -207,6 +274,12 @@ def main(argv=None) -> None:
             # interrupt/resume tests land a SIGTERM inside
             return SleepingCost(_inner(space, dtype), delay_s=args.measure_delay)
 
+    retry = (
+        RetryPolicy(max_attempts=args.retries, backoff_s=args.retry_backoff,
+                    seed=args.seed)
+        if args.retries > 1
+        else None
+    )
     checkpoint_dir = args.checkpoint_dir
     if checkpoint_dir is None:
         checkpoint_dir = args.records + ".tunestate"
@@ -232,10 +305,20 @@ def main(argv=None) -> None:
                 workloads=workloads,
                 tuner_name=args.tuner,
                 budget=budget,
+                n_workers=args.workers,
                 warm_start=args.warm_start,
+                executor=args.executor,
+                reload_every=args.reload_every,
                 analyze=args.analyze,
+                retry=retry,
                 checkpointer=checkpointer,
                 resume=args.resume,
+                learned_filter=args.learned_filter,
+                filter_keep=args.filter_keep,
+                filter_retrain_every=args.filter_retrain_every,
+                filter_min_rows=args.filter_min_rows,
+                shard=shard,
+                shard_wait_s=args.shard_wait,
             )
     except TuneInterrupted as e:
         print(
@@ -243,12 +326,23 @@ def main(argv=None) -> None:
             f"to {checkpoint_dir} — rerun with --resume to continue"
         )
         sys.exit(130)
+    finally:
+        if args.executor == "process":
+            stop_worker_servers()  # no lane's server outlives the CLI
     print(
         f"[tune] wrote {len(records)} records to {args.records} "
-        f"(cost={args.cost} device={device} "
+        f"(op={args.op} cost={args.cost} device={device} "
+        f"workers={report.n_workers} executor={args.executor} "
         f"cache_hit={report.stats.cache_hit_rate():.2f} "
         f"trials_avoided={report.stats.trials_avoided} "
-        f"lane_failures={report.stats.n_failures})"
+        f"trials_avoided_learned={report.stats.trials_avoided_learned} "
+        f"learned_retrains={report.stats.n_learned_retrains} "
+        f"deferred_to_sibling={report.stats.n_deferred_to_sibling} "
+        f"served_by_sibling={report.stats.n_served_by_sibling} "
+        f"lane_failures={report.stats.n_failures} "
+        f"retries={report.stats.n_retries} "
+        f"recovered={report.stats.n_transient_recovered} "
+        f"respawns={report.stats.n_respawns})"
     )
     print(f"[tune] kernel_launches={json.dumps(_launch_counts(gemm.LAUNCHES, gemm0))}")
     print(f"[tune] flash_launches="

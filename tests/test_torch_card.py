@@ -144,3 +144,59 @@ def test_na2c_on_the_card_is_deterministic():
     assert [(t.state.key(), t.cost) for t in runs[0].trials] == [
         (t.state.key(), t.cost) for t in runs[1].trials
     ]
+
+
+def _timed_gemm(dims=(512, 256, 512)):
+    """A measured bf16 GEMM backend, its heuristic state and launchable
+    neighbours of it, and a state no kernel takes (the untiled start)."""
+    from repro_torch.core import GemmConfigSpace, HopperTimedCost
+    from repro_torch.kernels.gemm import default_config, state_from_config
+
+    space = GemmConfigSpace(*dims)
+    cost = HopperTimedCost(space, dtype="bfloat16")
+    good = state_from_config(default_config(*dims), *dims)
+    near = [s for s in space.neighbors(good) if not cost.analyzer.analyze(s).illegal]
+    return cost, [good] + near, space.initial_state()
+
+
+@pytest.mark.gpu
+def test_timed_cost_rebuilt_from_its_spec_in_a_worker_process():
+    """``HopperTimedCost.worker_spec()`` rebuilds the backend in a worker
+    process with its own CUDA context: a launchable state gets a finite
+    time, a refused one ``inf`` without an error."""
+    import math
+
+    from repro_torch.core import MeasureEngine, ProcessExecutor
+
+    _card()
+    cost, launchable, refused = _timed_gemm()
+    with ProcessExecutor(timeout_s=120.0) as ex:
+        ex.warm_up(2, backend=cost)
+        out = MeasureEngine(cost, n_workers=2, executor=ex).measure_wave(
+            [launchable[0], refused])
+        mem = ex.worker_call("repro_torch.core.cost.measured:worker_stats")
+    assert out[0].error is None and 0 < out[0].cost < 1.0
+    assert math.isinf(out[1].cost) and out[1].error is None
+    assert len(mem) == 2 and all(m["peak_allocated"] > 0 for m in mem)
+
+
+@pytest.mark.gpu
+def test_process_lanes_never_hold_the_card_gate_at_once():
+    """Two worker processes time kernels on one card: every timed region
+    takes the card's one gate, and the gate never finds a second holder
+    inside."""
+    from repro_torch.core import MeasureEngine, ProcessExecutor
+
+    _card()
+    cost, launchable, _ = _timed_gemm((2048, 2048, 2048))
+    states = launchable[:8]
+    before = cost.gate.stats()
+    with ProcessExecutor(timeout_s=120.0) as ex:
+        ex.warm_up(2, backend=cost)
+        eng = MeasureEngine(cost, n_workers=2, executor=ex)
+        for i in range(0, len(states), 2):
+            eng.measure_wave(states[i : i + 2])
+    after = cost.gate.stats()
+    assert len(states) >= 4 and eng.stats.n_failures == 0
+    assert after["entries"] - before["entries"] == len(states)
+    assert after["overlaps"] == before["overlaps"]

@@ -101,7 +101,7 @@ def test_flash_dispatch_checks_the_served_grid(clean_dispatch):
 def test_tune_cli_op_flash_writes_flash_records(tmp_path, capsys):
     rec = str(tmp_path / "f.json")
     argv = ["--op", "flash", "--arch", "yi-6b", "--device", "cpu", "--cost", "analytical",
-            "--max-trials", "12", "--fraction", "1.0", "--records", rec, "--warm-start"]
+            "--noise", "0", "--max-trials", "12", "--fraction", "1.0", "--records", rec, "--warm-start"]
     tune_cli.main(argv)
     with open(rec) as f:
         data = json.load(f)

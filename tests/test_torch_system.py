@@ -67,7 +67,7 @@ def test_tune_cli_on_the_model(tmp_path, capsys):
     warm-started rerun is served from the journal."""
     rec = str(tmp_path / "yi.json")
     argv = ["--arch", "yi-6b", "--device", "cpu", "--cost", "analytical",
-            "--max-trials", "25", "--records", rec, "--warm-start"]
+            "--noise", "0", "--max-trials", "25", "--records", rec, "--warm-start"]
     tune_cli.main(argv)
     with open(rec) as f:
         data = json.load(f)
