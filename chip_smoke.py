@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card: tune -> record ->
 dispatch for yi-6b's five GEMMs and its prefill attention at full width,
 through the hand-written GEMM and flash-attention kernels, yi-6b served
-at full width on the tuned records, the paper's tuners (N-A2C and its
-baselines) compared on the GEMM kernel, and the tuner at scale: worker
-processes sharing the card, planted faults, sharded search, the learned
-filter and the audit.
+at full width on the tuned records with its decode replayed from a CUDA
+graph, the paper's tuners (N-A2C and its baselines) compared on the GEMM
+kernel, the tuner at scale (worker processes sharing the card, planted
+faults, sharded search, the learned filter and the audit), and one model
+of every other family of the zoo served at full width.
 
     python3 chip_smoke.py
 
@@ -47,13 +48,17 @@ Phases (each prints its wall time):
      blocks, then rerun ``tune --op flash --warm-start`` on the same
      records;
   9. serve yi-6b at full width (32 layers, random bf16 weights from a
-     seeded generator on the card) on the records of phases 3-4 and 8:
-     8 requests of ragged prompts in [2049, 4096], padded to the bucket
-     4096, 16 greedy tokens each; then trace one more prefill and three
-     decode steps with ``torch.profiler`` for the device time of each
-     kernel kind against CUDA events around the same call; then hold the
-     GEMM kernel, under the config dispatch chose, against an f32
-     ``torch.matmul`` at every shape the serve launched it on;
+     seeded generator on the card) on the records of phases 3-4 and 8,
+     through ``ServeEngine``'s prewarm (which captures the gen-16 decode
+     loop as one CUDA graph) and graphed decode: 8 requests of ragged
+     prompts in [2049, 4096], padded to the bucket 4096, 16 greedy tokens
+     each; the tokens must equal the eager loop's on the same prefill,
+     and a second request of other lengths in the bucket must capture
+     nothing and replay once more; then trace one more ``generate`` with
+     ``torch.profiler`` (its prefill, and one replay of the graph) for the
+     device time of each kernel kind and the idle share of each range;
+     then hold the GEMM kernel, under the config dispatch chose, against
+     an f32 ``torch.matmul`` at every shape the serve launched it on;
  10. hold the flash kernel under the served blocks against the plain
      version on one layer's q/k/v (and see the limit refuse both planted
      faults there), time the kernel, the plain version and
@@ -95,17 +100,47 @@ Phases (each prints its wall time):
      12(a), the analytical H100 model's rank correlation with the measured
      times, and one ``tune --learned-filter on`` rerun, which must skip
      candidates; (d) ``analyze --strict`` over every store of (a)-(c):
-     exit 0 and ``permanent_for_legal=0``.
+     exit 0 and ``permanent_for_legal=0``;
+ 13. serve one arch of each family the port added, through ``ServeEngine``
+     with the graphed decode, each freed before the next (random bf16
+     weights from a seeded generator, 16 tokens): whisper-tiny (encdec, 8 x
+     bucket 128, 1500 zero encoder frames), mamba2-130m (ssm) and
+     zamba2-1.2b (hybrid) at 8 x 4096 exact, qwen3-moe-235b-a22b (moe) at
+     its published widths and 8 of its 94 layers (470 GB in bf16 whole),
+     8 x bucket 4096, and llava-next-34b (vlm) at 2 x (576 patch
+     embeddings + bucket 3520); per arch prefill and decode seconds,
+     tokens/s, peak memory, the GEMM dispatch split and both kernels'
+     launches; the tokens must lie in [0, vocab) and equal the eager
+     loop's, the GEMM kernel must launch in every prefill and every decode
+     graph (a batch under 8 on zero-padded rows), and flash on every
+     prompt above 2048 tokens without a softcap; then one more generate
+     of each, traced as in phase 9; then, the model freed, hold the GEMM
+     kernel under the config dispatch chose against an f32
+     ``torch.matmul`` at every shape the serve launched it on, and the
+     flash kernel under the blocks dispatch chose against its plain
+     version at every served attention shape (qwen3-moe's 16 query heads
+     a KV head, llava's 7, zamba2's head_dim 64).
 
 Launch counts of each path are zeroed just before it and read just after:
 the GEMM tuning path is phases 3-5, the flash tuning path phase 8, the
 serve phase 9, N-A2C's tuning and serve 11(a) (added to the yi-6b rows'
 ``launches_tune``), the paper's comparison 11(b) (its own row,
 ``gemm[paper/1024^3-f32]``; the CLIs' launches, made in their own
-processes, are added from their output), and phase 12 (the launch counts
+processes, are added from their output), phase 12 (the launch counts
 of its measurement workers alive at its end, read through
-``ProcessExecutor.worker_call``, its dispatch's, and its CLIs').  Each kernel row gives ``launches_tune`` and
-``launches_serve`` and their sum as ``launches``.  GEMM rows give each
+``ProcessExecutor.worker_call``, its dispatch's, and its CLIs'), and
+phase 13 (each family's engine through its first ``generate``).  A
+serve path's counts are zeroed before its engine's prewarm, which runs
+the decode loop once (the warm-up) and then captures it.  Host counts
+tick when a wrapper is called, so a capture counts the launches it
+records (none run) and a replay counts nothing; the engine's
+``launch_report()`` keeps per kernel and shape what the warm-up
+launched, what the captures recorded and what the replays launched, and
+a path's launches are the counts less the recorded, plus the replayed:
+the prefill's, the warm-up's, and each graph's once per replay.  Each
+kernel row gives ``launches_tune``, ``launches_serve`` (phase 9) and
+``launches_families`` (phase 13, at the row's shape; the flash row at
+every shape) and their sum as ``launches``.  GEMM rows give each
 time twice: ``ms``/``library_ms`` timed as earlier slices timed them
 (the event span holds the host's enqueue of the call), and
 ``ms_spin``/``library_ms_spin`` with the card kept busy while the host
@@ -140,6 +175,7 @@ import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -207,6 +243,16 @@ CLI_TRIALS = 100
 FLASH_TRIALS = 30  # G-BFS pool of the flash workload (phase 8)
 FLASH_CLI_TRIALS = 12
 SERVE_REQUESTS, SERVE_BUCKET, SERVE_TOKENS = 8, 4096, 16
+#: phase 13: (arch, layers served or None for all, requests, prompt bucket,
+#: frontend tokens).  qwen3-moe's 94 layers are 470 GB in bf16; 8 fit the
+#: card with its 4096-token prefill
+FAMILIES = (
+    ("whisper-tiny", None, 8, 128, 0),
+    ("mamba2-130m", None, 8, 4096, 0),
+    ("zamba2-1.2b", None, 8, 4096, 0),
+    ("qwen3-moe-235b-a22b", 8, 8, 4096, 0),
+    ("llava-next-34b", None, 2, 3520, 576),
+)
 #: phase 11: N-A2C's pool over the CLI's five GEMMs and its decode-product
 #: budget (about 120 trials over six GEMMs), the paper's product, the
 #: FP32 CUDA-core peak its bound uses (H100 SXM data sheet), and the
@@ -460,7 +506,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card is available")
     sys.path.insert(0, SRC)
-    import numpy as np
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import Budget, TrialJournal, TuningRecords, TuningSession
@@ -483,6 +528,10 @@ def main() -> None:
     from repro_torch.models.api import Model
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32
+    # cuBLAS (the decode attention's batched products) picks its reduction by
+    # workspace; one fixed workspace per stream makes the graph's capture
+    # stream and the eager loop's stream compute the same sums
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -861,38 +910,43 @@ def main() -> None:
         print(f"[ptxas] served instantiation flash_fwd_bf16<{hd}, {blocks[1]}>: "
               f"{'; '.join(flash_ptxas[(hd, blocks[1])])}", flush=True)
         rng = np.random.default_rng(0)
-        lens = rng.integers(SERVE_BUCKET // 2 + 1, SERVE_BUCKET + 1, SERVE_REQUESTS)
-        lens[0] = SERVE_BUCKET
-        prompts = np.zeros((SERVE_REQUESTS, SERVE_BUCKET), np.int64)
-        for i, n in enumerate(lens):
-            prompts[i, :n] = rng.integers(0, cfg.vocab_size, n)
-        engine = ServeEngine(cfg, params, max_batch=SERVE_REQUESTS,
-                             max_len=SERVE_BUCKET + SERVE_TOKENS,
-                             prompt_buckets=[SERVE_BUCKET], device="cuda")
-        # -- the serve path: counts zeroed here, read just after it ------------------
+        prompts, lens = ragged_prompts(rng, cfg, SERVE_REQUESTS, SERVE_BUCKET)
+        # -- the serve path: counts zeroed here, before the prewarm (which runs
+        # the decode loop once and then captures it), read just after the
+        # first generate
         ops.reset_dispatch_stats()
         LAUNCHES.clear()
         fa.LAUNCHES.clear()
+        engine = ServeEngine(cfg, params, max_batch=SERVE_REQUESTS,
+                             max_len=SERVE_BUCKET + SERVE_TOKENS, prompt_buckets=[SERVE_BUCKET],
+                             gen_buckets=[SERVE_TOKENS], device="cuda")
         tokens = engine.generate(prompts, SERVE_TOKENS, prompt_lens=lens)
-        timing = engine.last_timing
+        timing, rep = engine.last_timing, engine.cache_report()
         stats = ops.dispatch_stats()
-        serve_flash = sum(fa.LAUNCHES.values())
-        serve_launches = {d: c for d, c in LAUNCHES.items() if c > 0}
-        served_gemms = sorted(serve_launches)
+        launched, parts = serve_launches(ops.launch_counts(), engine.launch_report())
+        serve_flash = sum(n for (kind, _), n in launched.items() if kind == "flash")
+        serve_gemm = {d: n for (kind, d), n in launched.items() if kind == "gemm"}
+        served_gemms = sorted(serve_gemm)
         missing = sorted(set(SERVED_SHAPES) - set(served_gemms))
         if missing:
             raise SystemExit(f"the serve never launched the GEMM kernel at {missing}")
         for dims, row in gemm_rows.items():  # the serve is a main path too
-            row["launches_serve"] = serve_launches.get(dims, 0)
+            row["launches_serve"] = serve_gemm.get(dims, 0)
             row["launches"] = row["launches_tune"] + row["launches_serve"]
         print(f"[serve] {SERVE_REQUESTS} requests, prompt lengths {lens.tolist()} -> bucket "
               f"{timing['prompt_bucket']}, {SERVE_TOKENS} tokens each: "
               f"prefill_s={timing['prefill_s']:.4f} decode_s={timing['decode_s']:.4f} "
               f"tok_s={SERVE_REQUESTS * SERVE_TOKENS / (timing['prefill_s'] + timing['decode_s']):.2f}")
+        print(f"[serve] decode graph: captures={rep['captures']} replays={rep['replays']} "
+              f"prewarm_s={rep['prewarm_s']:.4f}; the gen-{SERVE_TOKENS} graph records "
+              f"{parts['gemm']['captured']} GEMM launches ({SERVE_TOKENS - 1} steps), which "
+              f"every replay launches; GEMM launches = prefill {parts['gemm']['prefill']} + "
+              f"warm-up {parts['gemm']['warmup']} + replayed {parts['gemm']['replayed']} "
+              f"(= recorded x {rep['replays']} replay)")
         print(f"[serve] dispatch_stats={stats}")
         print(f"[serve] GEMM dispatch split: records={stats['gemm']['records']} "
               f"heuristic={stats['gemm']['heuristic']} matmul={stats['gemm']['matmul']}; "
-              f"GEMM kernel launches={sum(serve_launches.values())}; "
+              f"GEMM kernel launches={sum(serve_gemm.values())}; "
               f"flash kernel launches={serve_flash}")
         print(f"[serve] sample tokens: {tokens[0][:8].tolist()}")
         if stats["flash"]["records"] != cfg.n_layers or stats["flash"]["heuristic"] != 0:
@@ -900,25 +954,28 @@ def main() -> None:
                              f"records per prefill call and no heuristic")
         if serve_flash < cfg.n_layers:
             raise SystemExit(f"the flash kernel launched {serve_flash} times in the serve")
-        if tokens.shape != (SERVE_REQUESTS, SERVE_TOKENS) or not (
-                (tokens >= 0) & (tokens < cfg.vocab_size)).all():
-            raise SystemExit(f"served tokens of shape {tokens.shape} outside [0, vocab)")
-        # where the time goes: one more prefill and 3 decode steps, traced
-        dev_lens = torch.from_numpy(lens).to(dev)
-        with torch.inference_mode():
-            (logits, cache), _ = profile_split("prefill", lambda: model.prefill(
-                params, {"tokens": torch.from_numpy(prompts).to(dev)},
-                SERVE_BUCKET + SERVE_TOKENS, last_idx=dev_lens - 1))
-            cache.update(valid_len=dev_lens, prefill_len=SERVE_BUCKET)
-            tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
-
-            def decode3():
-                for _ in range(3):
-                    model.decode_step(params, cache, tok)
-
-            _, split = profile_split("3 decode steps", decode3)
-            print(f"[profile] GEMM device time per decode step: {split['gemm'] / 3:.4f} ms")
-        del engine, params, logits, cache
+        check_tokens("yi-6b", tokens, cfg, SERVE_REQUESTS)
+        want = engine.eager_reference(prompts, SERVE_TOKENS, prompt_lens=lens)
+        if not np.array_equal(tokens, want):
+            raise SystemExit(f"yi-6b: the graphed decode's tokens differ from the eager loop's:\n"
+                             f"{tokens}\n{want}")
+        print("[serve] the graphed decode's tokens equal the eager loop's on the same prefill")
+        # prompt jitter inside the bucket: nothing captured, one more replay
+        prompts2, lens2 = ragged_prompts(rng, cfg, SERVE_REQUESTS, SERVE_BUCKET)
+        engine.generate(prompts2, SERVE_TOKENS, prompt_lens=lens2)
+        rep2, t2 = engine.cache_report(), engine.last_timing
+        print(f"[serve] jitter: prompt lengths {lens2.tolist()} -> bucket {t2['prompt_bucket']}: "
+              f"prefill_s={t2['prefill_s']:.4f} decode_s={t2['decode_s']:.4f} "
+              f"captures={rep2['captures']} replays={rep2['replays']}")
+        if (rep2["captures"], rep2["replays"]) != (rep["captures"], rep["replays"] + 1):
+            raise SystemExit(f"prompt jitter re-captured: {rep} -> {rep2}")
+        # where the time goes: one more generate, traced (its prefill, and one
+        # replay of the gen-16 graph)
+        _, split = profile_generate("yi-6b", lambda: engine.generate(
+            prompts, SERVE_TOKENS, prompt_lens=lens))
+        print(f"[profile] GEMM device time per decode step: "
+              f"{split['decode']['gemm'] / (SERVE_TOKENS - 1):.4f} ms")
+        del engine, params, model
         torch.cuda.empty_cache()
         # every product the serve launched, under the config dispatch chose
         for m, k_, n in served_gemms:
@@ -979,6 +1036,12 @@ def main() -> None:
     tuning_at_scale(kernels, gemm_rows, rand, work.name, na2c_journal)
     phase("12 the tuner at scale: process lanes, faults, shards, learned filter, audit", t0)
     work.cleanup()
+
+    t0 = time.perf_counter()
+    serve_families(kernels)
+    for row in kernels:
+        row["launches"] += row["launches_families"]
+    phase("13 every family served", t0)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1442,39 +1505,231 @@ def tuning_at_scale(kernels: list, gemm_rows: dict, rand, workdir: str,
         raise SystemExit(f"phase 12 never launched a kernel on {dict(launches)}")
 
 
-def profile_split(label: str, fn):
-    """Run ``fn`` once under ``torch.profiler`` and print the device time
-    of its kernels by kind (the GEMM kernel, the flash kernel, the rest)
-    beside the span of CUDA events recorded around the same call, and
-    the host's wall time of the call (both taken inside the trace, so
-    neither includes the profiler's own start and teardown); the idle
-    share is the part of the event span in which no kernel ran.  Returns
-    ``(fn(), split)``."""
+def profile_generate(label: str, fn):
+    """Run ``fn`` (one ``ServeEngine.generate``) once under
+    ``torch.profiler`` and split the device time of its two ranges,
+    ``serve.prefill`` and ``serve.decode`` (the graph's replay), by kernel
+    kind (the GEMM kernel, the flash kernel, the rest).  Each range ends in
+    a host sync, so the kernels that start inside it are its own; its
+    idle share is the part of the range in which no kernel ran.  Prints the
+    call's host wall time and, per range, its span and kernel count.
+    Returns ``(fn(), {"prefill": split, "decode": split})``."""
     from torch.profiler import ProfilerActivity, profile
 
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        start.record()
         out = fn()
-        end.record()
-        end.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    span_ms = start.elapsed_time(end)
-    split = {"gemm": 0.0, "flash": 0.0, "other": 0.0}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        kind = ("gemm" if "gemm_tiled" in ev.name else
-                "flash" if "flash_fwd" in ev.name else "other")
-        split[kind] += ev.time_range.elapsed_us() / 1e3
-    busy = sum(split.values())
-    shares = " ".join(f"{k}_ms={v:.2f} ({v / busy:.1%} of busy)" for k, v in split.items())
-    print(f"[profile] {label}: wall_ms={wall_ms:.2f} event_span_ms={span_ms:.2f} "
-          f"device_busy_ms={busy:.2f} idle_share={1 - busy / span_ms:.4f} {shares}", flush=True)
-    return out, split
+    events = prof.events()
+    ranges = {ev.name: ev.time_range for ev in events
+              if ev.name in ("serve.prefill", "serve.decode")
+              and ev.device_type == torch.autograd.DeviceType.CPU}
+    kernels = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not ev.name.startswith("serve.")]
+    print(f"[profile] {label}: one generate traced, wall_ms={wall_ms:.2f}", flush=True)
+    splits = {}
+    for name in ("prefill", "decode"):
+        r = ranges[f"serve.{name}"]
+        inside = [ev for ev in kernels if r.start <= ev.time_range.start < r.end]
+        split = {"gemm": 0.0, "flash": 0.0, "other": 0.0}
+        for ev in inside:
+            kind = ("gemm" if "gemm_tiled" in ev.name else
+                    "flash" if "flash_fwd" in ev.name else "other")
+            split[kind] += ev.time_range.elapsed_us() / 1e3
+        span_ms = (r.end - r.start) / 1e3
+        busy = sum(split.values())
+        shares = " ".join(f"{k}_ms={v:.2f} ({v / max(busy, 1e-9):.1%} of busy)"
+                          for k, v in split.items())
+        print(f"[profile] {label} {name}: range_ms={span_ms:.2f} device_busy_ms={busy:.2f} "
+              f"idle_share={1 - busy / span_ms:.4f} kernels_traced={len(inside)} {shares}",
+              flush=True)
+        splits[name] = split
+    return out, splits
+
+
+def ragged_prompts(rng, cfg, n: int, bucket: int):
+    """``n`` prompts of lengths in ``(bucket / 2, bucket]``, the first a
+    whole bucket, right-padded to the longest: ``(prompts, lengths)``."""
+    lens = rng.integers(bucket // 2 + 1, bucket + 1, n)
+    lens[0] = bucket
+    prompts = np.zeros((n, bucket), np.int64)
+    for i, m in enumerate(lens):
+        prompts[i, :m] = rng.integers(0, cfg.vocab_size, m)
+    return prompts, lens
+
+
+def check_tokens(label: str, tokens, cfg, n: int) -> None:
+    if tokens.shape != (n, SERVE_TOKENS) or not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise SystemExit(f"{label}: served tokens of shape {tokens.shape} outside [0, vocab)")
+
+
+def serve_launches(counts, report):
+    """The launches one serve path made, from the kernels' host counts
+    zeroed before its engine (``ops.launch_counts()``) and the engine's
+    ``launch_report()``: the counts, less what the captures recorded (run
+    at no capture), plus what the replays launched.  Returns that
+    ``Counter`` by ``(kernel, dims)`` and, per kernel, the totals of its
+    parts: ``prefill``, ``warmup``, ``captured`` (one replay's) and
+    ``replayed``."""
+    launched = counts - report["captured"] + report["replayed"]
+    parts = {}
+    for kernel in ("gemm", "flash"):
+        def total(c):
+            return sum(n for (kind, _), n in c.items() if kind == kernel)
+        part = {name: total(report[name]) for name in ("warmup", "captured", "replayed")}
+        part["prefill"] = total(counts) - part["warmup"] - part["captured"]
+        parts[kernel] = part
+    return launched, parts
+
+
+def serve_families(kernels: list) -> None:
+    """Phase 13: one arch of each family this port serves beside dense,
+    through ``ServeEngine`` with the graphed decode (random bf16 weights
+    from a seeded generator, 16 tokens), each freed before the next.  Each
+    path's counts are zeroed before its engine (whose prewarm runs the
+    decode loop once, then captures it) and read after its first
+    generate; they are added to ``kernels``' rows as
+    ``launches_families``.  Checks the tokens lie in [0, vocab) and equal
+    the eager loop's on the same prefill, that the GEMM kernel launched,
+    and that flash launched where the prompt exceeds the threshold (no
+    softcap); traces one more generate (``[profile]`` lines); then, the
+    model freed, holds each kernel against its reference at every shape
+    the path launched it on (``[check]`` lines; the ``[family]`` line
+    gives the worst errors)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gemm import LAUNCHES, gemm_tiled
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models.api import Model
+
+    for row in kernels:
+        row["launches_families"] = 0
+    for name, layers, reqs, bucket, n_front in FAMILIES:
+        t0 = time.perf_counter()
+        cfg = get_arch(name)
+        depth = f"{cfg.n_layers} layers"
+        if layers:
+            depth = f"{layers} of {cfg.n_layers} layers"
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = Model(cfg, device="cuda")
+        params = model.init_params(generator=gen)
+        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        paddable = cfg.family not in ("ssm", "hybrid")
+        rng = np.random.default_rng(13)
+        if paddable:
+            prompts, lens = ragged_prompts(rng, cfg, reqs, bucket)
+        else:
+            lens = np.full(reqs, bucket)
+            prompts = rng.integers(0, cfg.vocab_size, (reqs, bucket))
+        fe = None
+        if n_front:
+            fe = (torch.randn((reqs, n_front, cfg.d_model), generator=gen, device="cuda")
+                  * cfg.d_model ** -0.5).to(getattr(torch, cfg.compute_dtype))
+        max_len = n_front + bucket + SERVE_TOKENS
+        t_init = time.perf_counter() - t0
+        # -- this family's serve path: counts zeroed here, read after its first generate
+        ops.reset_dispatch_stats()
+        LAUNCHES.clear()
+        fa.LAUNCHES.clear()
+        engine = ServeEngine(cfg, params, max_batch=reqs, max_len=max_len,
+                             prompt_buckets=[bucket] if paddable else None,
+                             gen_buckets=[SERVE_TOKENS], device="cuda")
+        tokens = engine.generate(prompts, SERVE_TOKENS, prompt_lens=lens, frontend_embeds=fe)
+        timing, rep, stats = engine.last_timing, engine.cache_report(), ops.dispatch_stats()
+        launched, parts = serve_launches(ops.launch_counts(), engine.launch_report())
+        peak = torch.cuda.max_memory_allocated()
+        check_tokens(name, tokens, cfg, reqs)
+        want = engine.eager_reference(prompts, SERVE_TOKENS, prompt_lens=lens,
+                                      frontend_embeds=fe)
+        if not np.array_equal(tokens, want):
+            raise SystemExit(f"{name}: the graphed decode's tokens differ from the eager "
+                             f"loop's:\n{tokens}\n{want}")
+        # where the time goes: one more generate, traced
+        profile_generate(name, lambda: engine.generate(prompts, SERVE_TOKENS, prompt_lens=lens,
+                                                       frontend_embeds=fe))
+        del engine, params, model, fe
+        gc.collect()
+        torch.cuda.empty_cache()
+        seq = n_front + bucket
+        if not (parts["gemm"]["prefill"] and parts["gemm"]["replayed"]):
+            raise SystemExit(f"{name}: the GEMM kernel did not launch in both its prefill and "
+                             f"its decode graph: {parts['gemm']}")
+        if (seq > cfg.attn_chunk_threshold and cfg.family != "ssm"
+                and cfg.attn_softcap == 0 and parts["flash"]["prefill"] == 0):
+            raise SystemExit(f"{name}: the flash kernel never launched on a {seq}-token prefill")
+        for row in kernels:
+            if row["name"].startswith("flash_attention"):
+                row["launches_families"] += sum(
+                    n for (kind, _), n in launched.items() if kind == "flash")
+            elif row.get("shape"):
+                row["launches_families"] += launched.get(("gemm", tuple(row["shape"])), 0)
+        gemm_err, flash_err = check_served_kernels(
+            name, launched, reqs, cfg.n_heads, cfg.n_kv_heads, gen, ops, fa, gemm_tiled)
+        g = stats.get("gemm", {})
+        print(f"[family] {name} ({cfg.family}, {depth}, weights {n_bytes / 1e9:.2f} GB bf16, "
+              f"init {t_init:.1f}s): {reqs} requests x {seq} tokens"
+              f"{f' ({n_front} frontend + bucket {bucket})' if n_front else ''}, "
+              f"{SERVE_TOKENS} tokens each: prefill_s={timing['prefill_s']:.4f} "
+              f"decode_s={timing['decode_s']:.4f} "
+              f"tok_s={reqs * SERVE_TOKENS / (timing['prefill_s'] + timing['decode_s']):.2f} "
+              f"peak_gb={peak / 1e9:.2f}; captures={rep['captures']} replays={rep['replays']} "
+              f"prewarm_s={rep['prewarm_s']:.4f}; GEMM dispatch records={g.get('records', 0)} "
+              f"heuristic={g.get('heuristic', 0)} matmul={g.get('matmul', 0)}; GEMM launches "
+              f"prefill {parts['gemm']['prefill']} + warm-up {parts['gemm']['warmup']} + "
+              f"replayed {parts['gemm']['replayed']} (the graph records "
+              f"{parts['gemm']['captured']}, x {rep['replays']} replay); flash dispatch "
+              f"{stats.get('flash', {})}, launches {parts['flash']['prefill']}; tokens equal "
+              f"the eager loop's; worst error at the served shapes: GEMM {gemm_err} "
+              f"flash {flash_err}; sample {tokens[0][:6].tolist()}", flush=True)
+        del tokens
+        phase(f"13 {name}", t0)
+
+
+def check_served_kernels(label, launched, batch, heads, kv_heads, gen, ops, fa, gemm_tiled):
+    """Hold each kernel against its reference at every shape a serve path
+    launched it on, on random bf16 operands: the GEMM kernel under the
+    config dispatch chose against an f32 ``torch.matmul`` (MATMUL_TOL),
+    the flash kernel on ``(batch, S, heads, hd)`` queries against
+    ``(batch, S, kv_heads, hd)`` keys and values under the blocks dispatch
+    chose against its plain version (FLASH_TOL).  Exits on a
+    disagreement; returns the worst error of each (None where the path
+    launched none)."""
+    bf16 = torch.bfloat16
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    worst = {"gemm": None, "flash": None}
+    for kind, dims in sorted(launched):
+        if kind == "gemm":
+            m, k, n = dims
+            cfg, src = ops.kernel_config(m, k, n, bf16)
+            a, b = rand((m, k)), rand((k, n))
+            err = check_close(f"{label} served gemm {dims} {cfg}", gemm_tiled(a, b, cfg),
+                              torch.matmul(a.float(), b.float()), bf16, MATMUL_TOL)
+            print(f"[check] {label} served gemm {dims} ({src}) {cfg}: max abs err {err}")
+            del a, b
+        else:
+            sq, sk, hd = dims
+            blocks, src = ops.flash_blocks(sq, sk, hd, bf16, grid_y=batch * heads)
+            q = rand((batch, sq, heads, hd))
+            k, v = rand((batch, sk, kv_heads, hd)), rand((batch, sk, kv_heads, hd))
+            err = check_close(f"{label} served flash {tuple(q.shape)} {blocks}",
+                              fa.flash_attention(q, k, v, *blocks),
+                              fa.flash_attention_plain(q, k, v, *blocks), bf16, FLASH_TOL)
+            print(f"[check] {label} served flash q {tuple(q.shape)} k/v {tuple(k.shape)} "
+                  f"(G = {heads // kv_heads}) blocks {blocks} ({src}): max abs err {err}")
+            del q, k, v
+        worst[kind] = err if worst[kind] is None else max(worst[kind], err)
+        torch.cuda.empty_cache()
+    return worst["gemm"], worst["flash"]
 
 
 def _leaves(tree):

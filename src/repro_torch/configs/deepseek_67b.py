@@ -1,0 +1,20 @@
+"""deepseek-67b — llama-architecture dense GQA decoder (deep: 95L).
+[arXiv:2401.02954]"""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="deepseek-67b",
+    family="dense",
+    n_layers=95,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=22016,
+    vocab_size=102400,
+    mlp_kind="swiglu",
+    norm="rmsnorm",
+    rope_theta=1e4,
+    optimizer="adamw",
+)

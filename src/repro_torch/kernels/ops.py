@@ -11,10 +11,16 @@ GEMMs and the attention a model runs.
      dtype is one the kernel does not take) — a shape rule, counted as
      ``"matmul"``, never a fallback after a failure.
 
+A bf16 product of fewer than 8 rows (a decode batch under 8) runs the
+bandwidth kernel's 8-row block on rows padded with zeros: the weights
+it streams are the same, and its key is ``(8, K, N)``.
+
 ``models/common.attention_dispatch`` asks :func:`flash_schedule` for the
-tuned ``(block_q, block_kv)`` of a long self-attention, in the same
-order: tuned record, then the kernel's heuristic blocks, then plain
-attention when no block the kernel launches divides the sequence.
+tuned ``(block_q, block_kv)`` of a long self-attention, through
+:func:`flash_blocks`, in the same order: tuned record, then the
+kernel's heuristic blocks, then plain attention when no block the
+kernel launches divides the sequence.  :func:`launch_counts` reads both
+kernels' launch counters as one ``Counter``.
 
 The lookup is memoized per ``(op, dims, dtype, backend)`` and dropped by
 :func:`set_kernel_policy` and by any records change (a records change
@@ -30,6 +36,7 @@ operands that live elsewhere.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 from typing import Optional
@@ -38,6 +45,9 @@ import torch
 
 from repro_torch.core.analysis import dtype_in_bytes, flash_launch_error
 from repro_torch.core.records import add_change_listener, global_records, workload_key_for
+from .flash_attention import LAUNCHES as FLASH_LAUNCHES
+from .flash_attention import default_blocks
+from .gemm import LAUNCHES as GEMM_LAUNCHES
 from .gemm import KernelConfig, default_config, gemm_tiled, kernel_config_from_state
 
 __all__ = [
@@ -48,6 +58,8 @@ __all__ = [
     "kernel_policy",
     "lookup_tuned_state",
     "flash_schedule",
+    "flash_blocks",
+    "launch_counts",
     "note_dispatch",
     "invalidate_dispatch_cache",
     "dispatch_stats",
@@ -55,6 +67,9 @@ __all__ = [
 ]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: the fewest rows a bf16 product launches the kernel with (the bandwidth
+#: kernel's smallest block); a product with fewer is padded with zero rows
+_MIN_ROWS = 8
 
 
 @dataclasses.dataclass
@@ -182,6 +197,29 @@ def flash_schedule(seq_q: int, seq_kv: int, head_dim: int, dtype: str,
     return bq, bkv
 
 
+def flash_blocks(seq_q: int, seq_kv: int, head_dim: int, dtype: torch.dtype,
+                 grid_y: int = 1) -> tuple[Optional[tuple[int, int]], str]:
+    """``(blocks, source)`` that attention dispatch runs one long
+    self-attention under: the tuned record, else the kernel's heuristic
+    blocks, or ``(None, "plain")`` when no block the kernel launches (at
+    ``grid_y`` = batch x query heads) divides the sequences.  Counts only
+    the record lookup."""
+    blocks = flash_schedule(seq_q, seq_kv, head_dim, dtype_name(dtype), grid_y=grid_y)
+    if blocks is not None:
+        return blocks, "records"
+    in_bytes = torch.empty((), dtype=dtype).element_size()
+    blocks = default_blocks(seq_q, seq_kv, head_dim, in_bytes, grid_y=grid_y)
+    return blocks, "plain" if blocks is None else "heuristic"
+
+
+def launch_counts() -> collections.Counter:
+    """Both kernels' launch counts, keyed ``("gemm", (M, K, N))`` and
+    ``("flash", (seq_q, seq_kv, head_dim))``."""
+    counts = collections.Counter({("gemm", d): n for d, n in GEMM_LAUNCHES.items()})
+    counts.update({("flash", d): n for d, n in FLASH_LAUNCHES.items()})
+    return counts
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
@@ -213,12 +251,17 @@ def kernel_config(m: int, k: int, n: int, dtype: torch.dtype,
 
 def _dispatch(a: torch.Tensor, b: torch.Tensor,
               config: Optional[KernelConfig] = None) -> torch.Tensor:
-    """One 2-D product through the policy (no autograd)."""
+    """One 2-D product through the policy (no autograd); a bf16 product
+    of fewer than ``_MIN_ROWS`` rows runs on rows padded with zeros."""
     (m, k), n = a.shape, b.shape[1]
-    cfg, src = kernel_config(m, k, n, a.dtype, config)
+    pad = max(_MIN_ROWS - m, 0) if config is None and a.dtype == torch.bfloat16 else 0
+    cfg, src = kernel_config(m + pad, k, n, a.dtype, config)
     note_dispatch("gemm", src)
     if cfg is None:
         return torch.matmul(a, b)
+    if pad:
+        return gemm_tiled(_aligned(torch.nn.functional.pad(a, (0, 0, 0, pad))),
+                          _aligned(b), cfg)[:m]
     return gemm_tiled(_aligned(a), _aligned(b), cfg)
 
 

@@ -1,6 +1,9 @@
 """Unified model API — ``Model(cfg)`` gives init / logits / prefill /
-decode for a ported arch (the dense family so far), on the card unless
-the caller asks for ``device="cpu"``."""
+decode for every family of the zoo (dense, vlm, moe, encdec, ssm,
+hybrid), dispatching as the JAX package's ``Model`` does, on the card
+unless the caller asks for ``device="cpu"``.  The modality frontends are
+stubs, as in the reference: ``frontend_embeds`` / ``enc_frames`` arrive
+as precomputed embeddings."""
 
 from __future__ import annotations
 
@@ -10,9 +13,14 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import hybrid as hy
+from repro_torch.models import mamba2 as mb
 from repro_torch.models import transformer as tf
 
 __all__ = ["Model"]
+
+_ATTN = ("dense", "vlm", "moe", "encdec")
+_FAMILIES = _ATTN + ("ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,8 +29,8 @@ class Model:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.cfg.family != "dense":
-            raise NotImplementedError(f"{self.cfg.family} archs are not ported yet")
+        if self.cfg.family not in _FAMILIES:
+            raise ValueError(f"unknown family {self.cfg.family}")
         if torch.device(self.device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Model runs on the card and none is present; pass device='cpu'")
 
@@ -32,21 +40,54 @@ class Model:
         """Random weights from ``generator``, or from a fresh one on the
         model's device seeded with ``seed``."""
         gen = generator or torch.Generator(device=self.device).manual_seed(seed)
-        return tf.init_params(self.cfg, gen, self.device)
+        c = self.cfg
+        if c.family in _ATTN:
+            return tf.init_params(c, gen, self.device)
+        if c.family == "ssm":
+            return mb.init_mamba_lm(c, gen, self.device)
+        return hy.init_hybrid_params(c, gen, self.device)
 
     # -- forward --------------------------------------------------------------
     def logits(self, params: dict, batch: dict):
-        return tf.forward_logits(self.cfg, params, batch)
+        """``(logits (B, S, V), aux_loss)``."""
+        c = self.cfg
+        if c.family in _ATTN:
+            return tf.forward_logits(c, params, batch)
+        if c.family == "ssm":
+            return mb.mamba_lm_forward(c, params, batch)
+        return hy.hybrid_forward(c, params, batch)
 
     # -- serving --------------------------------------------------------------
     def prefill(self, params: dict, batch: dict, max_len: int,
-                last_idx: Optional[torch.Tensor] = None):
+                last_idx: Optional[torch.Tensor] = None, cache: Optional[dict] = None):
         """``last_idx`` (B,) selects each sequence's last real position
-        for the seed logits (bucket-padded serving)."""
-        return tf.prefill(self.cfg, params, batch, max_len, last_idx=last_idx)
+        for the seed logits (bucket-padded serving); attention families
+        only — SSM/hybrid state would take in the pad tokens, so the
+        engine never pads those.  ``cache``: an :meth:`init_cache` to
+        write into (a new one otherwise)."""
+        c = self.cfg
+        if c.family in _ATTN:
+            return tf.prefill(c, params, batch, max_len, last_idx=last_idx, cache=cache)
+        if last_idx is not None:
+            raise ValueError(f"family {c.family} does not support padded prefill")
+        if c.family == "ssm":
+            return mb.mamba_lm_prefill(c, params, batch, max_len, cache=cache)
+        return hy.hybrid_prefill(c, params, batch, max_len, cache=cache)
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
-        return tf.init_cache(self.cfg, batch_size, max_len, device=self.device)
+        c = self.cfg
+        if c.family in _ATTN:
+            return tf.init_cache(c, batch_size, max_len, device=self.device)
+        if c.family == "ssm":
+            return mb.mamba_lm_init_cache(c, batch_size, max_len, device=self.device)
+        return hy.hybrid_init_cache(c, batch_size, max_len, device=self.device)
 
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
-        return tf.decode_step(self.cfg, params, cache, tokens)
+        """One greedy step: ``(logits (B, 1, V), cache)``, the cache
+        advanced in place on the device."""
+        c = self.cfg
+        if c.family in _ATTN:
+            return tf.decode_step(c, params, cache, tokens)
+        if c.family == "ssm":
+            return mb.mamba_lm_decode_step(c, params, cache, tokens)
+        return hy.hybrid_decode_step(c, params, cache, tokens)

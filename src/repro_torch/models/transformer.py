@@ -1,16 +1,22 @@
-"""Dense GQA decoder (the ``dense`` family): parameters, forward, prefill
-and greedy-decode steps, as plain functions on tensors with an explicit
-device.
+"""Transformer model zoo: dense GQA decoders, MoE decoders, VLM backbones
+(stub frontend: ``frontend_embeds`` arrive as precomputed embeddings) and
+encoder-decoders (whisper family; ``enc_frames`` arrive as precomputed
+frame embeddings), as plain functions on tensors with an explicit device.
 
 Parameters are nested dicts laid out as the JAX package's
 ``init_params`` tree: layers stacked on axis 0, weights ``(d_in,
-d_out)``, so :func:`params_from_reference` carries that tree across
-unchanged and both packages compute the same thing.  PyTorch runs
-eagerly, so the layer ``scan`` of the JAX package is a Python loop over
-the stacked layers.  The KV cache is updated in place (one buffer per
-cache, where the JAX package returns a new one), which halves the
-cache's memory at decode.  MoE, encoder-decoder, VLM and SSM families
-are not ported yet.
+d_out)``, experts ``(E, d_in, d_out)``, so :func:`params_from_reference`
+carries that tree across unchanged and both packages compute the same
+thing.  PyTorch runs eagerly, so the layer ``scan`` of the JAX package is
+a Python loop over the stacked layers.
+
+Serving state lives on the device: the KV cache is updated in place (one
+buffer per cache, where the JAX package returns a new one), and its
+``len`` (with the bucket-padded ``valid_len`` / ``prefill_len``) is a
+tensor that :func:`decode_step` advances with ``add_``.  A decode step
+therefore reads no Python length and makes no host sync, so the serving
+engine captures a whole greedy loop in one CUDA graph and replays it at
+any prompt length.
 """
 
 from __future__ import annotations
@@ -22,26 +28,22 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.api import constrain, logical
 from repro_torch.kernels.ops import gemm
 from repro_torch.models import common as cm
 
 __all__ = [
     "init_params",
     "params_from_reference",
+    "forward_hidden",
     "forward_logits",
     "embed_tokens",
     "lm_logits",
+    "moe_apply",
     "init_cache",
     "prefill",
     "decode_step",
 ]
-
-
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.family} archs are not ported yet")
-    if cfg.pos_embed != "rope":
-        raise NotImplementedError(f"pos_embed={cfg.pos_embed!r} is not ported yet")
 
 
 def _dt(name: str) -> torch.dtype:
@@ -53,79 +55,119 @@ def _dt(name: str) -> torch.dtype:
 # =============================================================================
 
 
-def _trunc_normal(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
-    x = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (x * scale).to(dtype)
+def trunc_normal(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
+    """Truncated normal in [-2, 2] times ``scale``, in ``dtype``.  A
+    tensor of more than two dims is drawn one trailing matrix at a time
+    (a layer's weight, an expert's), so the f32 draw never holds more
+    than one matrix beside the result."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    mats = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
+    for mat in mats:
+        x = torch.empty(mat.shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        mat.copy_(x * scale)
+    return out
+
+
+def norm_params(shape, kind: str, dtype, device) -> dict:
+    p = {"scale": torch.ones(shape, dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=dtype, device=device)
+    return p
+
+
+def init_block(cfg: ArchConfig, gen: torch.Generator, device, n: int, *, moe: bool,
+               cross: bool = False) -> dict:
+    """``n`` blocks' parameters stacked on axis 0, distributed as the JAX
+    package's ``init_block``: truncated normals scaled by
+    ``1/sqrt(d_in)``, unit norm scales, zero biases."""
+    dt = _dt(cfg.param_dtype)
+    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+
+    def dense_p(d_in, d_out, bias=False):
+        p = {"w": trunc_normal(gen, (n, d_in, d_out), 1.0 / math.sqrt(d_in), dt, device)}
+        if bias:
+            p["b"] = torch.zeros((n, d_out), dtype=dt, device=device)
+        return p
+
+    def attn_p():
+        return {
+            "wq": dense_p(d, h * hd, cfg.qkv_bias),
+            "wk": dense_p(d, kv * hd, cfg.qkv_bias),
+            "wv": dense_p(d, kv * hd, cfg.qkv_bias),
+            "wo": dense_p(h * hd, d),
+        }
+
+    gated = cfg.mlp_kind in ("swiglu", "geglu")
+    if moe:
+        e = cfg.n_experts
+        mlp = {
+            "router": {"w": trunc_normal(gen, (n, d, e), 1.0 / math.sqrt(d), torch.float32,
+                                         device)},
+            "wi": trunc_normal(gen, (n, e, d, f), 1.0 / math.sqrt(d), dt, device),
+            "wo": trunc_normal(gen, (n, e, f, d), 1.0 / math.sqrt(f), dt, device),
+        }
+        if gated:
+            mlp["wg"] = trunc_normal(gen, (n, e, d, f), 1.0 / math.sqrt(d), dt, device)
+    else:
+        mlp = {"wi": dense_p(d, f), "wo": dense_p(f, d)}
+        if gated:
+            mlp["wg"] = dense_p(d, f)
+    p = {
+        "ln1": norm_params((n, d), cfg.norm, dt, device),
+        "attn": attn_p(),
+        "ln2": norm_params((n, d), cfg.norm, dt, device),
+        "mlp": mlp,
+    }
+    if cross:
+        p["ln_cross"] = norm_params((n, d), cfg.norm, dt, device)
+        p["cross"] = attn_p()
+    return p
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> dict:
     """Random weights from an explicit generator (which must live on
-    ``device``), distributed as the JAX package's: truncated normals
-    scaled by ``1/sqrt(d_in)`` (embedding ``d**-0.5``), unit norm
-    scales, zero biases."""
-    _check_dense(cfg)
-    dt, L = _dt(cfg.param_dtype), cfg.n_layers
-    d, hd, v, f = cfg.d_model, cfg.resolved_head_dim, cfg.padded_vocab, cfg.d_ff
-    h, kv = cfg.n_heads, cfg.n_kv_heads
-
-    def tn(shape, scale):
-        return _trunc_normal(generator, shape, scale, dt, device)
-
-    def dense_p(d_in, d_out, bias=False):
-        p = {"w": tn((L, d_in, d_out), 1.0 / math.sqrt(d_in))}
-        if bias:
-            p["b"] = torch.zeros((L, d_out), dtype=dt, device=device)
-        return p
-
-    def norm_p(stacked: bool):
-        shape = (L, d) if stacked else (d,)
-        p = {"scale": torch.ones(shape, dtype=dt, device=device)}
-        if cfg.norm == "layernorm":
-            p["bias"] = torch.zeros(shape, dtype=dt, device=device)
-        return p
-
-    mlp = {"wi": dense_p(d, f), "wo": dense_p(f, d)}
-    if cfg.mlp_kind in ("swiglu", "geglu"):
-        mlp["wg"] = dense_p(d, f)
-    p = {
-        "embed": {"table": tn((v, d), d ** -0.5)},
-        "ln_f": norm_p(False),
-        "layers": {
-            "ln1": norm_p(True),
-            "attn": {
-                "wq": dense_p(d, h * hd, cfg.qkv_bias),
-                "wk": dense_p(d, kv * hd, cfg.qkv_bias),
-                "wv": dense_p(d, kv * hd, cfg.qkv_bias),
-                "wo": dense_p(h * hd, d),
-            },
-            "ln2": norm_p(True),
-            "mlp": mlp,
-        },
+    ``device``), in the JAX package's tree and distribution."""
+    dt = _dt(cfg.param_dtype)
+    v, d = cfg.padded_vocab, cfg.d_model
+    p: dict = {
+        "embed": {"table": trunc_normal(generator, (v, d), d ** -0.5, dt, device)},
+        "ln_f": norm_params((d,), cfg.norm, dt, device),
     }
     if not cfg.tie_embeddings:
-        p["head"] = {"w": tn((d, v), 1.0 / math.sqrt(d))}
+        p["head"] = {"w": trunc_normal(generator, (d, v), 1.0 / math.sqrt(d), dt, device)}
+    p["layers"] = init_block(cfg, generator, device, cfg.n_layers, moe=cfg.family == "moe",
+                             cross=cfg.family == "encdec")
+    if cfg.family == "encdec":
+        p["encoder"] = {
+            "layers": init_block(cfg, generator, device, cfg.n_encoder_layers, moe=False),
+            "ln_f": norm_params((d,), cfg.norm, dt, device),
+        }
+    if cfg.pos_embed == "learned":
+        p["pos_table"] = trunc_normal(generator, (32768, d), 0.02, dt, device)
     return p
 
 
 def params_from_reference(cfg: ArchConfig, tree: dict, device="cuda") -> dict:
-    """The JAX package's ``init_params`` tree, with its leaves given as
-    numpy arrays, as the port's parameters in ``cfg.param_dtype`` on
-    ``device``.  The layouts are the same, so this only converts leaves
-    (through f32, which holds bfloat16 exactly)."""
-    _check_dense(cfg)
-    dt = _dt(cfg.param_dtype)
+    """The JAX package's parameter tree (of any family), with its leaves
+    given as numpy arrays, as the port's parameters on ``device``.  The
+    layouts are the same, so this only converts leaves, each keeping its
+    own type (bf16 weights, f32 routers and SSM scalars), through f32,
+    which holds bfloat16 exactly."""
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        dt = getattr(torch, str(np.asarray(node).dtype))
         return torch.from_numpy(np.array(node, dtype=np.float32)).to(device=device, dtype=dt)
 
     return conv(tree)
 
 
-def _layer(layers: dict, i: int) -> dict:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
+def layer(layers: dict, i) -> dict:
+    """Layer ``i`` (an index, or an index tuple) of a stacked tree."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
 
 
 # =============================================================================
@@ -134,32 +176,49 @@ def _layer(layers: dict, i: int) -> dict:
 
 
 def attn_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
-               kv_cache: Optional[dict] = None, cache_len: int = 0,
-               valid_len: Optional[torch.Tensor] = None,
-               prefix_len: Optional[int] = None):
-    """Causal self-attention.  Returns ``(out, (k, v))``.
+               causal: bool = True, cross: bool = False, kv_cache: Optional[dict] = None,
+               cache_len=None, xkv: Optional[torch.Tensor] = None,
+               valid_len: Optional[torch.Tensor] = None, prefix_len=None):
+    """Self- or cross-attention.  Returns ``(out, new_kv | None)``.
 
-    no cache: prefill — keys and values from x, attention through
-              :func:`~repro_torch.models.common.attention_dispatch`;
-    cache:    decode — write the new K/V into the layer's cache views at
-              ``cache_len`` (in place) and attend the prefix."""
+    self, no cache:   keys/values from x (train / prefill)
+    self, cache:      decode — write the (B, s) K/V into the layer's cache
+                      views at ``cache_len`` (in place), attend the prefix
+    cross, no cache:  keys/values from ``xkv`` = the encoder's output
+    cross, cache:     decode — attend the encoder K/V cached at prefill"""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = cm.dense(p["wq"], x).reshape(b, s, h, hd)
-    k = cm.dense(p["wk"], x).reshape(b, s, kvh, hd)
-    v = cm.dense(p["wv"], x).reshape(b, s, kvh, hd)
-    q = cm.apply_rope(q, positions, cfg.rope_theta)
-    k = cm.apply_rope(k, positions, cfg.rope_theta)
-    if kv_cache is not None:
+    if cross and kv_cache is not None:
+        out = cm.cross_attention(q, kv_cache["k"], kv_cache["v"], softcap=cfg.attn_softcap)
+        return cm.dense(p["wo"], out.reshape(b, s, h * hd)), None
+
+    src = x if xkv is None else xkv
+    k = cm.dense(p["wk"], src).reshape(b, src.shape[1], kvh, hd)
+    v = cm.dense(p["wv"], src).reshape(b, src.shape[1], kvh, hd)
+    if cfg.pos_embed == "rope" and not cross:
+        q = cm.apply_rope(q, positions, cfg.rope_theta)
+        k = cm.apply_rope(k, positions, cfg.rope_theta)
+
+    new_kv = None
+    if cross:
+        out = cm.cross_attention(q, k, v, softcap=cfg.attn_softcap)
+    elif kv_cache is not None:  # self-attention decode: append to the cache
         kc, vc = kv_cache["k"], kv_cache["v"]
-        kc[:, cache_len:cache_len + s] = k
-        vc[:, cache_len:cache_len + s] = v
+        rows = cache_len + torch.arange(s, device=x.device)
+        kc.index_copy_(1, rows, k.to(kc.dtype))
+        vc.index_copy_(1, rows, v.to(vc.dtype))
+        new_kv = {"k": kc, "v": vc}
         out = cm.decode_attention(q, kc, vc, cache_len + s, softcap=cfg.attn_softcap,
                                   valid_len=valid_len, prefix_len=prefix_len)
     else:
-        out = cm.attention_dispatch(q, k, v, softcap=cfg.attn_softcap,
-                                    chunk_threshold=cfg.attn_chunk_threshold)
-    return cm.dense(p["wo"], out.reshape(b, s, h * hd)), (k, v)
+        if causal:
+            out = cm.attention_dispatch(q, k, v, softcap=cfg.attn_softcap,
+                                        chunk_threshold=cfg.attn_chunk_threshold)
+        else:
+            out = cm.cross_attention(q, k, v, softcap=cfg.attn_softcap)
+        new_kv = {"k": k, "v": v}
+    return cm.dense(p["wo"], out.reshape(b, s, h * hd)), new_kv
 
 
 def mlp_apply(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -170,17 +229,127 @@ def mlp_apply(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return cm.dense(p["wo"], hidden)
 
 
-def block_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, **kw):
-    """One pre-norm block.  Returns ``(x, (k, v))``."""
-    a, kv = attn_apply(cfg, p["attn"], cm.norm_apply(p["ln1"], x, cfg.norm, cfg.norm_eps),
-                       positions, **kw)
+def _moe_route(cfg: ArchConfig, p: dict, xf: torch.Tensor):
+    """Router: top-k experts and weights, and the aux losses (Switch load
+    balance + router z-loss), all in f32."""
+    e, k = cfg.n_experts, cfg.experts_per_token
+    t = xf.shape[0]
+    router_logits = xf.float() @ p["router"]["w"].float()
+    probs = torch.softmax(router_logits, dim=-1)
+    top_w, top_e = torch.topk(probs, k, dim=-1)
+    if cfg.router_norm_topk:
+        top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    # one_hot(top_e[:, 0]).mean(0) without one_hot's range check (a host sync)
+    density = torch.zeros(e, dtype=torch.float32, device=xf.device).index_add_(
+        0, top_e[:, 0], torch.ones(t, dtype=torch.float32, device=xf.device)) / t
+    aux = e * torch.sum(density * probs.mean(dim=0))
+    zloss = torch.mean(torch.logsumexp(router_logits, dim=-1) ** 2)
+    return top_e, top_w, 0.01 * aux + 1e-3 * zloss
+
+
+def _sorted_capacity_buffers(t: int, e: int, cap: int, k: int, top_e: torch.Tensor):
+    """Sorted-dispatch bookkeeping, all static shapes (sort, counts,
+    cumsum, scatter: nothing reads a value on the host).  Returns
+    ``(buf_tok (e, cap), buf_valid (e, cap), inv (t, k) slot or -1)``.
+
+    A choice past its expert's capacity is dropped: it writes into a
+    spare slot past the buffers.  (The JAX package writes it into its
+    expert's slot 0 with token 0, where the last write wins, so an
+    overflowing expert's first token is replaced by token 0: a gap of the
+    reference, ROADMAP.md.)"""
+    dev = top_e.device
+    flat_e = top_e.reshape(-1)
+    flat_tok = torch.arange(t * k, device=dev) // k
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e, sorted_tok = flat_e[order], flat_tok[order]
+    counts = torch.zeros(e, dtype=torch.long, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(t * k, device=dev) - starts[sorted_e]
+    keep = pos_in_e < cap
+    slot = sorted_e * cap + torch.where(keep, pos_in_e, 0)
+    dest = torch.where(keep, slot, e * cap)
+    buf_tok = torch.zeros(e * cap + 1, dtype=torch.long, device=dev).index_put_(
+        (dest,), sorted_tok)
+    buf_valid = torch.zeros(e * cap + 1, dtype=torch.bool, device=dev).index_put_(
+        (dest,), keep)
+    inv = torch.full((t * k,), -1, dtype=torch.long, device=dev).index_put_(
+        (order,), torch.where(keep, slot, -1))
+    return buf_tok[:e * cap].view(e, cap), buf_valid[:e * cap].view(e, cap), inv.view(t, k)
+
+
+def _expert_ffn(cfg: ArchConfig, p: dict, xe: torch.Tensor) -> torch.Tensor:
+    """The experts' FFN as batched products over the expert axis (the JAX
+    package's einsums, which it leaves outside any Pallas kernel)."""
+    if "wg" in p:
+        hid = cm.mlp_act(cfg.mlp_kind, torch.bmm(xe, p["wi"]), torch.bmm(xe, p["wg"]))
+    else:
+        hid = cm.mlp_act(cfg.mlp_kind, torch.bmm(xe, p["wi"]))
+    return torch.bmm(hid, p["wo"])
+
+
+def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor):
+    """Top-k routed MoE with capacity buffers (GShard/Switch-style sorted
+    dispatch, O(T·k) memory).  The JAX package's all-to-all dispatch
+    (``moe_impl="a2a"``) needs a device mesh; one card has none
+    (``current_mesh()`` is None), so every MoE config runs this path, as
+    the reference's does without a mesh.  Returns ``(out, aux_loss)``."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.experts_per_token
+    xf = x.reshape(t, d)
+    top_e, top_w, aux_total = _moe_route(cfg, p, xf)
+    cap = max(1, int(k * t * cfg.moe_capacity_factor / e))
+    buf_tok, buf_valid, inv = _sorted_capacity_buffers(t, e, cap, k, top_e)
+    xe = constrain(xf[buf_tok] * buf_valid[..., None].to(xf.dtype),
+                   logical("expert", "expert_cap", None))
+    ye = _expert_ffn(cfg, p, xe)
+    # combine as a gather: inv[t, j] is the slot of (token t, choice j)
+    gathered = ye.reshape(e * cap, d)[inv.clamp(min=0)]  # (t, k, d)
+    gathered = gathered * (inv >= 0)[..., None].to(ye.dtype) * top_w.to(ye.dtype)[..., None]
+    return gathered.sum(dim=1).reshape(b, s, d), aux_total
+
+
+def block_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
+                moe: bool, causal: bool = True, kv_cache: Optional[dict] = None,
+                cache_len=None, cross_kv: Optional[dict] = None,
+                enc_out: Optional[torch.Tensor] = None, valid_len=None, prefix_len=None):
+    """One pre-norm block.  Returns ``(x, new_kv, aux)``."""
+    h = cm.norm_apply(p["ln1"], x, cfg.norm, cfg.norm_eps)
+    a, new_kv = attn_apply(cfg, p["attn"], h, positions, causal=causal, kv_cache=kv_cache,
+                           cache_len=cache_len, valid_len=valid_len, prefix_len=prefix_len)
     x = x + a
-    x = x + mlp_apply(cfg, p["mlp"], cm.norm_apply(p["ln2"], x, cfg.norm, cfg.norm_eps))
-    return x, kv
+    if "cross" in p:
+        h = cm.norm_apply(p["ln_cross"], x, cfg.norm, cfg.norm_eps)
+        c, _ = attn_apply(cfg, p["cross"], h, positions, cross=True, kv_cache=cross_kv,
+                          cache_len=cache_len, xkv=enc_out)
+        x = x + c
+    h = cm.norm_apply(p["ln2"], x, cfg.norm, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if moe:
+        m, aux = moe_apply(cfg, p["mlp"], h)
+    else:
+        m = mlp_apply(cfg, p["mlp"], h)
+    return x + m, new_kv, aux
+
+
+def _run_blocks(cfg: ArchConfig, layers: dict, n: int, x: torch.Tensor,
+                positions: torch.Tensor, *, moe: bool, causal: bool = True,
+                enc_out=None, on_kv=None):
+    """The stacked blocks in turn; ``on_kv(i, kv)`` receives each layer's
+    K/V (prefill writes them into the cache).  Returns ``(x, aux)``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        x, kv, a = block_apply(cfg, layer(layers, i), x, positions, moe=moe, causal=causal,
+                               enc_out=enc_out)
+        aux = aux + a
+        if on_kv is not None:
+            on_kv(i, kv)
+    return x, aux
 
 
 # =============================================================================
-# full model
+# full models
 # =============================================================================
 
 
@@ -198,74 +367,143 @@ def lm_logits(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def forward_logits(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
-    """Full-sequence forward: logits (B, S, V).  (The JAX package also
-    returns the MoE auxiliary loss, which the dense family does not have.)"""
-    _check_dense(cfg)
+def _learned_positions(params: dict, positions: torch.Tensor) -> torch.Tensor:
+    table = params["pos_table"]
+    return table[positions % table.shape[0]]
+
+
+def _encode(cfg: ArchConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-family encoder over precomputed frame embeddings (the conv
+    frontend is a stub, as in the JAX package)."""
+    x = frames.to(_dt(cfg.compute_dtype))
+    x = x + cm.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, _ = _run_blocks(cfg, params["encoder"]["layers"], cfg.n_encoder_layers, x, pos,
+                       moe=False, causal=False)
+    return cm.norm_apply(params["encoder"]["ln_f"], x, cfg.norm, cfg.norm_eps)
+
+
+def _embed_prompt(cfg: ArchConfig, params: dict, batch: dict):
+    """Token embeddings with the VLM frontend prepended and learned
+    positions added; returns ``(x, positions (1, S))``."""
     x = embed_tokens(cfg, params, batch["tokens"])
+    if cfg.frontend != "none" and "frontend_embeds" in batch:
+        x = torch.cat([batch["frontend_embeds"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.n_layers):
-        x, _ = block_apply(cfg, _layer(params["layers"], i), x, positions)
-    return lm_logits(cfg, params, x)
+    if cfg.pos_embed == "learned":
+        x = x + _learned_positions(params, positions[0])
+    return x, positions
+
+
+def forward_hidden(cfg: ArchConfig, params: dict, batch: dict):
+    """Forward to the final hidden states (before ``ln_f``).  batch:
+    ``tokens`` (B, S_text) int, ``frontend_embeds`` (B, S_front, d) for a
+    VLM, ``enc_frames`` (B, S_enc, d) for an encoder-decoder.  Returns
+    ``(x (B, S, d), aux_loss)``."""
+    x, positions = _embed_prompt(cfg, params, batch)
+    enc_out = _encode(cfg, params, batch["enc_frames"]) if cfg.family == "encdec" else None
+    return _run_blocks(cfg, params["layers"], cfg.n_layers, x, positions,
+                       moe=cfg.family == "moe", enc_out=enc_out)
+
+
+def forward_logits(cfg: ArchConfig, params: dict, batch: dict):
+    """Full-sequence forward: ``(logits (B, S, V), aux_loss)``."""
+    x, aux = forward_hidden(cfg, params, batch)
+    return lm_logits(cfg, params, x), aux
+
+
+# =============================================================================
+# serving: prefill + decode
+# =============================================================================
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> dict:
     dt = _dt(cfg.compute_dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {
+    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (cfg.n_layers, batch, max_len, kvh, hd)
+    cache = {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
-        "len": 0,
+        "len": torch.zeros((), dtype=torch.long, device=device),
     }
+    if cfg.family == "encdec":
+        eshape = (cfg.n_layers, batch, cfg.encoder_len, kvh, hd)
+        cache["cross_k"] = torch.zeros(eshape, dtype=dt, device=device)
+        cache["cross_v"] = torch.zeros(eshape, dtype=dt, device=device)
+    return cache
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int,
-            last_idx: Optional[torch.Tensor] = None):
+            last_idx: Optional[torch.Tensor] = None, cache: Optional[dict] = None):
     """Run the prompt; return ``(last_logits (B, 1, V), cache)``.
 
-    ``last_idx`` (B,), optional: each sequence's last real token.  The
-    serving engine right-pads prompts into fixed buckets, so the logits
-    that seed decoding come from each sequence's own last real position,
-    not the bucket's final column."""
-    _check_dense(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed_tokens(cfg, params, tokens)
-    positions = torch.arange(s, device=x.device)[None, :]
-    cache = init_cache(cfg, b, max_len, device=x.device)
-    for i in range(cfg.n_layers):
-        x, (k, v) = block_apply(cfg, _layer(params["layers"], i), x, positions)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+    ``last_idx`` (B,), optional: each sequence's last real position along
+    the full sequence (frontend included).  The serving engine
+    right-pads prompts into fixed buckets, so the logits that seed
+    decoding come from each sequence's own last real position, not the
+    bucket's final column.  ``cache``, optional: an :func:`init_cache`
+    of at least the prompt's batch and length to write into (the engine's
+    own, whose addresses its decode graphs hold); a new one otherwise."""
+    x, positions = _embed_prompt(cfg, params, batch)
+    b, s = x.shape[:2]
+    if cache is None:
+        cache = init_cache(cfg, b, max_len, device=x.device)
+    enc_out = _encode(cfg, params, batch["enc_frames"]) if cfg.family == "encdec" else None
+
+    def write_kv(i, kv):
+        cache["k"][i, :b, :s] = kv["k"]
+        cache["v"][i, :b, :s] = kv["v"]
+
+    x, _ = _run_blocks(cfg, params["layers"], cfg.n_layers, x, positions,
+                       moe=cfg.family == "moe", enc_out=enc_out, on_kv=write_kv)
     if last_idx is None:
         x_last = x[:, -1:, :]
     else:
         x_last = x[torch.arange(b, device=x.device), last_idx.long()][:, None, :]
-    cache["len"] = s
+    cache["len"].fill_(s)
+    if cfg.family == "encdec":
+        # the cross K/V of every layer, from the encoder's output, once
+        kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        es = enc_out.shape[1]
+        for i in range(cfg.n_layers):
+            cp = layer(params["layers"]["cross"], i)
+            cache["cross_k"][i, :b] = cm.dense(cp["wk"], enc_out).reshape(b, es, kvh, hd)
+            cache["cross_v"][i, :b] = cm.dense(cp["wv"], enc_out).reshape(b, es, kvh, hd)
     return lm_logits(cfg, params, x_last), cache
+
+
+def decode_positions(cache: dict, b: int, device) -> torch.Tensor:
+    """(B, 1) positions of the token a decode step appends.  Bucket-padded
+    serving stashes each sequence's real prompt length (``valid_len``)
+    and the bucket width (``prefill_len``) in the cache, so each
+    sequence's position continues from its own last real token, not the
+    bucket boundary."""
+    pos = cache["len"]
+    valid_len, prefix_len = cache.get("valid_len"), cache.get("prefill_len")
+    if valid_len is not None:
+        return valid_len[:, None] + (pos - prefix_len)
+    return pos + torch.zeros((b, 1), dtype=torch.long, device=device)
 
 
 def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor):
     """One token for every sequence.  tokens: (B, 1).  Returns
-    ``(logits (B, 1, V), cache)``: the cache's K/V are updated in place
-    and its ``len`` advanced.
-
-    Bucket-padded serving stashes each sequence's real prompt length
-    (``valid_len``) and the bucket width (``prefill_len``) in the cache,
-    so pad K/V rows are masked out of every step and each sequence's
-    rope position continues from its own last real token."""
-    _check_dense(cfg)
+    ``(logits (B, 1, V), cache)``: the cache's K/V are written in place
+    and its ``len`` advanced on the device, so the step makes no host
+    sync and can be captured.  Pad K/V rows of a bucket-padded prefill
+    are masked out of every step (``valid_len`` / ``prefill_len``)."""
     b = tokens.shape[0]
     x = embed_tokens(cfg, params, tokens)
     pos = cache["len"]
+    positions = decode_positions(cache, b, x.device)
     valid_len, prefix_len = cache.get("valid_len"), cache.get("prefill_len")
-    if valid_len is not None:
-        positions = valid_len[:, None] + (pos - prefix_len)
-    else:
-        positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    if cfg.pos_embed == "learned":
+        x = x + _learned_positions(params, positions[:, 0])[:, None]
+    moe, has_cross = cfg.family == "moe", cfg.family == "encdec"
     for i in range(cfg.n_layers):
         kv = {"k": cache["k"][i], "v": cache["v"][i]}
-        x, _ = block_apply(cfg, _layer(params["layers"], i), x, positions, kv_cache=kv,
-                           cache_len=pos, valid_len=valid_len, prefix_len=prefix_len)
-    cache["len"] = pos + 1
+        cross_kv = {"k": cache["cross_k"][i], "v": cache["cross_v"][i]} if has_cross else None
+        x, _, _ = block_apply(cfg, layer(params["layers"], i), x, positions, moe=moe,
+                              kv_cache=kv, cache_len=pos, cross_kv=cross_kv,
+                              valid_len=valid_len, prefix_len=prefix_len)
+    cache["len"].add_(1)
     return lm_logits(cfg, params, x), cache

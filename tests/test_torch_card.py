@@ -200,3 +200,44 @@ def test_process_lanes_never_hold_the_card_gate_at_once():
     assert len(states) >= 4 and eng.stats.n_failures == 0
     assert after["entries"] - before["entries"] == len(states)
     assert after["overlaps"] == before["overlaps"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["yi-6b", "qwen3-moe-235b-a22b", "whisper-tiny",
+                                  "mamba2-130m", "zamba2-1.2b"])
+def test_graphed_decode_equals_the_eager_loop_on_card(name):
+    """The engine's decode, replayed from its CUDA graph, gives the tokens
+    of the eager loop on the same card; a second request in the same
+    buckets captures nothing and replays once more."""
+    _card()
+    import numpy as np
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models.api import Model
+
+    cfg = get_arch(name).reduced()
+    model = Model(cfg, device="cuda")
+    params = model.init_params(seed=0)
+    paddable = cfg.family not in ("ssm", "hybrid")
+    engine = ServeEngine(cfg, params, max_batch=8, max_len=144,
+                         prompt_buckets=[128] if paddable else None, gen_buckets=[8],
+                         device="cuda")
+    assert engine.cache_report()["captures"] == 1
+    rng = np.random.default_rng(0)
+    for call, width in enumerate((112, 96)):
+        lens = (rng.integers(width // 2, width + 1, 8) if paddable
+                else np.full(8, width))
+        lens[0] = width
+        prompts = np.zeros((8, width), np.int64)
+        for i, n in enumerate(lens):
+            prompts[i, :n] = rng.integers(0, cfg.vocab_size, n)
+        out = engine.generate(prompts, 8, prompt_lens=lens)
+        np.testing.assert_array_equal(out, engine.eager_reference(prompts, 8, prompt_lens=lens))
+        rep = engine.cache_report()
+        assert (rep["captures"], rep["replays"]) == (1, call + 1)
+    # a replay launches what its capture recorded; the warm-up ran it once
+    launched = engine.launch_report()
+    assert any(kernel == "gemm" for kernel, _ in launched["captured"])
+    assert launched["warmup"] == launched["captured"]
+    assert launched["replayed"] == {key: 2 * n for key, n in launched["captured"].items()}

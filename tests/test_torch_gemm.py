@@ -121,6 +121,26 @@ def test_backward_matches_jax_grad(dtype, tdtype, tol, clean_dispatch):
     assert ops.dispatch_stats()["gemm"]["heuristic"] == 3
 
 
+@pytest.mark.parametrize("m", [1, 2, 5])
+def test_bf16_products_under_eight_rows_run_padded_rows(m, clean_dispatch):
+    """A bf16 product of fewer than 8 rows (a small decode batch) runs
+    the kernel's 8-row block on rows padded with zeros: the reference
+    product's values, dispatched under the ``(8, K, N)`` heuristic."""
+    a, b = _rand((m, 256), 0), _rand((256, 512), 1)
+    (ja, ta), (jb, tb) = _both(a, "bfloat16"), _both(b, "bfloat16")
+    ref_ops.set_kernel_policy(ref_ops.KernelPolicy(use_pallas=True, interpret=True))
+    try:
+        ref = ref_ops.gemm(ja, jb)
+    finally:
+        ref_ops.set_kernel_policy(ref_ops.KernelPolicy())
+    got = ops.gemm(ta, tb, device="cpu")
+    assert got.shape == (m, 512) and got.dtype == torch.bfloat16
+    _close(got, ref, 0.05)
+    assert ops.kernel_config(m, 256, 512, torch.bfloat16) == (None, "matmul")
+    assert ops.kernel_config(8, 256, 512, torch.bfloat16)[1] == "heuristic"
+    assert ops.dispatch_stats()["gemm"]["heuristic"] == 1
+
+
 def test_records_drive_dispatch(tmp_path, clean_dispatch):
     """A tuning record changes the config gemm() serves; an ILLEGAL
     record is refused by the static guard and the heuristic serves."""
