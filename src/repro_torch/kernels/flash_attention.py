@@ -185,7 +185,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for CUDA tensors, the plain version for CPU tensors.  Raises
     ``ValueError`` on anything the kernel does not take — the causal mask
     has no offset, so causal attention needs ``Sq == Sk`` — and
-    ``RuntimeError`` when a launch fails."""
+    ``RuntimeError`` when a launch fails.
+
+    The kernel has no backward (nor has the JAX package's), so operands
+    that autograd would record are refused on every device: its output
+    would carry no gradient to q, k or v.  Training takes
+    ``models/common.chunked_causal_attention``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention has no backward: operands that require a "
+                         "gradient take chunked_causal_attention")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention expects (B, S, H, hd) / (B, S, KV, hd) tensors")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:

@@ -15,12 +15,15 @@ contiguity, alignment and the config (raising ``ValueError`` on what the
 kernel does not take), then launches the kernel on the current stream
 for CUDA tensors, or runs :func:`gemm_plain` — the same K slabs and f32
 accumulation in PyTorch — for CPU tensors.  Every kernel launch adds one
-to :data:`LAUNCHES` (keyed by ``(M, K, N)``).
+to :data:`LAUNCHES` (keyed by ``(M, K, N)``) and to :data:`ROLE_LAUNCHES`
+(keyed by the :func:`launch_role` in force and ``(M, K, N)``: a training
+step's forward, remat recompute, ``dA`` and ``dB`` products).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -47,6 +50,8 @@ __all__ = [
     "kernel_max_threads",
     "kernel_max_threads_bf16",
     "LAUNCHES",
+    "ROLE_LAUNCHES",
+    "launch_role",
     "reset_launches",
 ]
 
@@ -55,10 +60,28 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: kernel launches per ``(M, K, N)``: the wrapper adds one where it
 #: launches the kernel, and nowhere else
 LAUNCHES: collections.Counter = collections.Counter()
+#: the same launches keyed ``(role, (M, K, N))``, by the role in force on
+#: the launching thread (``forward`` unless :func:`launch_role` says other)
+ROLE_LAUNCHES: collections.Counter = collections.Counter()
+_ROLE = threading.local()
+
+
+@contextlib.contextmanager
+def launch_role(role: str):
+    """Attribute this thread's launches inside the block to ``role``
+    (``recompute``, ``dA``, ``dB``; the autograd engine runs a CUDA
+    backward on its own thread, so the role is per thread)."""
+    prev = getattr(_ROLE, "name", "forward")
+    _ROLE.name = role
+    try:
+        yield
+    finally:
+        _ROLE.name = prev
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    ROLE_LAUNCHES.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,6 +305,7 @@ def gemm_tiled(a: torch.Tensor, b: torch.Tensor, config: KernelConfig) -> torch.
         raise ValueError(f"no kernel for device {a.device}")
     out = launch_with(build_kernel()[0], a, b, cfg)
     LAUNCHES[(m, k, n)] += 1
+    ROLE_LAUNCHES[(getattr(_ROLE, "name", "forward"), (m, k, n))] += 1
     return out
 
 

@@ -27,7 +27,8 @@ The lookup is memoized per ``(op, dims, dtype, backend)`` and dropped by
 listener).  :func:`dispatch_stats` counts, per op, which source drove
 each call.  ``gemm`` is differentiable: its ``torch.autograd.Function``
 computes ``dA = g Bᵀ`` and ``dB = Aᵀ g`` with the same kernel, each
-looked up under its own shape's key.
+looked up under its own shape's key, cast to its operand's type and
+counted under the launch role ``dA`` / ``dB``.
 
 Entry points run on the card: ``gemm`` takes ``device="cuda"`` unless
 the caller asks for ``device="cpu"`` (the plain version), and refuses
@@ -48,7 +49,7 @@ from repro_torch.core.records import add_change_listener, global_records, worklo
 from .flash_attention import LAUNCHES as FLASH_LAUNCHES
 from .flash_attention import default_blocks
 from .gemm import LAUNCHES as GEMM_LAUNCHES
-from .gemm import KernelConfig, default_config, gemm_tiled, kernel_config_from_state
+from .gemm import KernelConfig, default_config, gemm_tiled, kernel_config_from_state, launch_role
 
 __all__ = [
     "gemm",
@@ -282,9 +283,15 @@ class _Gemm(torch.autograd.Function):
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         g = g.contiguous()
-        # the backward products get their own tuned configs (shapes differ)
-        da = _dispatch(g, b.t().contiguous()) if ctx.needs_input_grad[0] else None
-        db = _dispatch(a.t().contiguous(), g) if ctx.needs_input_grad[1] else None
+        # the backward products get their own tuned configs (shapes differ);
+        # each is cast to its operand's type, as the JAX package's VJP casts
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            with launch_role("dA"):
+                da = _dispatch(g, b.t().contiguous()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            with launch_role("dB"):
+                db = _dispatch(a.t().contiguous(), g).to(b.dtype)
         return da, db, None
 
 

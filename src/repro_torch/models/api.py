@@ -1,5 +1,5 @@
-"""Unified model API — ``Model(cfg)`` gives init / logits / prefill /
-decode for every family of the zoo (dense, vlm, moe, encdec, ssm,
+"""Unified model API — ``Model(cfg)`` gives init / logits / hidden / loss /
+prefill / decode for every family of the zoo (dense, vlm, moe, encdec, ssm,
 hybrid), dispatching as the JAX package's ``Model`` does, on the card
 unless the caller asks for ``device="cpu"``.  The modality frontends are
 stubs, as in the reference: ``frontend_embeds`` / ``enc_frames`` arrive
@@ -56,6 +56,24 @@ class Model:
         if c.family == "ssm":
             return mb.mamba_lm_forward(c, params, batch)
         return hy.hybrid_forward(c, params, batch)
+
+    def hidden(self, params: dict, batch: dict):
+        """``(final hidden states (B, S, d) before ln_f, aux_loss)``."""
+        c = self.cfg
+        if c.family in _ATTN:
+            return tf.forward_hidden(c, params, batch)
+        if c.family == "ssm":
+            return mb.mamba_lm_hidden(c, params, batch)
+        return hy.hybrid_hidden(c, params, batch)
+
+    # -- training -------------------------------------------------------------
+    def loss(self, params: dict, batch: dict):
+        """Streaming (sequence-chunked) cross-entropy, never the whole
+        ``(B, S, V)`` logits (``transformer.streaming_lm_loss``); a VLM's
+        frontend positions are unsupervised.  ``(loss, metrics)``."""
+        x, aux = self.hidden(params, batch)
+        labels = tf.pad_labels(batch["labels"], x.shape[1])
+        return tf.streaming_lm_loss(self.cfg, params, x, labels, aux)
 
     # -- serving --------------------------------------------------------------
     def prefill(self, params: dict, batch: dict, max_len: int,

@@ -123,12 +123,22 @@ def attention_dispatch(q, k, v, softcap: float = 0.0,
     block the kernel launches divides it (a shape rule, counted as
     ``plain``; the JAX package counts it as ``xla``) — runs
     :func:`chunked_causal_attention`; short ones plain
-    :func:`causal_attention`."""
+    :func:`causal_attention`.
+
+    Whenever autograd records (grad mode on and an operand requires a
+    gradient) a long sequence runs :func:`chunked_causal_attention`,
+    counted as ``plain``: the flash kernel has no backward, in the JAX
+    package either, whose training runs with flash off."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ops import flash_blocks, note_dispatch
 
     b, s, h, hd = q.shape
     sk = k.shape[1]
+    records = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if records and s > chunk_threshold:
+        note_dispatch("flash", "plain")
+        with torch.profiler.record_function("attn.chunked"):
+            return chunked_causal_attention(q, k, v, softcap=softcap)
     if softcap == 0.0 and s > chunk_threshold:
         blocks, source = flash_blocks(s, sk, hd, q.dtype, grid_y=b * h)
         note_dispatch("flash", source)

@@ -61,16 +61,25 @@ def _shared(cfg, params, x, positions, **kw):
 
 
 def hybrid_hidden(cfg: ArchConfig, params: dict, batch: dict):
-    """Returns ``(final hidden, aux = 0)``."""
+    """Returns ``(final hidden, aux = 0)``.  Each group (its mamba layers
+    and the shared block) runs under the config's remat; the tail does
+    not, as in the JAX package."""
     i, n_groups, tail = _split(cfg)
     x = tf.embed_tokens(cfg, params, batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for gi in range(n_groups):
-        for j in range(i):
-            x = mb.mamba_block_apply(cfg, tf.layer(params["groups"], (gi, j)), x)
-        x, _ = _shared(cfg, params, x, positions)
-    for j in range(tail):
-        x = mb.mamba_block_apply(cfg, tf.layer(params["tail"], j), x)
+
+    def group_body(group, x):
+        for p in tf.unbind_layers(group, i):
+            x = mb.mamba_block_apply(cfg, p, x)
+        return _shared(cfg, params, x, positions)[0]
+
+    if n_groups:
+        group_body = tf._remat(cfg, group_body)
+        for group in tf.unbind_layers(params["groups"], n_groups):
+            x = group_body(group, x)
+    if tail:
+        for p in tf.unbind_layers(params["tail"], tail):
+            x = mb.mamba_block_apply(cfg, p, x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

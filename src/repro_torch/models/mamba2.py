@@ -265,9 +265,12 @@ def init_mamba_lm(cfg: ArchConfig, generator: torch.Generator, device="cuda") ->
 
 
 def mamba_lm_hidden(cfg: ArchConfig, params: dict, batch: dict):
+    """Final hidden states (before ``ln_f``), each layer under the
+    config's remat, and ``aux = 0``."""
     x = tf.embed_tokens(cfg, params, batch["tokens"])
-    for i in range(cfg.n_layers):
-        x = mamba_block_apply(cfg, tf.layer(params["layers"], i), x)
+    body = tf._remat(cfg, lambda p, x: mamba_block_apply(cfg, p, x))
+    for p in tf.unbind_layers(params["layers"], cfg.n_layers):
+        x = body(p, x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -8,7 +8,15 @@ Parameters are nested dicts laid out as the JAX package's
 d_out)``, experts ``(E, d_in, d_out)``, so :func:`params_from_reference`
 carries that tree across unchanged and both packages compute the same
 thing.  PyTorch runs eagerly, so the layer ``scan`` of the JAX package is
-a Python loop over the stacked layers.
+a Python loop over the stacked layers, taken apart once per forward
+(:func:`unbind_layers`).  Under autograd each block runs under
+:func:`_remat` (the config's ``remat``: ``full`` keeps only the block's
+inputs and recomputes the rest in the backward).
+
+Training's losses (:func:`lm_loss_from_logits`, :func:`streaming_lm_loss`,
+:func:`loss_fn`) are the JAX package's: cross-entropy over labels >= 0,
+the z-loss and the MoE aux loss; the streaming loss never holds the
+whole ``(B, S, V)`` logits.
 
 Serving state lives on the device: the KV cache is updated in place (one
 buffer per cache, where the JAX package returns a new one), and its
@@ -24,13 +32,15 @@ from __future__ import annotations
 import math
 from typing import Optional
 
-import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.api import constrain, logical
+from repro_torch.kernels.gemm import launch_role
 from repro_torch.kernels.ops import gemm
 from repro_torch.models import common as cm
+from repro_torch.utils.tree import tree_from_numpy
 
 __all__ = [
     "init_params",
@@ -39,6 +49,10 @@ __all__ = [
     "forward_logits",
     "embed_tokens",
     "lm_logits",
+    "lm_loss_from_logits",
+    "streaming_lm_loss",
+    "loss_fn",
+    "unbind_layers",
     "moe_apply",
     "init_cache",
     "prefill",
@@ -153,21 +167,63 @@ def params_from_reference(cfg: ArchConfig, tree: dict, device="cuda") -> dict:
     """The JAX package's parameter tree (of any family), with its leaves
     given as numpy arrays, as the port's parameters on ``device``.  The
     layouts are the same, so this only converts leaves, each keeping its
-    own type (bf16 weights, f32 routers and SSM scalars), through f32,
-    which holds bfloat16 exactly."""
-
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        dt = getattr(torch, str(np.asarray(node).dtype))
-        return torch.from_numpy(np.array(node, dtype=np.float32)).to(device=device, dtype=dt)
-
-    return conv(tree)
+    own type (bf16 weights, f32 routers and SSM scalars)."""
+    return tree_from_numpy(tree, device)
 
 
 def layer(layers: dict, i) -> dict:
     """Layer ``i`` (an index, or an index tuple) of a stacked tree."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
+
+
+def unbind_layers(layers: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked tree, each leaf unbound once.  The
+    backward of one ``unbind`` stacks a leaf's gradients once; indexing
+    each layer out of the stack (:func:`layer`) would make every layer's
+    backward write a zero-filled gradient of the whole stack."""
+    per: list[dict] = [{} for _ in range(n)]
+    for key, v in layers.items():
+        parts = unbind_layers(v, n) if isinstance(v, dict) else v.unbind(0)
+        for i in range(n):
+            per[i][key] = parts[i]
+    return per
+
+
+def _checkpointed(fn):
+    """``fn`` under a non-reentrant ``torch.utils.checkpoint`` while
+    autograd records: only its inputs are kept, and the backward runs it
+    again, with grad on as its first run had, so it takes the same
+    attention path.  GEMM launches of the second run count under the
+    launch role ``recompute``."""
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        calls = []
+
+        def body(*a):
+            role = "recompute" if calls else "forward"
+            calls.append(role)
+            with launch_role(role), torch.profiler.record_function(f"remat.{role}"):
+                return fn(*a)
+
+        return checkpoint(body, *args, use_reentrant=False)
+
+    return run
+
+
+def _remat(cfg: ArchConfig, fn):
+    """A block body under the config's rematerialization: ``none`` keeps
+    every intermediate for the backward, ``full`` only the body's inputs
+    (:func:`_checkpointed`)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return _checkpointed(fn)
+    if cfg.remat == "dots":
+        raise ValueError("remat 'dots' (save the non-batched products) is not ported; "
+                         "ROADMAP.md lists it with the reference gaps")
+    raise ValueError(f"unknown remat {cfg.remat!r}")
 
 
 # =============================================================================
@@ -336,12 +392,14 @@ def block_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tens
 def _run_blocks(cfg: ArchConfig, layers: dict, n: int, x: torch.Tensor,
                 positions: torch.Tensor, *, moe: bool, causal: bool = True,
                 enc_out=None, on_kv=None):
-    """The stacked blocks in turn; ``on_kv(i, kv)`` receives each layer's
-    K/V (prefill writes them into the cache).  Returns ``(x, aux)``."""
+    """The stacked blocks in turn, each under :func:`_remat`; ``on_kv(i,
+    kv)`` receives each layer's K/V (prefill writes them into the cache).
+    Returns ``(x, aux)``."""
+    body = _remat(cfg, lambda p, x: block_apply(cfg, p, x, positions, moe=moe, causal=causal,
+                                                 enc_out=enc_out))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n):
-        x, kv, a = block_apply(cfg, layer(layers, i), x, positions, moe=moe, causal=causal,
-                               enc_out=enc_out)
+    for i, p in enumerate(unbind_layers(layers, n)):
+        x, kv, a = body(p, x)
         aux = aux + a
         if on_kv is not None:
             on_kv(i, kv)
@@ -410,6 +468,98 @@ def forward_logits(cfg: ArchConfig, params: dict, batch: dict):
     """Full-sequence forward: ``(logits (B, S, V), aux_loss)``."""
     x, aux = forward_hidden(cfg, params, batch)
     return lm_logits(cfg, params, x), aux
+
+
+# =============================================================================
+# losses
+# =============================================================================
+
+
+def pad_labels(labels: torch.Tensor, length: int) -> torch.Tensor:
+    """Labels left-padded with -1 (unsupervised) to ``length``: a VLM's
+    frontend positions carry no label."""
+    pad = length - labels.shape[1]
+    if pad == 0:
+        return labels
+    fill = torch.full((labels.shape[0], pad), -1, dtype=labels.dtype, device=labels.device)
+    return torch.cat([fill, labels], dim=1)
+
+
+def _ce_terms(logits: torch.Tensor, labels: torch.Tensor):
+    """``(valid, lab, lse)`` of f32 logits: the supervised positions, the
+    labels with -1 read as 0, and each position's logsumexp."""
+    valid = labels >= 0
+    lab = torch.where(valid, labels, 0).long()
+    return valid, lab, torch.logsumexp(logits, dim=-1)
+
+
+def lm_loss_from_logits(cfg: ArchConfig, logits: torch.Tensor, aux: torch.Tensor,
+                        labels: torch.Tensor):
+    """Cross-entropy (+ MoE aux, + z-loss) over the labels >= 0, shared by
+    every family.  Returns ``(loss, metrics)``."""
+    labels = pad_labels(labels, logits.shape[1])
+    valid, lab, lse = _ce_terms(logits, labels)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, lab[..., None])[..., 0]
+    n_valid = valid.sum()
+    denom = torch.clamp(n_valid, min=1)
+    ce = -torch.sum(torch.where(valid, ll, 0.0)) / denom
+    zloss = 1e-4 * torch.sum(torch.where(valid, lse ** 2, 0.0)) / denom
+    loss = ce + zloss + aux
+    hits = torch.where(valid, torch.argmax(logits, -1) == lab, False)
+    return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": n_valid,
+                  "accuracy": hits.sum() / denom}
+
+
+def _loss_chunk(cfg: ArchConfig, w: torch.Tensor, xi: torch.Tensor, li: torch.Tensor):
+    """One sequence chunk's sums: cross-entropy, z-loss, hits, and the
+    supervised positions."""
+    logits = gemm(xi, w, device=xi.device.type).float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=xi.device) >= cfg.vocab_size
+        logits = torch.where(pad, -1e30, logits)
+    valid, lab, lse = _ce_terms(logits, li)
+    picked = torch.gather(logits, -1, lab[..., None])[..., 0]
+    ce = torch.sum(torch.where(valid, lse - picked, 0.0))
+    zl = torch.sum(torch.where(valid, lse ** 2, 0.0))
+    acc = torch.sum(torch.where(valid, torch.argmax(logits, -1) == lab, False))
+    return ce, zl, acc, valid.sum()
+
+
+def streaming_lm_loss(cfg: ArchConfig, params: dict, x: torch.Tensor,
+                      labels: torch.Tensor, aux: torch.Tensor, chunk: int = 512):
+    """Cross-entropy + z-loss without the whole ``(B, S, V)`` logits: each
+    ``chunk`` of positions computes its own logits, under a non-reentrant
+    checkpoint while autograd records, so the backward recomputes them
+    (the JAX package's ``jax.checkpoint``-ed ``lax.scan`` over chunks).
+    A length the chunk does not divide takes one chunk.  Returns
+    ``(loss, metrics)``."""
+    x = cm.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)
+    w = params["embed"]["table"].T if cfg.tie_embeddings else params["head"]["w"]
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s
+    body = _checkpointed(lambda w, xi, li: _loss_chunk(cfg, w, xi, li))
+    dev = x.device
+    ce_sum = z_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    acc_sum = n_valid = torch.zeros((), dtype=torch.int32, device=dev)
+    for c0 in range(0, s, chunk):
+        ce, zl, acc, nv = body(w, x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
+        ce_sum, z_sum = ce_sum + ce, z_sum + zl
+        acc_sum, n_valid = acc_sum + acc, n_valid + nv
+    denom = torch.clamp(n_valid, min=1)
+    ce = ce_sum / denom
+    zloss = 1e-4 * z_sum / denom
+    loss = ce + zloss + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": n_valid,
+                  "accuracy": acc_sum / denom}
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict):
+    """Loss of the full logits (the attention families): ``(loss, metrics)``."""
+    logits, aux = forward_logits(cfg, params, batch)
+    return lm_loss_from_logits(cfg, logits, aux, batch["labels"])
 
 
 # =============================================================================

@@ -241,3 +241,85 @@ def test_graphed_decode_equals_the_eager_loop_on_card(name):
     assert any(kernel == "gemm" for kernel, _ in launched["captured"])
     assert launched["warmup"] == launched["captured"]
     assert launched["replayed"] == {key: 2 * n for key, n in launched["captured"].items()}
+
+
+#: forward products of yi-6b's training step at 2 x 4096 tokens (the head's
+#: per 512-position loss chunk): their backward runs dA at (M, N, K) and dB
+#: at (K, M, N), with K = 8192 tokens in dB
+TRAIN_PRODUCTS = ((8192, 4096, 11008), (8192, 11008, 4096), (8192, 4096, 512),
+                  (1024, 4096, 65536))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", TRAIN_PRODUCTS)
+def test_gemm_backward_matches_plain_on_card(dims):
+    """``gemm``'s backward launches the kernel on dA = g Bᵀ and dB = Aᵀ g,
+    each counted under its launch role, in bf16, and each is within the
+    bf16 limit of the plain version under the config dispatch chose
+    (rtol 1.6e-2 / atol 2e-3 x max(1, K / 4096) x max(1, K / 11008)^0.5:
+    one rounding step, and wgmma's accumulation error, which grows about
+    as K^1.5; ``chip_smoke.gemm_tol``)."""
+    from repro_torch.kernels import ops
+
+    gen = _card()
+    m, k, n = dims
+    bf16 = torch.bfloat16
+    a = torch.randn(m, k, generator=gen, device="cuda").to(bf16).requires_grad_()
+    b = torch.randn(k, n, generator=gen, device="cuda").to(bf16).requires_grad_()
+    g = torch.randn(m, n, generator=gen, device="cuda").to(bf16)
+    gemm.reset_launches()
+    da, db = torch.autograd.grad(ops.gemm(a, b), [a, b], g)
+    torch.cuda.synchronize()
+    assert (da.dtype, db.dtype) == (bf16, bf16)
+    assert gemm.ROLE_LAUNCHES[("dA", (m, n, k))] == 1
+    assert gemm.ROLE_LAUNCHES[("dB", (k, m, n))] == 1
+    for got, lhs, rhs in ((da, g, b.detach().t().contiguous()),
+                          (db, a.detach().t().contiguous(), g)):
+        cfg, _ = ops.kernel_config(lhs.shape[0], lhs.shape[1], rhs.shape[1], bf16)
+        want = gemm.gemm_plain(lhs, rhs, cfg)
+        depth = lhs.shape[1]
+        atol = 2e-3 * max(1.0, depth / 4096) * max(1.0, depth / 11008) ** 0.5
+        torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2, atol=atol)
+
+
+@pytest.mark.gpu
+def test_reduced_train_step_on_card_matches_the_cpu():
+    """One AdamW step of the reduced yi-6b (f32) on the card, through the
+    GEMM kernel in the forward, the recompute and both backward products,
+    against the same step on the CPU (the plain versions): the loss and
+    the gradient norm within the reduced model's logits limit, 2e-4, and
+    each new param within 2e-4 plus twice the learning rate (Adam's first
+    step moves a param by about lr·sign(g), which flips where |g| is
+    within rounding of 0)."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.api import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    _card()
+    cfg = get_arch("yi-6b").reduced()
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init_params(seed=0)
+    params_card = tree_map(lambda t: t.to("cuda"), params)
+    samples = [SyntheticLM(cfg.vocab_size, 128, seed=1).sample(i) for i in range(4)]
+    batch = {"tokens": torch.from_numpy(np.stack([s[0] for s in samples])).long(),
+             "labels": torch.from_numpy(np.stack([s[1] for s in samples])).long()}
+    out = {}
+    gemm.reset_launches()
+    for label, model, p in (("cpu", cpu, params), ("card", Model(cfg, device="cuda"),
+                                                    params_card)):
+        opt = AdamW(lr=1e-3)
+        b = {k: v.to(model.device) for k, v in batch.items()}
+        p, _, metrics = make_train_step(model, opt)(p, opt.init(p), b)
+        out[label] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                      [t.cpu() for t in tree_leaves(p)])
+    roles = {role for role, _ in gemm.ROLE_LAUNCHES}
+    assert roles == {"forward", "recompute", "dA", "dB"}
+    (loss, norm, p_cpu), (loss_c, norm_c, p_card) = out["cpu"], out["card"]
+    assert abs(loss - loss_c) <= 2e-4 * abs(loss) and abs(norm - norm_c) <= 2e-4 * norm
+    for a, b in zip(p_cpu, p_card):
+        assert (b - a).abs().max().item() <= 2e-4 + 2 * 1e-3
