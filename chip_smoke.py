@@ -5,8 +5,10 @@ at full width on the tuned records with its decode replayed from a CUDA
 graph, the paper's tuners (N-A2C and its baselines) compared on the GEMM
 kernel, the tuner at scale (worker processes sharing the card, planted
 faults, sharded search, the learned filter and the audit), one model of
-every other family of the zoo served at full width, and yi-6b trained at
-its published widths with the GEMM kernel in the backward pass.
+every other family of the zoo served at full width, yi-6b trained at
+its published widths with the GEMM kernel in the backward pass, and the
+single-card dry run: every (arch x shape) cell's roofline from a trace on
+the meta device, and yi-6b's steps counted on the card against it.
 
     python3 chip_smoke.py
 
@@ -142,7 +144,31 @@ Phases (each prints its wall time):
      ``GRAD_REL_LIMIT``, which refuses a planted fault (dB computed from
      A's buffer read as if transposed); (e) the reduced yi-6b on the card
      with deterministic algorithms on: a step-2 checkpoint restored byte
-     for byte, and the resumed step 3's loss equal to a straight run's.
+     for byte, and the resumed step 3's loss equal to a straight run's;
+     (a)'s ``[train]`` lines also give the share under
+     ``utils/roofline.model_flops`` (6 x n_active_params x tokens, the
+     embedding in, no attention term);
+ 15. the dry run on the card: (a) ``python -m repro_torch.launch.dryrun
+     --all`` (started after phase 12 in a process of its own: it needs
+     no card and minutes of one CPU core, and phases 11-12 time the
+     host) traces the 40 cells on meta; its
+     roofline table (the reference's ``roofline_report`` columns) and
+     wall time, failing on any ``error`` record; (b) yi-6b at published
+     widths and 1 and 2 of its 32 layers on train_4k (2 x 4096),
+     prefill_32k (1 x 32768, flash at S = 32768) and decode_32k (128 x a
+     32768-deep cache, 8.6 GB of K/V a layer), each step counted once on
+     the card and traced on meta through the same entry points
+     (``make_train_step``, ``Model.prefill``, ``Model.decode_step``):
+     FLOPs and bytes, by kind, equal; the GEMM kernel's counted FLOPs
+     equal 2·M·K·N over ``gemm.LAUNCHES`` and flash's its launches times
+     ``flash_work``; the train step's GEMM in all four roles, flash in
+     prefill only; the meta trace's live peak within ``PEAK_RTOL`` of
+     ``max_memory_allocated`` over the step; a counter planted to drop
+     the dB products refused; (c) each probe's mean step time against
+     its roofline bound (the larger of ``compute_s`` and ``memory_s``),
+     their ratio and the model-flops share, beside the card's name and
+     power limit, and a ``[dryrun-record]`` JSON line with the cuts in
+     ``reduced``.
 
 Launch counts of each path are zeroed just before it and read just after:
 the GEMM tuning path is phases 3-5, the flash tuning path phase 8, the
@@ -156,7 +182,10 @@ phase 13 (each family's engine through its first ``generate``), and
 phase 14 (yi-6b's three training steps, ``launches_train``, with its
 parts by launch role in ``launches_train_parts``; GEMM rows are added
 for the backward's shapes; the flash row says it is not on the
-training path).  A
+training path), and phase 15 (the probes' counted steps,
+``launches_dryrun``; GEMM rows are added for the decode probe's
+shapes, and a flash row for the prefill probe's S = 32768, which
+carries that probe's flash launches).  A
 serve path's counts are zeroed before its engine's prewarm, which runs
 the decode loop once (the warm-up) and then captures it.  Host counts
 tick when a wrapper is called, so a capture counts the launches it
@@ -262,8 +291,6 @@ FLASH_BLOCKS = {
 }
 #: the other bf16 block_kv instantiations, checked at block_q 128
 FLASH_ODD_BKV = (48, 80, 96, 112)
-#: dense peak (ops/s) and memory rate (bytes/s) by card, from NVIDIA's data sheets
-PEAKS = {"PCIe": (756e12, 2.0e12), "H200": (989e12, 4.8e12), "default": (989e12, 3.35e12)}
 TUNE_TRIALS = 250  # total G-BFS pool over the five workloads (phase 3)
 # total pool of the warm-started CLI rerun (phase 4), which starts from
 # phase 3's records and serves every state phase 3 measured from the journal
@@ -317,6 +344,23 @@ RESUME_BATCH, RESUME_SEQ = 4, 128
 #: prefixes of the port's ``record_function`` ranges, which a trace also
 #: shows as device-side annotations (not kernels)
 RANGES = ("train.", "remat.", "attn.")
+#: phase 15: yi-6b probed at published widths and 1 and 2 of its 32 layers
+#: on the reference's train_4k, prefill_32k and decode_32k, each batch cut
+#: to fit one card: (shape, tokens a sequence, batch, kind)
+DRY_PROBES = (("train_4k", 4096, 2, "train"), ("prefill_32k", 32768, 1, "prefill"),
+              ("decode_32k", 32768, 128, "decode"))
+DRY_DEPTHS = (1, 2)
+#: timed steps of each probe, after the counted one
+DRY_TIMED = {"train": 3, "prefill": 3, "decode": 10}
+#: the meta trace's live peak against the card's ``max_memory_allocated``
+#: over the same step (both less what was allocated before it): the
+#: caching allocator rounds each block up to 512 bytes (3044 bytes apart
+#: at most on the H100), and a reference cycle that held a tensor past
+#: its step would show here
+PEAK_RTOL = 0.02
+#: the dry run of the 40 cells, on meta in its own process, must end by
+#: then (it starts after phase 12 and runs beside phases 13-14)
+DRY_ALL_TIMEOUT_S = 900
 
 
 def phase(name: str, t0: float) -> None:
@@ -579,6 +623,7 @@ def main() -> None:
     from repro_torch.launch.serve import ServeEngine
     from repro_torch.launch.tune import flash_workloads_for_arch, workloads_for_arch
     from repro_torch.models.api import Model
+    from repro_torch.utils.roofline import H100
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32
     # cuBLAS (the decode attention's batched products) picks its reduction by
@@ -593,9 +638,10 @@ def main() -> None:
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     device_name = torch.cuda.get_device_name(0)
-    peak_ops, peak_bytes = next(
-        (v for k, v in PEAKS.items() if k in device_name), PEAKS["default"]
-    )
+    # dense bf16 peak (ops/s) and memory rate (bytes/s) of the card, from
+    # NVIDIA's data sheets (the roofline's figures, one place for both)
+    hw = H100.for_device(device_name)
+    peak_ops, peak_bytes = hw.peak_flops, hw.hbm_bw
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(100 * 1024 * 1024, dtype=torch.uint8, device=dev)
@@ -1089,6 +1135,10 @@ def main() -> None:
     tuning_at_scale(kernels, gemm_rows, rand, work.name, na2c_journal)
     phase("12 the tuner at scale: process lanes, faults, shards, learned filter, audit", t0)
     work.cleanup()
+    # phase 15(a) needs no card and minutes of one CPU core: start it beside
+    # phases 13-14, whose times are the card's, after the host-timed 11-12
+    dry_dir = tempfile.TemporaryDirectory()
+    dry = BackgroundDryRun(dry_dir.name)
 
     t0 = time.perf_counter()
     serve_families(kernels)
@@ -1099,6 +1149,11 @@ def main() -> None:
     t0 = time.perf_counter()
     train_yi6b(kernels, rand, flush, peak_ops, peak_bytes)
     phase("14 train yi-6b", t0)
+
+    t0 = time.perf_counter()
+    dry_run_on_card(kernels, dry, rand, flush, hw, smi)
+    dry_dir.cleanup()
+    phase("15 the dry run on the card", t0)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1765,6 +1820,7 @@ def train_yi6b(kernels: list, rand, flush, peak_ops: float, peak_bytes: float) -
 
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import DataPipeline, SyntheticLM
     from repro_torch.kernels import flash_attention as fa
@@ -1773,6 +1829,7 @@ def train_yi6b(kernels: list, rand, flush, peak_ops: float, peak_bytes: float) -
     from repro_torch.models import common as cm
     from repro_torch.optim import clip_by_global_norm
     from repro_torch.train.trainer import Trainer
+    from repro_torch.utils.roofline import model_flops as roofline_model_flops
     from repro_torch.utils.tree import tree_map
 
     bf16 = torch.bfloat16
@@ -1816,6 +1873,12 @@ def train_yi6b(kernels: list, rand, flush, peak_ops: float, peak_bytes: float) -
           f"{attn_flops} = {model_flops:.4e} (N: the params less the embedding table, a lookup; "
           f"attention: 3 x 4*B*H*hd*S*(S+1)/2 a layer, forward and backward of the causal "
           f"triangle); model_flops_share={model_flops / step_s / peak_ops:.4f} of "
+          f"{peak_ops / 1e12:.0f} TFLOP/s", flush=True)
+    roofline_flops = roofline_model_flops(cfg, ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH,
+                                                         "train"))
+    print(f"[train] roofline.model_flops (the reference's: 6 x n_active_params x tokens, the "
+          f"embedding in, no attention term) = {roofline_flops:.4e}; "
+          f"roofline_model_flops_share={roofline_flops / step_s / peak_ops:.4f} of "
           f"{peak_ops / 1e12:.0f} TFLOP/s", flush=True)
     if peak > 76e9:
         print(f"[train] peak {peak / 1e9:.2f} GB is above 76 GB", flush=True)
@@ -2172,6 +2235,333 @@ def check_reduced_model_against_cpu(Model, get_arch, np) -> None:
 
 def _map(tree, fn):
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+class BackgroundDryRun:
+    """``python -m repro_torch.launch.dryrun --all`` on meta in a process
+    of its own, writing under ``out_dir``; its wall time is taken when it
+    ends."""
+
+    def __init__(self, out_dir: str):
+        env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.out_dir = out_dir
+        self.log_path = os.path.join(out_dir, "dryrun.log")
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--out", out_dir],
+                stdout=log, stderr=subprocess.STDOUT, env=env, cwd=HERE)
+        self.t0 = time.perf_counter()
+        self.wall_s = None
+        self._waiter = threading.Thread(target=self._wait, daemon=True)
+        self._waiter.start()
+
+    def _wait(self) -> None:
+        self.proc.wait()
+        self.wall_s = time.perf_counter() - self.t0
+
+    def result(self, timeout: float) -> tuple[int, float, list, str]:
+        """``(exit code, wall seconds, records, output)``; raises
+        ``SystemExit`` if it has not ended within ``timeout``."""
+        self._waiter.join(timeout)
+        if self.wall_s is None:
+            raise SystemExit(f"the dry run of every cell had not ended after "
+                             f"{time.perf_counter() - self.t0:.0f}s")
+        records = []
+        single = os.path.join(self.out_dir, "single")
+        for name in sorted(os.listdir(single)) if os.path.isdir(single) else ():
+            with open(os.path.join(single, name)) as f:
+                records.append(json.load(f))
+        with open(self.log_path) as f:
+            return self.proc.returncode, self.wall_s, records, f.read()
+
+
+def count_problems(card, meta, gemm_launches, flash_launches, flash_flops) -> list[str]:
+    """Why a probe's counts on the card fail the check (empty when they
+    pass): the card's counted FLOPs and bytes, by kind, equal the meta
+    trace's; the GEMM kernel's equal the sum over its launches of
+    2·M·K·N, and flash's its launches times ``flash_flops`` a launch."""
+    out = []
+    if (card.flops, card.bytes) != (meta.flops, meta.bytes):
+        out.append(f"card counted {card.flops} FLOPs / {card.bytes} bytes, meta "
+                   f"{meta.flops} / {meta.bytes}")
+    if card.by_kind != meta.by_kind:
+        out.append(f"by kind: card {card.by_kind} meta {meta.by_kind}")
+    want = sum(c * 2 * m * k * n for (m, k, n), c in gemm_launches.items())
+    if card.by_kind["gemm_kernel"]["flops"] != want:
+        out.append(f"GEMM kernel counted {card.by_kind['gemm_kernel']['flops']} FLOPs, its "
+                   f"launches did {want}")
+    want = sum(c * flash_flops for c in flash_launches.values())
+    if card.by_kind["flash_kernel"]["flops"] != want:
+        out.append(f"flash counted {card.by_kind['flash_kernel']['flops']} FLOPs, its "
+                   f"launches did {want}")
+    return out
+
+
+def dry_run_on_card(kernels: list, dry: BackgroundDryRun, rand, flush, hw, smi: str) -> None:
+    """Phase 15: (a) the dry run of the 40 cells on meta (started after
+    phase 12): its roofline table and wall time, and no ``error`` record;
+    (b) yi-6b probed at published widths and 1 and 2 layers on
+    train_4k, prefill_32k and decode_32k with their batches cut to fit
+    the card, each step counted on the card and traced on meta: the
+    counts equal, the kernels' counted FLOPs equal their launch counters'
+    work, the live peaks side by side, and a counter planted to drop the
+    dB products refused; (c) each probe's step time against its roofline
+    bound and the model-flops share; (d) ``examples_torch/
+    tune_and_run_kernel.py`` at its default device: both kernels under
+    tuned schedules against their plain versions.  The probes' counted
+    runs are the path: counts zeroed before each and summed after
+    (``launches_dryrun``), with a row added for each shape no earlier
+    phase timed (the decode probe's GEMMs, the prefill probe's flash at
+    S = 32768), each held against its reference at that shape."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_arch, get_shape
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.utils.op_costs import OpCounter
+    from repro_torch.utils.roofline import model_flops, roofline_from_costs
+
+    # -- (a) every cell on meta -----------------------------------------------------
+    rc, wall, recs, log = dry.result(DRY_ALL_TIMEOUT_S)
+    status = collections.Counter(r["status"] for r in recs)
+    print(dryrun.table(recs), flush=True)
+    print(f"[dryrun] --all on meta: {len(recs)} records ({dict(status)}), exit {rc}, wall "
+          f"{wall:.1f}s (one process beside phases 13-14); H100 terms: "
+          f"{dataclasses.asdict(hw)}", flush=True)
+    if rc != 0 or status["error"] or len(recs) != 40 or status["ok"] != 32:
+        raise SystemExit(f"the dry run of every cell failed (exit {rc}):\n{log[-3000:]}")
+
+    # -- (b) the probes, on the card and on meta --------------------------------------
+    yi = get_arch("yi-6b")
+    dtype = getattr(torch, yi.compute_dtype)
+    h, hd = yi.n_heads, yi.resolved_head_dim
+    failures, launched = [], collections.Counter()
+    flash_launched = collections.Counter()  # (batch, (sq, sk, hd)) -> launches
+
+    class DropsDB(OpCounter):
+        """A planted counting fault: the dB products go uncounted."""
+
+        def add_kernel(self, kind, dims, flops, nbytes, out):
+            if kind == "gemm" and getattr(gemm_mod._ROLE, "name", "forward") == "dB":
+                return
+            super().add_kernel(kind, dims, flops, nbytes, out)
+
+    for name, seq, batch, kind in DRY_PROBES:
+        shape, full = ShapeSpec(name, seq, batch, kind), get_shape(name)
+        blocks, _ = ops.flash_blocks(seq, seq, hd, dtype, grid_y=batch * h)
+        flash_flops = fa.flash_work(batch, seq, seq, h, yi.n_kv_heads, hd, *blocks, True,
+                                     dtype.itemsize)[0] \
+            if blocks else 0
+        for depth in DRY_DEPTHS:
+            cfg = dryrun._depth_variant(yi, depth)
+            meta = dryrun.count_step(dryrun.make_cell(cfg, shape, "meta")["run"])
+            cell = dryrun.make_cell(cfg, shape, "cuda")
+            cell["run"]()  # warm-up: the allocator's and cuBLAS's first use
+            torch.cuda.synchronize()
+            gc.collect()  # nothing of the warm-up left for the counted step to free
+            gemm_mod.reset_launches()
+            fa.LAUNCHES.clear()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            card = dryrun.count_step(cell["run"])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            gemm_l, flash_l = collections.Counter(gemm_mod.LAUNCHES), collections.Counter(fa.LAUNCHES)
+            roles = collections.Counter(role for role, _ in gemm_mod.ROLE_LAUNCHES.elements())
+            launched.update(gemm_l)
+            flash_launched.update({(batch, dims): c for dims, c in flash_l.items()})
+            label = f"yi-6b {name} ({depth} of 32 layers, batch {batch})"
+            problems = count_problems(card, meta, gemm_l, flash_l, flash_flops)
+            if card.kernel_launches != collections.Counter(
+                    {("gemm", d): c for d, c in gemm_l.items()}) + collections.Counter(
+                    {("flash", d): c for d, c in flash_l.items()}):
+                problems.append(f"the counter saw {dict(card.kernel_launches)} kernel calls")
+            want_roles = {"forward", "recompute", "dA", "dB"} if kind == "train" else {"forward"}
+            if set(roles) != want_roles:
+                problems.append(f"GEMM launched in {dict(roles)}, not in {sorted(want_roles)}")
+            if (kind == "prefill") != bool(flash_l):
+                problems.append(f"flash launched {dict(flash_l)}")
+            if kind != "prefill" and not card.by_kind["attention"]["count"]:
+                problems.append("no attention products were counted")
+            peak_rel = abs(meta.peak_bytes - peak) / peak
+            if peak_rel > PEAK_RTOL:
+                problems.append(f"live peak: meta {meta.peak_bytes} card {peak}")
+            print(f"[dryrun-probe] {label}: card and meta count {card.flops:.6e} FLOPs / "
+                  f"{card.bytes:.6e} bytes (equal: {(card.flops, card.bytes) == (meta.flops, meta.bytes)}); "
+                  f"GEMM kernel {card.by_kind['gemm_kernel']['flops']:.6e} FLOPs over "
+                  f"{sum(gemm_l.values())} launches {dict(roles)}; flash "
+                  f"{card.by_kind['flash_kernel']['flops']:.6e} over {sum(flash_l.values())} "
+                  f"launches (blocks {blocks}); attention products "
+                  f"{card.by_kind['attention']['flops']:.6e}; live peak meta "
+                  f"{meta.peak_bytes / 1e9:.4f} GB, the card's allocator {peak / 1e9:.4f} GB "
+                  f"(rel diff {peak_rel:.5f}, limit {PEAK_RTOL}; the counter's own on the card "
+                  f"{card.peak_bytes / 1e9:.4f} GB)", flush=True)
+            failures += [f"{label}: {p}" for p in problems]
+            if kind == "train" and depth == DRY_DEPTHS[0]:
+                gemm_mod.reset_launches()
+                with DropsDB() as bad:
+                    cell["run"]()
+                torch.cuda.synchronize()
+                caught = count_problems(bad, meta, gemm_mod.LAUNCHES, fa.LAUNCHES, flash_flops)
+                print(f"[dryrun-probe] planted fault, a counter that drops the dB products: "
+                      f"{'refused' if caught else 'NOT refused'}: {caught[:2]}", flush=True)
+                if not caught:
+                    failures.append("the count check did not refuse the planted dB fault")
+
+            # -- (c) the step's time against its roofline bound
+            times = []
+            for _ in range(DRY_TIMED[kind]):
+                t = time.perf_counter()
+                cell["run"]()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            step_s = sum(times) / len(times)
+            mf = model_flops(cfg, shape)
+            terms = roofline_from_costs(card.flops, card.bytes, card.collectives(), 1, mf, hw)
+            bound_s = max(terms.compute_s, terms.memory_s)
+            rec = {"arch": "yi-6b", "shape": name, "kind": kind, "device": "cuda",
+                   "reduced": [f"n_layers {yi.n_layers} -> {depth}",
+                               f"global_batch {full.global_batch} -> {batch}"],
+                   "step_s": step_s, "bound_s": bound_s, "step_over_bound": step_s / bound_s,
+                   "model_flops_share": mf / step_s / hw.peak_flops,
+                   "roofline": terms.as_dict(), "peak_bytes_card": peak,
+                   "peak_bytes_meta": meta.peak_bytes, "card": smi}
+            print(f"[dryrun-probe] {label}: step_s={step_s:.6f} (mean of {len(times)}) "
+                  f"bound_s={bound_s:.6f} ({terms.dominant}: compute_s={terms.compute_s:.6f} "
+                  f"memory_s={terms.memory_s:.6f}) step/bound={step_s / bound_s:.4f} "
+                  f"model_flops_share={mf / step_s / hw.peak_flops:.4f} useful_ratio="
+                  f"{terms.useful_ratio:.4f} on {smi}", flush=True)
+            print(f"[dryrun-record] {json.dumps(rec)}", flush=True)
+            del cell, card, meta
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # the path's GEMM launches by shape: a row each (new shapes checked and timed)
+    rows = {tuple(r["shape"]): r for r in kernels if r.get("shape")}
+    for dims, count in sorted(launched.items()):
+        row = rows.get(dims)
+        if row is None:
+            row = gemm_row(f"gemm[dryrun {'x'.join(map(str, dims))}]", dims, rand, flush, hw)
+            kernels.append(row)
+            rows[dims] = row
+        row["launches_dryrun"] = row.get("launches_dryrun", 0) + count
+        row["launches"] += count
+    # the path's flash launches: a row for each shape (S = 32768 is new)
+    for (batch, (sq, sk, hd_)), count in sorted(flash_launched.items()):
+        row = flash_row(f"flash_attention[dryrun b{batch} s{sq} h{h}/{yi.n_kv_heads} d{hd_}]",
+                        batch, sq, h, yi.n_kv_heads, hd_, rand, flush, hw)
+        row["launches_dryrun"] = row["launches"] = count
+        kernels.append(row)
+    for row in kernels:
+        row.setdefault("launches_dryrun", 0)
+    print(f"[launches] phase 15: GEMM {sum(launched.values())} over {len(launched)} shapes, "
+          f"flash {sum(flash_launched.values())} ({dict(flash_launched)})", flush=True)
+
+    # -- (d) the example that runs both kernels under tuned schedules ----------------
+    example = os.path.join(HERE, "examples_torch", "tune_and_run_kernel.py")
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, example], capture_output=True, text=True, env=env,
+                          cwd=HERE, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        print(f"[example] {line}", flush=True)
+    if proc.returncode != 0 or not lines or lines[-1] != (
+            "OK: both tuned kernels match their plain versions on cuda") or sum(
+            "1 kernel launches)" in line for line in lines) != 2:
+        failures.append(f"tune_and_run_kernel.py on the card (exit {proc.returncode}):\n"
+                        f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    if failures:
+        raise SystemExit("phase 15 failed:\n" + "\n".join(failures))
+
+
+def flash_row(name: str, batch: int, seq: int, heads: int, kv_heads: int, hd: int, rand,
+              flush, hw) -> dict:
+    """A ``kernels`` row for a causal bf16 flash shape no earlier phase
+    timed: q ``(batch, seq, heads, hd)`` over k/v ``(batch, seq, kv_heads,
+    hd)`` under the blocks dispatch gives it, held against its plain
+    version within ``FLASH_TOL``, timed beside it (once: its block loop
+    takes seconds at S = 32768), SDPA and its bound (the causal
+    triangle's products; q, k, v read and the output written once)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    bf16 = torch.bfloat16
+    blocks, src = ops.flash_blocks(seq, seq, hd, bf16, grid_y=batch * heads)
+    q = rand((batch, seq, heads, hd), bf16)
+    k, v = rand((batch, seq, kv_heads, hd), bf16), rand((batch, seq, kv_heads, hd), bf16)
+    flush.zero_()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = fa.flash_attention_plain(q, k, v, *blocks)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = check_close(f"{name} {blocks}", fa.flash_attention(q, k, v, *blocks), ref, bf16,
+                      FLASH_TOL)
+    del ref
+    ms = timed_ms(lambda: fa.flash_attention(q, k, v, *blocks), 3, flush)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = timed_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 3, flush)
+    flops = 4 * batch * heads * hd * seq * (seq + 1) // 2
+    nbytes = 2 * batch * seq * (2 * heads + 2 * kv_heads) * hd
+    bound_ms = 1e3 * max(flops / hw.peak_flops, nbytes / hw.hbm_bw)
+    print(f"[dryrun-flash] q {tuple(q.shape)} k/v {tuple(k.shape)} blocks {blocks} ({src}): "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} max abs err vs plain {err}", flush=True)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:34", "shape": [batch, seq, heads, hd],
+        "launches_tune": 0, "launches_serve": 0, "launches_families": 0, "launches_train": 0,
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if flops / hw.peak_flops >= nbytes / hw.hbm_bw else "bytes",
+        "library_ms": lib_ms,
+    }
+
+
+def gemm_row(name: str, dims: tuple, rand, flush, hw) -> dict:
+    """A ``kernels`` row for a bf16 GEMM shape no earlier phase timed:
+    the kernel under the config dispatch gives it, held against an f32
+    ``torch.matmul`` within ``gemm_tol``, timed (unspun and spun) beside
+    its plain version, ``torch.matmul`` and its bound."""
+    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ops
+
+    bf16 = torch.bfloat16
+    m, k, n = dims
+    cfg, src = ops.kernel_config(m, k, n, bf16)
+    a, b = rand((m, k), bf16), rand((k, n), bf16)
+    err = check_close(f"{name} {cfg}", gemm_mod.gemm_tiled(a, b, cfg),
+                      torch.matmul(a.float(), b.float()), bf16, gemm_tol(k))
+    ms = timed_ms(lambda: gemm_mod.gemm_tiled(a, b, cfg), 3, flush)
+    ms_spin = timed_ms(lambda: gemm_mod.gemm_tiled(a, b, cfg), 3, flush, spin=True)
+    lib_ms = timed_ms(lambda: torch.matmul(a, b), 3, flush)
+    lib_spin = timed_ms(lambda: torch.matmul(a, b), 3, flush, spin=True)
+    plain_ms = timed_ms(lambda: gemm_mod.gemm_plain(a, b, cfg), 1, flush)
+    flops, nbytes = 2 * m * k * n, 2 * (m * k + k * n + m * n)
+    bound_ms = 1e3 * max(flops / hw.peak_flops, nbytes / hw.hbm_bw)
+    print(f"[dryrun-gemm] {dims} ({src}) {cfg}: kernel_ms={ms_spin:.4f} "
+          f"library_ms={lib_spin:.4f} bound_ms={bound_ms:.4f} (spun) max abs err vs f32 "
+          f"matmul {err}", flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+    return {
+        "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/gemm.cu",
+        "replaces": "src/repro/kernels/gemm.py:96", "shape": list(dims),
+        "launches_tune": 0, "launches_serve": 0, "launches_families": 0, "launches_train": 0,
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if flops / hw.peak_flops >= nbytes / hw.hbm_bw else "bytes",
+        "library_ms": lib_ms, "ms_spin": ms_spin, "library_ms_spin": lib_spin,
+    }
 
 
 def become_subreaper() -> None:

@@ -15,7 +15,9 @@ layout — q ``(B, S, H, hd)``, k/v ``(B, S, KV, hd)`` with ``H = KV * G``
 ``repro_torch.core.analysis`` refuses), then launches the kernel on the
 current stream for CUDA tensors, or runs :func:`flash_attention_plain` —
 the same block loop and online softmax in PyTorch f32, rounding where the
-kernel rounds — for CPU tensors.
+kernel rounds — for CPU tensors (an empty result for ``meta`` tensors, a
+dry run's trace), and reports the grid's work to the op counters in
+force.
 Every kernel launch adds one to :data:`LAUNCHES` (keyed by
 ``(seq_q, seq_kv, head_dim)``, the workload key's dims).
 """
@@ -32,12 +34,15 @@ import torch
 
 from repro_torch.core.analysis import flash_launch_error
 from repro_torch.core.flash_space import FlashScheduleState
+from repro_torch.utils.op_costs import kernel_ran, uncounted
 
 from .build import build_library
+from .gemm import misaligned
 
 __all__ = [
     "flash_attention",
     "flash_attention_plain",
+    "flash_work",
     "default_blocks",
     "state_from_blocks",
     "build_kernel",
@@ -182,7 +187,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     block_q: int, block_kv: int, causal: bool = True) -> torch.Tensor:
     """Attention of q ``(B, Sq, H, hd)`` over k/v ``(B, Sk, KV, hd)``
     through the kernel under ``(block_q, block_kv)``: launched on the card
-    for CUDA tensors, the plain version for CPU tensors.  Raises
+    for CUDA tensors, the plain version for CPU tensors, an empty result
+    for ``meta`` tensors (a dry run's trace); on every device the grid's
+    work (:func:`flash_work`) is reported to the op counters in force, and
+    only a launch counts in :data:`LAUNCHES`.  Raises
     ``ValueError`` on anything the kernel does not take — the causal mask
     has no offset, so causal attention needs ``Sq == Sk`` — and
     ``RuntimeError`` when a launch fails.
@@ -217,15 +225,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = flash_launch_error(bq, bkv, hd, q.element_size(), grid_y=b * h)
     if err is not None:
         raise ValueError(f"{err[0]}: {err[1]}")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bq, bkv, causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "meta", "cuda"):
         raise ValueError(f"no kernel for device {q.device}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if q.device.type == "cuda" and any(misaligned(t) for t in (q, k, v)):
         raise ValueError("the kernel copies 16-byte chunks: operands must be 16-byte aligned")
-    out = launch_with(build_kernel()[0], q, k, v, bq, bkv, causal)
-    LAUNCHES[(sq, sk, hd)] += 1
+    with uncounted():  # the grid's work is reported below, on every device
+        if q.device.type == "cpu":  # laid out as the kernel writes it
+            out = flash_attention_plain(q, k, v, bq, bkv, causal).contiguous()
+        elif q.device.type == "meta":
+            out = torch.empty_like(q)
+        else:
+            out = launch_with(build_kernel()[0], q, k, v, bq, bkv, causal)
+            LAUNCHES[(sq, sk, hd)] += 1
+    kernel_ran("flash", (sq, sk, hd),
+               *flash_work(b, sq, sk, h, kvh, hd, bq, bkv, causal, q.element_size()), out)
     return out
+
+
+def flash_work(b: int, seq_q: int, seq_kv: int, heads: int, kv_heads: int, head_dim: int,
+               block_q: int, block_kv: int, causal: bool, in_bytes: int) -> tuple[int, int]:
+    """``(FLOPs, bytes)`` of one call.  FLOPs are the grid's, by the
+    blocks it visits: each of the ``b·heads·(seq_q/block_q)`` CTAs visits
+    ``n_visit(iq)`` kv blocks — all ``n_kv = seq_kv/block_kv`` of them,
+    or, causal, the first ``min(n_kv, ceil((iq+1)·block_q / block_kv))``
+    — and on each does ``4·block_q·block_kv·head_dim`` FLOPs (``QKᵀ`` and
+    ``PV``, the diagonal block's masked entries included; the softmax's
+    exponentials and sums are not counted): ``4·b·heads·block_q·block_kv
+    ·head_dim·Σ_iq n_visit(iq)``.  Bytes are the function's least
+    traffic, q, k and v read once and the output written once:
+    ``in_bytes·b·head_dim·(2·seq_q·heads + 2·seq_kv·kv_heads)``.  The
+    grid reads each K/V block once per q block that visits it, but the
+    re-reads of one head group's K/V mostly hit L2, so counting them as
+    HBM traffic would overstate the roofline's memory term."""
+    n_kv = seq_kv // block_kv
+    visits = sum(min(n_kv, ((iq + 1) * block_q + block_kv - 1) // block_kv) if causal
+                 else n_kv for iq in range(seq_q // block_q))
+    flops = 4 * b * heads * block_q * block_kv * head_dim * visits
+    nbytes = in_bytes * b * head_dim * (2 * seq_q * heads + 2 * seq_kv * kv_heads)
+    return flops, nbytes
 
 
 def launch_with(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,7 +14,9 @@ hash of the source) and bound with ``ctypes``.
 contiguity, alignment and the config (raising ``ValueError`` on what the
 kernel does not take), then launches the kernel on the current stream
 for CUDA tensors, or runs :func:`gemm_plain` — the same K slabs and f32
-accumulation in PyTorch — for CPU tensors.  Every kernel launch adds one
+accumulation in PyTorch — for CPU tensors (on ``meta`` tensors it
+returns an empty result: a dry run traces the step there), and reports
+the kernel's work to the op counters in force.  Every kernel launch adds one
 to :data:`LAUNCHES` (keyed by ``(M, K, N)``) and to :data:`ROLE_LAUNCHES`
 (keyed by the :func:`launch_role` in force and ``(M, K, N)``: a training
 step's forward, remat recompute, ``dA`` and ``dB`` products).
@@ -34,6 +36,7 @@ import torch
 
 from repro_torch.core.analysis import GEMM_BW_BN, HopperSpec, gemm_kernel_kind, gemm_launch_error
 from repro_torch.core.config_space import TilingState
+from repro_torch.utils.op_costs import kernel_ran, uncounted
 
 from .build import build_library
 
@@ -44,6 +47,7 @@ __all__ = [
     "default_config",
     "gemm_tiled",
     "gemm_plain",
+    "misaligned",
     "build_kernel",
     "bind",
     "launch_with",
@@ -279,9 +283,13 @@ def kernel_max_threads_bf16(config: KernelConfig) -> int:
 
 def gemm_tiled(a: torch.Tensor, b: torch.Tensor, config: KernelConfig) -> torch.Tensor:
     """``C = A @ B`` through the tiled kernel under ``config``: launched
-    on the card for CUDA tensors, the plain version for CPU tensors.
-    Raises ``ValueError`` on anything the kernel does not take, and
-    ``RuntimeError`` when a launch fails."""
+    on the card for CUDA tensors, the plain version for CPU tensors, and
+    an empty result for ``meta`` tensors (a dry run's trace).  On every
+    device the kernel's work, 2·M·K·N FLOPs and (M·K + K·N + M·N) elements
+    moved, is reported to the op counters in force
+    (``utils/op_costs.kernel_ran``); only a launch counts in
+    :data:`LAUNCHES`.  Raises ``ValueError`` on anything the kernel does
+    not take, and ``RuntimeError`` when a launch fails."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm_tiled expects (M, K) @ (K, N), got {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE:
@@ -296,17 +304,33 @@ def gemm_tiled(a: torch.Tensor, b: torch.Tensor, config: KernelConfig) -> torch.
     # a contiguous view may start at any element; the same refusal on every
     # device, so the plain version refuses what the kernel would
     if gemm_kernel_kind(cfg.block_m, a.element_size()) != "simt" and (
-            a.data_ptr() % 16 or b.data_ptr() % 16):
+            misaligned(a) or misaligned(b)):
         raise ValueError("the bf16 kernels copy 16-byte chunks: operands must be "
                          "16-byte aligned")
-    if a.device.type == "cpu":
-        return gemm_plain(a, b, cfg)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cpu", "meta", "cuda"):
         raise ValueError(f"no kernel for device {a.device}")
-    out = launch_with(build_kernel()[0], a, b, cfg)
-    LAUNCHES[(m, k, n)] += 1
-    ROLE_LAUNCHES[(getattr(_ROLE, "name", "forward"), (m, k, n))] += 1
+    with uncounted():  # the kernel's work is reported below, on every device
+        if a.device.type == "cpu":
+            out = gemm_plain(a, b, cfg)
+        elif a.device.type == "meta":
+            out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+        else:
+            out = launch_with(build_kernel()[0], a, b, cfg)
+            LAUNCHES[(m, k, n)] += 1
+            ROLE_LAUNCHES[(getattr(_ROLE, "name", "forward"), (m, k, n))] += 1
+    kernel_ran("gemm", (m, k, n), 2 * m * k * n, (m * k + k * n + m * n) * a.element_size(),
+               out)
     return out
+
+
+def misaligned(t: torch.Tensor) -> bool:
+    """Whether ``t``'s first element lies off a 16-byte boundary.  A
+    ``meta`` tensor has no address: its storage offset decides, as it
+    does on the card, whose allocator starts every storage on a 512-byte
+    boundary."""
+    if t.device.type == "meta":
+        return bool(t.storage_offset() * t.element_size() % 16)
+    return bool(t.data_ptr() % 16)
 
 
 def launch_with(lib: ctypes.CDLL, a: torch.Tensor, b: torch.Tensor,

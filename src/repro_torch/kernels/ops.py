@@ -31,8 +31,10 @@ looked up under its own shape's key, cast to its operand's type and
 counted under the launch role ``dA`` / ``dB``.
 
 Entry points run on the card: ``gemm`` takes ``device="cuda"`` unless
-the caller asks for ``device="cpu"`` (the plain version), and refuses
-operands that live elsewhere.
+the caller asks for ``device="cpu"`` (the plain version) or
+``device="meta"`` (a dry run's trace: every decision above is the
+card's, the kernel's work is reported to the op counters in force and
+nothing is launched), and refuses operands that live elsewhere.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ from repro_torch.core.records import add_change_listener, global_records, worklo
 from .flash_attention import LAUNCHES as FLASH_LAUNCHES
 from .flash_attention import default_blocks
 from .gemm import LAUNCHES as GEMM_LAUNCHES
-from .gemm import KernelConfig, default_config, gemm_tiled, kernel_config_from_state, launch_role
+from .gemm import (KernelConfig, default_config, gemm_tiled, kernel_config_from_state,
+                   launch_role, misaligned)
 
 __all__ = [
     "gemm",
@@ -268,9 +271,10 @@ def _dispatch(a: torch.Tensor, b: torch.Tensor,
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and starting on a 16-byte boundary, as the bf16
-    kernels' copies need: a contiguous view at an odd offset is copied."""
+    kernels' copies need: a contiguous view at an odd offset is copied
+    (on ``meta``, where the same view is copied as on the card)."""
     t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return t.clone() if misaligned(t) else t
 
 
 class _Gemm(torch.autograd.Function):

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import gemm
+from repro_torch.utils.op_costs import counted_as
 
 __all__ = [
     "dense",
@@ -149,6 +150,7 @@ def attention_dispatch(q, k, v, softcap: float = 0.0,
     return causal_attention(q, k, v, softcap=softcap)
 
 
+@counted_as("attention")
 def causal_attention(q, k, v, softcap: float = 0.0, causal: bool = True) -> torch.Tensor:
     """Attention without a repeated K/V.  q: (B,S,H,hd), k/v: (B,Sk,KV,hd).
     The causal mask is offset by ``Sk - Sq``, as the JAX package's is."""
@@ -165,6 +167,7 @@ def causal_attention(q, k, v, softcap: float = 0.0, causal: bool = True) -> torc
     return out.reshape(b, sq, h, hd)
 
 
+@counted_as("attention")
 def chunked_causal_attention(q, k, v, chunk_q: int = 512, chunk_k: int = 1024,
                              softcap: float = 0.0) -> torch.Tensor:
     """Online-softmax causal attention in ``chunk_q x chunk_k`` blocks,
@@ -214,6 +217,7 @@ def cross_attention(q, k, v, softcap: float = 0.0) -> torch.Tensor:
     return causal_attention(q, k, v, softcap=softcap, causal=False)
 
 
+@counted_as("attention")
 def decode_attention(q, k_cache, v_cache, length, softcap: float = 0.0,
                      valid_len: Optional[torch.Tensor] = None,
                      prefix_len=None) -> torch.Tensor:

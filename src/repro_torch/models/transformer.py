@@ -73,8 +73,11 @@ def trunc_normal(gen: torch.Generator, shape, scale: float, dtype, device) -> to
     """Truncated normal in [-2, 2] times ``scale``, in ``dtype``.  A
     tensor of more than two dims is drawn one trailing matrix at a time
     (a layer's weight, an expert's), so the f32 draw never holds more
-    than one matrix beside the result."""
+    than one matrix beside the result.  On ``meta`` nothing is drawn: the
+    result only has the shape and type (a dry run's abstract params)."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta":
+        return out
     mats = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
     for mat in mats:
         x = torch.empty(mat.shape, dtype=torch.float32, device=device)
@@ -207,7 +210,9 @@ def _checkpointed(fn):
             with launch_role(role), torch.profiler.record_function(f"remat.{role}"):
                 return fn(*a)
 
-        return checkpoint(body, *args, use_reentrant=False)
+        # the blocks draw no random numbers: no RNG state to stash and
+        # restore (which would copy the card's generator state each block)
+        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
 
     return run
 

@@ -46,17 +46,19 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 
 
 def tree_unflatten(structure: Any, leaves: list) -> Any:
-    """A tree of ``structure``'s shape holding ``leaves`` (in JAX's order)."""
-    it = iter(leaves)
+    """A tree of ``structure``'s shape holding ``leaves`` (in JAX's order).
+    (A recursive closure here would be a reference cycle holding the
+    leaves' iterator: the leaves, a step's gradients, would outlive the
+    call until Python's cycle collector ran.)"""
+    return _build(structure, iter(leaves))
 
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return build(structure)
+def _build(node: Any, it) -> Any:
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def tree_from_numpy(tree: Any, device="cuda") -> Any:

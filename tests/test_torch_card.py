@@ -323,3 +323,93 @@ def test_reduced_train_step_on_card_matches_the_cpu():
     assert abs(loss - loss_c) <= 2e-4 * abs(loss) and abs(norm - norm_c) <= 2e-4 * norm
     for a, b in zip(p_cpu, p_card):
         assert (b - a).abs().max().item() <= 2e-4 + 2 * 1e-3
+
+
+#: the dry run's probes at yi-6b's published widths and one layer, cut to
+#: a few seconds: a train step (chunked attention under autograd), a
+#: prefill above the 2048-token threshold (flash) and a decode step
+DRY_CASES = {"train": (4096, 1, "train"), "prefill": (4096, 1, "prefill"),
+             "decode": (4096, 8, "decode")}
+
+
+def _dry_counts(kind: str, counter_cls=None):
+    """One counted step of the probe on the card and its trace on meta:
+    ``(card counter, meta counter, GEMM launches, flash launches, flash
+    FLOPs a launch)``."""
+    import collections
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.utils.op_costs import OpCounter
+
+    seq, batch, kind = DRY_CASES[kind]
+    cfg = dryrun._depth_variant(get_arch("yi-6b"), 1)
+    shape = ShapeSpec(kind, seq, batch, kind)
+    meta = dryrun.count_step(dryrun.make_cell(cfg, shape, "meta")["run"])
+    cell = dryrun.make_cell(cfg, shape, "cuda")
+    cell["run"]()
+    gemm.reset_launches()
+    fa.LAUNCHES.clear()
+    with (counter_cls or OpCounter)() as card:
+        cell["run"]()
+    torch.cuda.synchronize()
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    blocks, _ = ops.flash_blocks(seq, seq, hd, torch.bfloat16, grid_y=batch * h)
+    per_launch = fa.flash_work(batch, seq, seq, h, cfg.n_kv_heads, hd, *blocks, True, 2)[0]
+    return (card, meta, collections.Counter(gemm.LAUNCHES), collections.Counter(fa.LAUNCHES),
+            per_launch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", list(DRY_CASES))
+def test_meta_trace_counts_what_the_card_runs(kind):
+    """The step's counted FLOPs and bytes, by kind, are the same on the
+    card and on meta; the GEMM kernel's equal 2·M·K·N over its launches,
+    flash's its launches times its grid's work."""
+    _card()
+    card, meta, gemm_l, flash_l, per_launch = _dry_counts(kind)
+    assert (card.flops, card.bytes, card.by_kind) == (meta.flops, meta.bytes, meta.by_kind)
+    assert card.by_kind["gemm_kernel"]["flops"] == sum(
+        c * 2 * m * k * n for (m, k, n), c in gemm_l.items()) > 0
+    assert card.by_kind["flash_kernel"]["flops"] == per_launch * sum(flash_l.values())
+    assert bool(flash_l) == (kind == "prefill")
+
+
+@pytest.mark.gpu
+def test_count_check_refuses_a_counter_that_drops_dB():
+    from repro_torch.utils.op_costs import OpCounter
+
+    class DropsDB(OpCounter):
+        def add_kernel(self, kind, dims, flops, nbytes, out):
+            if getattr(gemm._ROLE, "name", "forward") != "dB":
+                super().add_kernel(kind, dims, flops, nbytes, out)
+
+    _card()
+    card, meta, gemm_l, _, _ = _dry_counts("train", DropsDB)
+    assert card.by_kind["gemm_kernel"]["flops"] < sum(
+        c * 2 * m * k * n for (m, k, n), c in gemm_l.items())
+    assert card.flops < meta.flops
+
+
+@pytest.mark.gpu
+def test_tune_and_run_kernel_example_runs_both_kernels_on_card():
+    """``examples_torch/tune_and_run_kernel.py`` at its default device:
+    both kernels launch under the tuned schedules and match their plain
+    versions within the example's f32 tolerances."""
+    import os
+    import subprocess
+    import sys
+
+    _card()
+    root = os.path.join(os.path.dirname(__file__), "..")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(os.path.join(root, "src")))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "examples_torch", "tune_and_run_kernel.py")],
+        capture_output=True, text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "dispatch 1 from the record, 1 kernel launches" in proc.stdout
+    assert "1 kernel launches)\nOK" in proc.stdout
+    assert proc.stdout.rstrip().endswith(
+        "OK: both tuned kernels match their plain versions on cuda")
