@@ -6,7 +6,9 @@ graph, the paper's tuners (N-A2C and its baselines) compared on the GEMM
 kernel, the tuner at scale (worker processes sharing the card, planted
 faults, sharded search, the learned filter and the audit), one model of
 every other family of the zoo served at full width, yi-6b trained at
-its published widths with the GEMM kernel in the backward pass, and the
+its published widths with the GEMM kernel in the backward pass (under
+remat ``full``, and under ``dots``, which saves every product), the
+paper's tuners head to head through ``TuningSession.compare``, and the
 single-card dry run: every (arch x shape) cell's roofline from a trace on
 the meta device, and yi-6b's steps counted on the card against it.
 
@@ -168,7 +170,33 @@ Phases (each prints its wall time):
      its roofline bound (the larger of ``compute_s`` and ``memory_s``),
      their ratio and the model-flops share, beside the card's name and
      power limit, and a ``[dryrun-record]`` JSON line with the cuts in
-     ``reduced``.
+     ``reduced``;
+ 16. remat ``dots`` and the head-to-head (run after phase 14, beside the
+     dry run's ``--all``, before phase 15 waits for it): (a) phase 14's
+     yi-6b (16 of 32 layers, its seed and data) three steps under remat
+     ``dots``, whose checkpoint keeps the GEMM operator's outputs
+     (``repro_torch::gemm``) and hands them back in the recompute, which
+     recomputes the rest: step 1's
+     loss equal to phase 14's within rtol 1e-5, no GEMM launch in the
+     blocks' recompute (the loss head's chunks, checkpointed under every
+     remat as in the JAX package, recompute as under ``full``), the
+     ``forward``/``dA``/``dB`` launches phase 14's shape by shape, step
+     seconds, tokens/s and peak beside phase 14's, one step traced, and
+     the three steps timed again under selective checkpointing
+     (``create_selective_checkpoint_contexts``, ``MUST_SAVE`` the
+     operator, ``mm`` and ``addmm``), which keeps the same products
+     through a dispatch mode that runs Python on every op; (b) phase
+     14(d)'s gradient check under ``dots``, the planted dB fault refused;
+     (c) mamba2-130m and zamba2-1.2b at published widths, one step of 2 x
+     2048 tokens each under ``full`` and ``dots``: the same loss and
+     gradients within ``GRAD_REL_LIMIT``, no launch in the blocks'
+     recompute under ``dots``; (d) ``TuningSession.compare`` of the
+     paper's four tuners (g-bfs, n-a2c, xgboost-like, rnn-controller)
+     at 512^3 float32 on the card, two seeds, 0.1 % of the space (484
+     trials) each, phase 11's protocol, every best re-timed beside the
+     state ``AnalyticalHopperCost(...).optimum()`` picks (a brute force
+     over the 484,000 states on the host): each result finite, launched
+     and within its budget.
 
 Launch counts of each path are zeroed just before it and read just after:
 the GEMM tuning path is phases 3-5, the flash tuning path phase 8, the
@@ -182,10 +210,13 @@ phase 13 (each family's engine through its first ``generate``), and
 phase 14 (yi-6b's three training steps, ``launches_train``, with its
 parts by launch role in ``launches_train_parts``; GEMM rows are added
 for the backward's shapes; the flash row says it is not on the
-training path), and phase 15 (the probes' counted steps,
+training path), phase 15 (the probes' counted steps,
 ``launches_dryrun``; GEMM rows are added for the decode probe's
 shapes, and a flash row for the prefill probe's S = 32768, which
-carries that probe's flash launches).  A
+carries that probe's flash launches), phase 16(a) (the three ``dots``
+steps, ``launches_dots``, by role in ``launches_dots_parts``) and phase
+16(d) (the head-to-head's search, its own row,
+``gemm[compare/512^3-f32]``).  A
 serve path's counts are zeroed before its engine's prewarm, which runs
 the decode loop once (the warm-up) and then captures it.  Host counts
 tick when a wrapper is called, so a capture counts the launches it
@@ -359,8 +390,21 @@ DRY_TIMED = {"train": 3, "prefill": 3, "decode": 10}
 #: its step would show here
 PEAK_RTOL = 0.02
 #: the dry run of the 40 cells, on meta in its own process, must end by
-#: then (it starts after phase 12 and runs beside phases 13-14)
+#: then (it starts after phase 12 and runs beside phases 13, 14 and 16)
 DRY_ALL_TIMEOUT_S = 900
+#: phase 16: remat ``dots`` on phase 14's yi-6b (its layers, seed and
+#: data), and one step of mamba2-130m and zamba2-1.2b at published widths
+#: under ``full`` and ``dots``; step 1's loss against phase 14's within
+#: the training loss limit (ROADMAP.md)
+DOTS_LAYERS = TRAIN_LAYERS
+DOTS_SSM, DOTS_SSM_BATCH, DOTS_SSM_SEQ = ("mamba2-130m", "zamba2-1.2b"), 2, 2048
+DOTS_LOSS_RTOL = 1e-5
+#: phase 16(d): ``TuningSession.compare`` of the paper's four tuners at
+#: 512^3 float32, two seeds, 0.1 % of the space (484 trials) each
+COMPARE_DIMS = (512, 512, 512)
+COMPARE_TUNERS = ("g-bfs", "n-a2c", "xgboost-like", "rnn-controller")
+COMPARE_SEEDS = 2
+COMPARE_FRACTION = 0.001
 
 
 def phase(name: str, t0: float) -> None:
@@ -1136,7 +1180,7 @@ def main() -> None:
     phase("12 the tuner at scale: process lanes, faults, shards, learned filter, audit", t0)
     work.cleanup()
     # phase 15(a) needs no card and minutes of one CPU core: start it beside
-    # phases 13-14, whose times are the card's, after the host-timed 11-12
+    # phases 13, 14 and 16, whose times are the card's, after the host-timed 11-12
     dry_dir = tempfile.TemporaryDirectory()
     dry = BackgroundDryRun(dry_dir.name)
 
@@ -1147,8 +1191,14 @@ def main() -> None:
     phase("13 every family served", t0)
 
     t0 = time.perf_counter()
-    train_yi6b(kernels, rand, flush, peak_ops, peak_bytes)
+    phase14 = train_yi6b(kernels, rand, flush, peak_ops, peak_bytes)
     phase("14 train yi-6b", t0)
+
+    # phase 16 runs beside the dry run's --all too, before phase 15 waits for it
+    t0 = time.perf_counter()
+    remat_dots(kernels, phase14)
+    head_to_head(kernels, rand, flush, peak_bytes)
+    phase("16 remat dots and the head-to-head", t0)
 
     t0 = time.perf_counter()
     dry_run_on_card(kernels, dry, rand, flush, hw, smi)
@@ -1804,7 +1854,7 @@ def serve_families(kernels: list) -> None:
         phase(f"13 {name}", t0)
 
 
-def train_yi6b(kernels: list, rand, flush, peak_ops: float, peak_bytes: float) -> None:
+def train_yi6b(kernels: list, rand, flush, peak_ops: float, peak_bytes: float) -> dict:
     """Phase 14: train yi-6b (16 of 32 layers, published widths, bf16,
     AdamW, remat full) on 2 x 4096 tokens a step through ``Trainer``.
     (a) three steps, the training path's counts zeroed before and read
@@ -1814,11 +1864,11 @@ def train_yi6b(kernels: list, rand, flush, peak_ops: float, peak_bytes: float) -
     against f32 gradients on the CPU, and a planted dB fault refused; (e)
     a reduced yi-6b resumed on the card from a step-2 checkpoint.  Adds
     ``launches_train`` to the kernel rows (GEMM rows for the backward
-    shapes too)."""
+    shapes too).  Returns what phase 16 holds its ``dots`` steps against:
+    the losses, the GEMM launches by role and shape, the mean step, the
+    peak, the traced step's busy and GEMM ms, each shape's kernel ms."""
     import dataclasses
     import gc
-
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get_arch
@@ -1902,41 +1952,7 @@ def train_yi6b(kernels: list, rand, flush, peak_ops: float, peak_bytes: float) -
               f"{ {r: roles[(r, dims)] for r in by_role if roles[(r, dims)]} }", flush=True)
 
     # -- (b) one more step, traced
-    before = collections.Counter(gemm_mod.ROLE_LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train(TRAIN_STEPS + 1)
-    step_roles = collections.Counter(gemm_mod.ROLE_LAUNCHES) - before
-    events = prof.events()
-    span = [ev.time_range for ev in events
-            if ev.name == "train.step" and ev.device_type == torch.autograd.DeviceType.CPU][-1]
-    device = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA]
-    ran = [ev for ev in device if not ev.name.startswith(RANGES)
-           and span.start <= ev.time_range.start < span.end]
-    busy = sum(ev.time_range.elapsed_us() for ev in ran) / 1e3
-    gemm_ms = sum(ev.time_range.elapsed_us() for ev in ran if "gemm_tiled" in ev.name) / 1e3
-    span_ms = (span.end - span.start) / 1e3
-
-    def annotated(name):
-        """Device time of the kernels inside the device-side annotations of
-        one range, or None where the trace has none."""
-        marks = [ev.time_range for ev in device if ev.name == name]
-        if not marks:
-            return None
-        return sum(ev.time_range.elapsed_us() for ev in ran
-                   if any(m.start <= ev.time_range.start < m.end for m in marks)) / 1e3
-
-    trace_parts = {name: annotated(name) for name in ("attn.chunked", "train.update",
-                                                      "train.clip", "remat.recompute")}
-    # the trace slows the host (it records every op), so the traced range
-    # is longer than an untraced step; idle is also given against the
-    # untraced steps' mean
-    print(f"[profile] train step {TRAIN_STEPS + 1}: range_ms={span_ms:.2f} "
-          f"device_busy_ms={busy:.2f} idle_share={1 - busy / span_ms:.4f} (against the "
-          f"untraced steps' {step_s * 1e3:.2f} ms: {1 - busy / (step_s * 1e3):.4f}) "
-          f"kernels_traced={len(ran)} gemm_ms={gemm_ms:.2f} ({gemm_ms / busy:.1%} of busy); "
-          f"inside the device annotations of the port's ranges: "
-          f"{ {k: (round(v, 2) if v is not None else 'not measured') for k, v in trace_parts.items()} }",
-          flush=True)
+    step_roles, busy, gemm_ms = trace_train_step(trainer, TRAIN_STEPS + 1, step_s)
     # the optimizer alone (clip and update), timed with CUDA events on the
     # trainer's own state, which the model's end makes free to change
     grads = tree_map(torch.zeros_like, trainer.params)
@@ -2033,27 +2049,391 @@ def train_yi6b(kernels: list, rand, flush, peak_ops: float, peak_bytes: float) -
     t0 = time.perf_counter()
     grad_rel, fault_rel = gradients_card_vs_cpu(get_arch("yi-6b"))
     print(f"[grad] yi-6b ({GRAD_LAYERS} layers, published widths) on 1 x {GRAD_SEQ} tokens: "
-          f"worst per-leaf relative L2 error, card bf16 vs CPU f32: {max(grad_rel.values()):.4g} "
+          f"worst per-leaf relative L2 error, card bf16 vs CPU f32: {worst(grad_rel):.4g} "
           f"(limit {GRAD_REL_LIMIT}); with dB computed from a transposed operand: "
           f"{max(fault_rel.values()):.4g} ({time.perf_counter() - t0:.1f}s)", flush=True)
     for path in sorted(grad_rel, key=grad_rel.get, reverse=True)[:6]:
         print(f"[grad] {path}: {grad_rel[path]:.4g} (fault {fault_rel[path]:.4g})")
-    if max(grad_rel.values()) > GRAD_REL_LIMIT:
+    if worst(grad_rel) > GRAD_REL_LIMIT:
         raise SystemExit(f"card and CPU gradients differ beyond {GRAD_REL_LIMIT}: {grad_rel}")
     if max(fault_rel.values()) <= GRAD_REL_LIMIT:
         raise SystemExit("the gradient limit did not refuse the planted dB fault")
 
     # -- (e) resume on the card
     resume_on_card(get_arch("yi-6b").reduced())
+    return {"losses": [r["loss"] for r in log], "roles": roles, "step_s": step_s,
+            "peak": peak, "busy": busy, "gemm_ms": gemm_ms, "kernel_ms": kernel_ms}
+
+
+def trace_train_step(trainer, step: int, step_s: float) -> tuple:
+    """Take training step ``step`` under ``torch.profiler`` and print its
+    device time: busy and idle share, the GEMM kernels', and the kernels'
+    inside the device annotations of the port's ranges.  Returns the
+    step's GEMM launches by role and shape, its busy and its GEMM ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import gemm as gemm_mod
+
+    before = collections.Counter(gemm_mod.ROLE_LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train(step)
+    step_roles = collections.Counter(gemm_mod.ROLE_LAUNCHES) - before
+    events = prof.events()
+    span = [ev.time_range for ev in events
+            if ev.name == "train.step" and ev.device_type == torch.autograd.DeviceType.CPU][-1]
+    device = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA]
+    ran = [ev for ev in device if not ev.name.startswith(RANGES)
+           and span.start <= ev.time_range.start < span.end]
+    busy = sum(ev.time_range.elapsed_us() for ev in ran) / 1e3
+    gemm_ms = sum(ev.time_range.elapsed_us() for ev in ran if "gemm_tiled" in ev.name) / 1e3
+    span_ms = (span.end - span.start) / 1e3
+
+    def annotated(name):
+        """Device time of the kernels inside the device-side annotations of
+        one range, or None where the trace has none."""
+        marks = [ev.time_range for ev in device if ev.name == name]
+        if not marks:
+            return None
+        return sum(ev.time_range.elapsed_us() for ev in ran
+                   if any(m.start <= ev.time_range.start < m.end for m in marks)) / 1e3
+
+    trace_parts = {name: annotated(name) for name in ("attn.chunked", "train.update",
+                                                      "train.clip", "remat.recompute")}
+    # the trace slows the host (it records every op), so the traced range
+    # is longer than an untraced step; idle is also given against the
+    # untraced steps' mean
+    print(f"[profile] train step {step}: range_ms={span_ms:.2f} "
+          f"device_busy_ms={busy:.2f} idle_share={1 - busy / span_ms:.4f} (against the "
+          f"untraced steps' {step_s * 1e3:.2f} ms: {1 - busy / (step_s * 1e3):.4f}) "
+          f"kernels_traced={len(ran)} gemm_ms={gemm_ms:.2f} ({gemm_ms / busy:.1%} of busy); "
+          f"inside the device annotations of the port's ranges: "
+          f"{ {k: (round(v, 2) if v is not None else 'not measured') for k, v in trace_parts.items()} }",
+          flush=True)
+    return step_roles, busy, gemm_ms
+
+
+def remat_dots(kernels: list, phase14: dict) -> None:
+    """Phase 16(a)-(c): remat ``dots`` on the card.  (a) phase 14's yi-6b
+    (its layers, seed and data) three steps under ``dots`` through
+    ``Trainer``, the counts zeroed before and read after them: step 1's
+    loss against phase 14's, no GEMM launch in the blocks' recompute (the
+    loss head's chunks are checkpointed under every remat, as in the JAX
+    package, and recompute as under ``full``), the forward, dA and dB
+    launches phase 14's by shape; then one step traced, and the three
+    steps again under selective checkpointing (a dispatch-mode policy
+    keeping the same products), the design ``dots`` does not use.  (b)
+    phase 14(d)'s gradient check under ``dots``.  (c) mamba2-130m and
+    zamba2-1.2b at published widths, one step each under ``full`` and
+    under ``dots``: the same gradients, no launch in the blocks'
+    recompute under ``dots``.  Adds ``launches_dots`` (and its parts by
+    role) to the GEMM rows of (a)'s shapes."""
+    import dataclasses
+    import functools
+    import gc
+
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataPipeline, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.api import Model
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.utils.tree import tree_paths
+
+    def by_role(counter) -> collections.Counter:
+        out = collections.Counter()
+        for (role, _), n in counter.items():
+            out[role] += n
+        return out
+
+    def block_recompute(counter, vocab: int) -> int:
+        """Recompute launches but the loss head's: its chunks are
+        checkpointed under every remat (the JAX package's ``@jax.checkpoint``
+        on its streaming loss), so they run again under ``dots`` too."""
+        return sum(n for (role, (_, _, n_out)), n in counter.items()
+                   if role == "recompute" and n_out != vocab)
+
+    # -- (a) the training path under dots: counts zeroed here, read after step 3
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=DOTS_LAYERS, remat="dots")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_dispatch_stats()
+    gemm_mod.reset_launches()
+    fa.LAUNCHES.clear()
+    pipe = DataPipeline(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, seed=0), TRAIN_BATCH)
+    trainer = Trainer(cfg, pipe, None, lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS + 1,
+                      device="cuda")
+    trainer.initialize(resume=False)
+    log = trainer.train(TRAIN_STEPS)
+    roles = collections.Counter(gemm_mod.ROLE_LAUNCHES)
+    flash_launched = sum(fa.LAUNCHES.values())
+    peak = torch.cuda.max_memory_allocated()
+    for rec, full_loss in zip(log, phase14["losses"]):
+        print(f"[dots] step {rec['step']}: loss={rec['loss']:.6f} (remat full: {full_loss:.6f}) "
+              f"grad_norm={rec['grad_norm']:.6f} step_s={rec['step_time_s']:.4f}", flush=True)
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+            raise SystemExit(f"dots step {rec['step']}: loss or grad_norm not finite: {rec}")
+    step_s = sum(r["step_time_s"] for r in log[1:]) / (len(log) - 1)
+    print(f"[dots] yi-6b ({DOTS_LAYERS} of 32 layers, bf16, {cfg.optimizer}, remat dots), "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: step_s={step_s:.4f} (mean of steps "
+          f"2-{TRAIN_STEPS}) tok_s={tokens / step_s:.1f} peak_gb={peak / 1e9:.2f}; remat full "
+          f"(phase 14): step_s={phase14['step_s']:.4f} peak_gb={phase14['peak'] / 1e9:.2f}; "
+          f"dots/full step {step_s / phase14['step_s']:.4f}, peak +"
+          f"{(peak - phase14['peak']) / 1e9:.2f} GB ({time.perf_counter() - t0:.1f}s)",
+          flush=True)
+    parts, full_parts = by_role(roles), by_role(phase14["roles"])
+    print(f"[dots] GEMM launches over {TRAIN_STEPS} steps: {dict(parts)} (remat full: "
+          f"{dict(full_parts)}); flash kernel launches={flash_launched}", flush=True)
+    shapes = sorted({dims for _, dims in roles})
+    for dims in shapes:
+        print(f"[dots] GEMM launches at {dims}: "
+              f"{ {r: roles[(r, dims)] for r in parts if roles[(r, dims)]} }", flush=True)
+    a, b = phase14["losses"][0], log[0]["loss"]
+    if not abs(a - b) <= DOTS_LOSS_RTOL * abs(a):
+        raise SystemExit(f"step 1's loss under dots {b!r} is not remat full's {a!r} "
+                         f"(rtol {DOTS_LOSS_RTOL})")
+    head = {(r, d): n for (r, d), n in roles.items() if r == "recompute"}
+    if block_recompute(roles, cfg.padded_vocab):
+        raise SystemExit(f"the GEMM kernel launched in the blocks' recompute under dots: "
+                         f"{head}")
+    full_head = {(r, d): n for (r, d), n in phase14["roles"].items()
+                 if r == "recompute" and d[2] == cfg.padded_vocab}
+    if head != full_head:
+        raise SystemExit(f"the loss head recomputed {head} under dots, {full_head} under full")
+    print(f"[dots] recompute launches: none in the blocks; the loss head's chunks "
+          f"{sum(head.values())} (checkpointed under every remat, as in the JAX package; "
+          f"remat full: {sum(full_head.values())})", flush=True)
+    for role in ("forward", "dA", "dB"):
+        got = {d: n for (r, d), n in roles.items() if r == role}
+        want = {d: n for (r, d), n in phase14["roles"].items() if r == role}
+        if got != want:
+            raise SystemExit(f"dots launched the GEMM kernel as {role} at {got}, remat full "
+                             f"at {want}")
+    if flash_launched:
+        raise SystemExit(f"flash launched {flash_launched} times in training")
+    step_roles, busy, gemm_ms = trace_train_step(trainer, TRAIN_STEPS + 1, step_s)
+    est = {role: sum(step_roles[(role, d)] * phase14["kernel_ms"][d] for d in shapes)
+           for role in ("forward", "recompute", "dA", "dB")}
+    print(f"[profile] dots step {TRAIN_STEPS + 1}: device busy {busy:.2f} ms (remat full, "
+          f"phase 14: {phase14['busy']:.2f}), GEMM kernel {gemm_ms:.2f} (full: "
+          f"{phase14['gemm_ms']:.2f}); from one step's launch counts x phase 14's spun times "
+          f"a shape: { {r: round(t, 2) for r, t in est.items()} }", flush=True)
+    rows = {tuple(r["shape"]): r for r in kernels if r.get("shape")}
+    for dims in shapes:
+        row = rows.get(dims)
+        if row is None:
+            raise SystemExit(f"dots launched the GEMM kernel at {dims}, a shape phase 14 did not")
+        row["launches_dots_parts"] = {r: roles[(r, dims)] for r in ("forward", "recompute",
+                                                                    "dA", "dB")}
+        row["launches_dots"] = sum(row["launches_dots_parts"].values())
+        row["launches"] += row["launches_dots"]
+    for row in kernels:
+        row.setdefault("launches_dots", 0)
+    del trainer, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same steps under selective checkpointing, the design dots does
+    # not use: a dispatch mode that keeps the same products (MUST_SAVE for
+    # the operator, mm and addmm) but runs Python on every op
+    def keep_2d(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in (
+            torch.ops.repro_torch.gemm.default, torch.ops.aten.mm.default,
+            torch.ops.aten.addmm.default) else CheckpointPolicy.PREFER_RECOMPUTE
+
+    gemm_mod.reset_launches()
+    kept = tf._kept_product_frames
+    tf._kept_product_frames = functools.partial(create_selective_checkpoint_contexts, keep_2d)
+    try:
+        trainer = Trainer(cfg, DataPipeline(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, seed=0),
+                                            TRAIN_BATCH),
+                          None, lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS + 1,
+                          device="cuda")
+        sac_log = trainer.train(TRAIN_STEPS)
+    finally:
+        tf._kept_product_frames = kept
+    sac_s = sum(r["step_time_s"] for r in sac_log[1:]) / (len(sac_log) - 1)
+    sac_again = block_recompute(gemm_mod.ROLE_LAUNCHES, cfg.padded_vocab)
+    print(f"[dots-sac] the same {TRAIN_STEPS} steps under selective checkpointing "
+          f"(create_selective_checkpoint_contexts, MUST_SAVE the operator, mm, addmm): "
+          f"step_s={sac_s:.4f} against dots' {step_s:.4f} and full's {phase14['step_s']:.4f}; "
+          f"losses {[round(r['loss'], 6) for r in sac_log]}; blocks' recompute launches "
+          f"{sac_again}", flush=True)
+    if sac_again or abs(sac_log[0]["loss"] - log[0]["loss"]) > DOTS_LOSS_RTOL * abs(a):
+        raise SystemExit("selective checkpointing kept other products than dots")
+    del trainer, sac_log
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) phase 14(d)'s gradients under dots, against the CPU's f32
+    t0 = time.perf_counter()
+    gemm_mod.reset_launches()
+    grad_rel, fault_rel = gradients_card_vs_cpu(dataclasses.replace(get_arch("yi-6b"),
+                                                                    remat="dots"))
+    again = block_recompute(gemm_mod.ROLE_LAUNCHES, get_arch("yi-6b").padded_vocab)
+    print(f"[dots-grad] yi-6b ({GRAD_LAYERS} layers, published widths, remat dots) on 1 x "
+          f"{GRAD_SEQ} tokens: worst per-leaf relative L2 error, card bf16 vs CPU f32: "
+          f"{worst(grad_rel):.4g} (limit {GRAD_REL_LIMIT}); with dB computed from a "
+          f"transposed operand: {max(fault_rel.values()):.4g}; the blocks' recompute "
+          f"launches {again} ({time.perf_counter() - t0:.1f}s)", flush=True)
+    if worst(grad_rel) > GRAD_REL_LIMIT or again:
+        raise SystemExit(f"dots gradients on the card: {grad_rel}, recompute launches {again}")
+    if max(fault_rel.values()) <= GRAD_REL_LIMIT:
+        raise SystemExit("the gradient limit did not refuse the planted dB fault under dots")
+
+    # -- (c) the SSM and the hybrid at published widths, full against dots
+    for name in DOTS_SSM:
+        t0 = time.perf_counter()
+        arch = get_arch(name)
+        params = Model(arch, device="cuda").init_params(seed=1)
+        data = SyntheticLM(arch.vocab_size, DOTS_SSM_SEQ, seed=2)
+        toks, labs = zip(*(data.sample(i) for i in range(DOTS_SSM_BATCH)))
+        batch = {"tokens": torch.from_numpy(np.stack(toks)).long().cuda(),
+                 "labels": torch.from_numpy(np.stack(labs)).long().cuda()}
+        got = {}
+        for remat in ("full", "dots"):
+            gemm_mod.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            model = Model(dataclasses.replace(arch, remat=remat), device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            grads, metrics = value_and_grad(model, params, batch)
+            torch.cuda.synchronize()
+            step = time.perf_counter() - t1
+            parts = by_role(gemm_mod.ROLE_LAUNCHES)
+            parts["recompute_blocks"] = block_recompute(gemm_mod.ROLE_LAUNCHES,
+                                                        arch.padded_vocab)
+            got[remat] = (dict(tree_paths(grads)), float(metrics["loss"]), parts)
+            print(f"[dots-ssm] {name} ({arch.n_layers} layers, published widths, bf16) "
+                  f"{DOTS_SSM_BATCH} x {DOTS_SSM_SEQ} tokens, remat {remat}: "
+                  f"loss={got[remat][1]:.6f} step_s={step:.4f} (one step, the first of its "
+                  f"model) peak_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} GEMM launches "
+                  f"{dict(parts)}", flush=True)
+        (g_full, l_full, p_full), (g_dots, l_dots, p_dots) = got["full"], got["dots"]
+        rel = {path: ((g_dots[path].float() - g.float()).norm()
+                      / g.float().norm().clamp(min=1e-30)).item() for path, g in g_full.items()}
+        print(f"[dots-ssm] {name}: worst per-leaf relative L2 error, dots vs full: "
+              f"{worst(rel):.4g} (limit {GRAD_REL_LIMIT}) "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        if (worst(rel) > GRAD_REL_LIMIT or p_dots["recompute_blocks"]
+                or not p_full["recompute_blocks"]):
+            raise SystemExit(f"{name}: dots against full: gradients {rel}, the blocks' "
+                             f"recompute launches dots {p_dots['recompute_blocks']} full "
+                             f"{p_full['recompute_blocks']}")
+        if not abs(l_full - l_dots) <= DOTS_LOSS_RTOL * abs(l_full):
+            raise SystemExit(f"{name}: loss under dots {l_dots!r}, under full {l_full!r}")
+        del params, got, g_full, g_dots, grads, model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def head_to_head(kernels: list, rand, flush, peak_bytes: float) -> None:
+    """Phase 16(d): ``TuningSession.compare`` on the card, phase 11's
+    protocol (the SIMT kernel, times measured on the card, ``analyze=
+    "prune"``, the session's warm start) at 512^3 float32: the paper's
+    four tuners, two seeds, 0.1 % of the space each; every best re-timed
+    (20 spun launches, L2 flushed) beside the state the analytical H100
+    model's ``optimum()`` picks, brute-forced over the space on the
+    host.  Adds the ``gemm[compare/512^3-f32]`` row."""
+    from repro_torch.core import (AnalyticalHopperCost, Budget, GemmConfigSpace, GemmWorkload,
+                                  TuningRecords, TuningSession)
+    from repro_torch.kernels.gemm import LAUNCHES, gemm_plain, gemm_tiled, kernel_config_from_state
+
+    m, k, n = COMPARE_DIMS
+    # the search: counts zeroed here, read after it
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    session = TuningSession(TuningRecords(), verbose=False, device="cuda")
+    wl = GemmWorkload(m, k, n, dtype="float32", label="compare/512^3-f32")
+    budget = Budget(max_fraction=COMPARE_FRACTION)
+    results = session.compare(wl, COMPARE_TUNERS, budget, n_seeds=COMPARE_SEEDS,
+                              warm_start=True, analyze="prune")
+    launched = sum(LAUNCHES.values())
+    search_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    space = GemmConfigSpace(m, k, n)
+    model = AnalyticalHopperCost(space, dtype="float32")
+    opt_state, opt_cost = model.optimum()
+    optimum_s = time.perf_counter() - t0
+    cap = budget.resolve_trials(space.size())
+    a, b = rand((m, k), torch.float32), rand((k, n), torch.float32)
+    opt_cfg = kernel_config_from_state(opt_state)
+    worst_err = check_close(f"[compare] the model's optimum {opt_cfg}", gemm_tiled(a, b, opt_cfg),
+                            gemm_plain(a, b, opt_cfg), torch.float32)
+    opt_ms = timed_ms(lambda: gemm_tiled(a, b, opt_cfg), 20, flush, spin=True)
+    print(f"[compare] AnalyticalHopperCost(GemmConfigSpace{COMPARE_DIMS}, float32).optimum() "
+          f"over {space.size()} states in {optimum_s:.1f}s on the host: {opt_state.as_lists()} "
+          f"({opt_cfg}) model_ms={opt_cost * 1e3:.4f} {model.breakdown(opt_state)}; on the card "
+          f"{opt_ms:.4f} ms (20 launches, spun)", flush=True)
+    best_ms = {}
+    for name, runs in results.items():
+        for seed, res in enumerate(runs):
+            if res.n_trials > cap or res.best_state is None or not math.isfinite(res.best_cost):
+                raise SystemExit(f"[compare] {name} seed {seed}: {res.n_trials} trials of {cap}, "
+                                 f"best {res.best_cost}")
+            cfg = kernel_config_from_state(res.best_state)
+            err = check_close(f"[compare] {name} seed {seed} best {cfg}", gemm_tiled(a, b, cfg),
+                              gemm_plain(a, b, cfg), torch.float32)
+            worst_err = max(worst_err, err)
+            best_ms[name, seed] = timed_ms(lambda: gemm_tiled(a, b, cfg), 20, flush, spin=True)
+            n_fin = sum(math.isfinite(t.cost) for t in res.trials)
+            found = next(i for i, t in enumerate(res.trials) if t.cost == res.best_cost) + 1
+            print(f"[compare] tuner={name} seed={session.seed + seed} trials={res.n_trials} "
+                  f"launchable={n_fin} best_ms={best_ms[name, seed]:.4f} "
+                  f"measured_ms={res.best_cost * 1e3:.4f} found_at={found} "
+                  f"vs_model_optimum={best_ms[name, seed] / opt_ms:.4f} wall_s={res.wall_s:.2f} "
+                  f"config={cfg} max_abs_err={err}", flush=True)
+    for name in results:
+        ms = [best_ms[name, s] for s in range(COMPARE_SEEDS)]
+        print(f"[compare] {name}: best_ms over seeds {[round(x, 4) for x in ms]} mean "
+              f"{sum(ms) / len(ms):.4f}, vs the model's optimum {min(ms) / opt_ms:.4f} (best) "
+              f"{sum(ms) / len(ms) / opt_ms:.4f} (mean)", flush=True)
+    if not launched:
+        raise SystemExit("the head-to-head never launched the GEMM kernel")
+    fastest = min(best_ms, key=best_ms.get)
+    cfg = kernel_config_from_state(results[fastest[0]][fastest[1]].best_state)
+    ms_unspun = timed_ms(lambda: gemm_tiled(a, b, cfg), 20, flush)
+    plain_ms = timed_ms(lambda: gemm_plain(a, b, cfg), 1, flush)
+    lib_ms = timed_ms(lambda: torch.matmul(a, b), 20, flush, spin=True)
+    lib_unspun = timed_ms(lambda: torch.matmul(a, b), 20, flush)
+    flops, nbytes = 2 * m * k * n, 4 * (m * k + k * n + m * n)
+    bound_ms = 1e3 * max(flops / FP32_PEAK, nbytes / peak_bytes)
+    print(f"[compare] search {search_s:.1f}s, {launched} kernel launches; fastest "
+          f"{fastest[0]} (seed {session.seed + fastest[1]}) {best_ms[fastest]:.4f} ms spun, "
+          f"{ms_unspun:.4f} unspun; torch.matmul f32 (no TF32) {lib_ms:.4f} spun; "
+          f"bound_ms={bound_ms:.4f}", flush=True)
+    kernels.append({
+        "name": "gemm[compare/512^3-f32]", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gemm.cu",
+        "replaces": "src/repro/kernels/gemm.py:96", "shape": list(COMPARE_DIMS),
+        "launches_tune": launched, "launches_serve": 0, "launches_dots": 0,
+        "launches": launched, "max_abs_err": worst_err, "ms": ms_unspun, "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if flops / FP32_PEAK >= nbytes / peak_bytes else "bytes",
+        "library_ms": lib_unspun, "ms_spin": best_ms[fastest], "library_ms_spin": lib_ms,
+        "model_optimum_ms_spin": opt_ms,
+    })
+    del a, b
+
+
+def worst(rel: dict) -> float:
+    """The largest of per-leaf errors, ``inf`` if any is not finite (a NaN
+    would pass any comparison with a limit)."""
+    return max(v if math.isfinite(v) else math.inf for v in rel.values())
 
 
 def gradients_card_vs_cpu(arch) -> tuple[dict, dict]:
     """Phase 14(d): the same weights (bf16, from a seeded generator) and
     batch through ``value_and_grad`` on the card (bf16, the kernels) and
     on the CPU (f32, the plain versions); then on the card again with
-    ``_Gemm.backward`` computing dB from A's buffer read as if it were
-    transposed.  Returns each leaf's relative L2 error, without and with
-    the fault."""
+    the GEMM operator's backward (``ops._gemm_backward``) computing dB
+    from A's buffer read as if it were transposed.  Returns each leaf's
+    relative L2 error, without and with the fault."""
     import dataclasses
 
     from repro_torch.data.pipeline import SyntheticLM
@@ -2083,24 +2463,25 @@ def gradients_card_vs_cpu(arch) -> tuple[dict, dict]:
         return out
 
     clean = rel_errors()
-    real = ops._Gemm.__dict__["backward"]
+    real = ops._gemm_backward
 
     def transposed_db(ctx, g):
         a, b = ctx.saved_tensors
         g = g.contiguous()
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = ops._dispatch(g, b.t().contiguous()).to(a.dtype)
+            da = torch.ops.repro_torch.gemm(g, b.t().contiguous()).to(a.dtype)
         if ctx.needs_input_grad[1]:
             # the fault: A's buffer read with its dims swapped, no transpose
-            db = ops._dispatch(a.contiguous().view(a.shape[1], a.shape[0]), g).to(b.dtype)
+            db = torch.ops.repro_torch.gemm(a.contiguous().view(a.shape[1], a.shape[0]),
+                                            g).to(b.dtype)
         return da, db, None
 
-    ops._Gemm.backward = staticmethod(transposed_db)
+    ops._gemm_backward = transposed_db
     try:
         faulty = rel_errors()
     finally:
-        ops._Gemm.backward = real
+        ops._gemm_backward = real
     return clean, faulty
 
 
@@ -2330,7 +2711,7 @@ def dry_run_on_card(kernels: list, dry: BackgroundDryRun, rand, flush, hw, smi: 
     status = collections.Counter(r["status"] for r in recs)
     print(dryrun.table(recs), flush=True)
     print(f"[dryrun] --all on meta: {len(recs)} records ({dict(status)}), exit {rc}, wall "
-          f"{wall:.1f}s (one process beside phases 13-14); H100 terms: "
+          f"{wall:.1f}s (one process beside phases 13, 14 and 16); H100 terms: "
           f"{dataclasses.asdict(hw)}", flush=True)
     if rc != 0 or status["error"] or len(recs) != 40 or status["ok"] != 32:
         raise SystemExit(f"the dry run of every cell failed (exit {rc}):\n{log[-3000:]}")

@@ -13,7 +13,7 @@ Public surface:
   learn.*  (RankingCostModel / ProposalFilter) — journal-trained cost models
   tuners.*                                — G-BFS, N-A2C and the paper's baselines
   TuneCheckpointer / TuneInterrupted      — crash-safe snapshots and resume
-  TuningSession / Workload                — orchestration
+  TuningSession / Workload (GemmWorkload) — orchestration
   TuningRecords / TrialJournal            — persisted best configs and trials
 """
 
@@ -71,7 +71,7 @@ from .records import (
     set_global_records,
     workload_key_for,
 )
-from .session import ArchTuneReport, TuningSession, Workload
+from .session import ArchTuneReport, GemmWorkload, TuningSession, Workload
 from .shard import (
     ShardSpec,
     await_markers,
@@ -119,7 +119,7 @@ __all__ = [
     "OPS", "OpSpec", "get_op", "op_names", "register_op",
     "TrialJournal", "TuningRecords", "global_records",
     "parse_workload_key_generic", "set_global_records", "workload_key_for",
-    "ArchTuneReport", "TuningSession", "Workload",
+    "ArchTuneReport", "GemmWorkload", "TuningSession", "Workload",
     "FactoredSearchSpace", "SearchSpace", "State", "state_from_lists",
     "TuneCheckpointer", "TuneInterrupted",
     "TUNERS", "Budget", "Trial", "TuneResult", "Tuner", "GBFSTuner", "NA2CTuner",

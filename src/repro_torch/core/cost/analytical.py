@@ -50,7 +50,7 @@ from ..analysis import (
 from ..space import State
 from .base import CostBackend, lognormal_noise, space_from_spec, space_spec
 
-__all__ = ["AnalyticalHopperCost"]
+__all__ = ["AnalyticalHopperCost", "brute_force_optimum"]
 
 #: H100 SXM data sheet: non-tensor f32 FMA rate, dense bf16 tensor-core
 #: rate and HBM3 bandwidth
@@ -97,12 +97,49 @@ class AnalyticalHopperCost(CostBackend):
             return base
         return float(base * lognormal_noise(self.seed, s.key(), repeat_idx, self.noise_sigma))
 
+    # -- the model's terms ------------------------------------------------------
+    def compute_time(self, s: State) -> float:
+        """Seconds of the kernel's operations (0 for the bandwidth kernel,
+        which the model holds to its bytes alone)."""
+        return self._terms(s)[0]
+
+    def memory_time(self, s: State) -> float:
+        """Seconds of the bytes it moves: the ``wgmma`` kernel's the larger
+        of its L2 operand copies and its unique bytes from memory."""
+        return self._terms(s)[1]
+
+    def overhead_time(self, s: State) -> float:
+        """Seconds charged beside the two: none (the H100 model has no
+        per-grid-step cost)."""
+        return self._terms(s)[2]
+
+    def breakdown(self, s: State) -> dict:
+        compute, memory, overhead = self._terms(s)
+        return {
+            "smem_bytes": self.space.working_set_bytes(s, self.in_bytes),
+            "kernel": gemm_kernel_kind(s.block_m, self.in_bytes),
+            "compute_s": compute,
+            "memory_s": memory,
+            "overhead_s": overhead,
+        }
+
+    def optimum(self, max_states: int = 2_000_000) -> tuple[State, float]:
+        """Brute-force the space (small spaces, tests, and the paper's 512^3)."""
+        return brute_force_optimum(self, max_states)
+
     def _base_cost(self, s: State) -> float:
+        compute, memory, overhead = self._terms(s)
+        return max(compute, memory) + overhead
+
+    def _terms(self, s: State) -> tuple[float, float, float]:
+        """``(compute, memory, overhead)`` seconds of the kernel that runs
+        ``s`` (a state it launches); the cost is the larger of the first two
+        plus the third."""
         kind = gemm_kernel_kind(s.block_m, self.in_bytes)
         if kind == "wgmma":
-            return self._wgmma_cost(s)
+            return self._wgmma_terms(s)
         if kind == "stream":
-            return self._stream_cost(s)
+            return 0.0, self._stream_time(s), 0.0
         m, k, n = self.space.dims
         m0, _, n0 = s.grid
         rm, rn = s.reg_m, s.reg_n
@@ -113,7 +150,7 @@ class AnalyticalHopperCost(CostBackend):
         fma_share = rm * rn / (rm * rn + rm + rn)
         t_compute = 2.0 * m * k * n / (_F32_FLOPS * fma_share * fill)
         traffic = (m * k * n0 + k * n * m0 + m * n) * self.in_bytes
-        return max(t_compute, traffic / _HBM_BYTES_S)
+        return t_compute, traffic / _HBM_BYTES_S, 0.0
 
     def _fill(self, ctas: int, per_sm: int) -> float:
         """How full the waves of ``ctas`` CTAs leave the SMs, at
@@ -121,7 +158,7 @@ class AnalyticalHopperCost(CostBackend):
         slots = per_sm * self.spec.num_sms
         return ctas / (math.ceil(ctas / slots) * slots)
 
-    def _wgmma_cost(self, s: State) -> float:
+    def _wgmma_terms(self, s: State) -> tuple[float, float, float]:
         m, k, n = self.space.dims
         m0, _, n0 = s.grid
         bk = s.block_k
@@ -134,9 +171,9 @@ class AnalyticalHopperCost(CostBackend):
         t_compute = 2.0 * m * k * n / (rate * self._fill(m0 * n0, per_sm))
         t_l2 = (m * k * n0 + k * n * m0) * 2 / _L2_BYTES_S
         t_hbm = (m * k + k * n + m * n) * 2 / _HBM_BYTES_S
-        return max(t_compute, t_l2, t_hbm)
+        return t_compute, max(t_l2, t_hbm), 0.0
 
-    def _stream_cost(self, s: State) -> float:
+    def _stream_time(self, s: State) -> float:
         m, k, n = self.space.dims
         m0, _, n0 = s.grid
         bk, bn = s.block_k, s.block_n
@@ -160,6 +197,22 @@ class AnalyticalHopperCost(CostBackend):
 
     def worker_spec(self):
         return analytical_worker_spec(self)
+
+
+def brute_force_optimum(backend: CostBackend, max_states: int) -> tuple[State, float]:
+    """The cheapest state of ``backend``'s space and its cost, over every
+    state (``cost``, so ``inf`` where the kernel cannot launch); refuses a
+    space of more than ``max_states`` states."""
+    if backend.space.size() > max_states:
+        raise ValueError("space too large to brute force")
+    best_s, best_c = None, math.inf
+    for s in backend.space.enumerate():
+        c = backend.cost(s)
+        if c < best_c:
+            best_s, best_c = s, c
+    if best_s is None:
+        raise ValueError("no state of the space is launchable")
+    return best_s, best_c
 
 
 def noise_part(backend) -> str:

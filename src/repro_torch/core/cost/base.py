@@ -180,6 +180,10 @@ class CountingCost(CostBackend):
             out.extend(costs)
         return out
 
+    def fraction_explored(self) -> float:
+        """Measurements so far over the space's size."""
+        return self.n_measured / max(1, self.space.size())
+
 
 def _sleeping_from_spec(
     inner: tuple[str, dict],

@@ -104,7 +104,43 @@ class FlashAnalyticalHopperCost(CostBackend):
             return base
         return float(base * lognormal_noise(self.seed, s.key(), repeat_idx, self.noise_sigma))
 
+    # -- the model's terms ------------------------------------------------------
+    def compute_time(self, s: FlashScheduleState) -> float:
+        """Seconds of the products and exponentials over every visit."""
+        return self._terms(s)[0]
+
+    def memory_time(self, s: FlashScheduleState) -> float:
+        """Seconds of Q and O once and a K and a V tile a visit."""
+        return self._terms(s)[1]
+
+    def overhead_time(self, s: FlashScheduleState) -> float:
+        """Seconds of the block-wide barriers of one CTA's visits."""
+        return self._terms(s)[2]
+
+    def breakdown(self, s: FlashScheduleState) -> dict:
+        compute, memory, overhead = self._terms(s)
+        return {
+            "smem_bytes": self.space.working_set_bytes(s, self.in_bytes),
+            "kernel": "wgmma" if self.in_bytes == 2 else "simt",
+            "kv_visits": self.kv_visits(s),
+            "compute_s": compute,
+            "memory_s": memory,
+            "overhead_s": overhead,
+        }
+
+    def optimum(self, max_states: int = 2_000_000) -> tuple[FlashScheduleState, float]:
+        """Brute-force the space (flash spaces are small)."""
+        from .analytical import brute_force_optimum
+
+        return brute_force_optimum(self, max_states)
+
     def _base_cost(self, s: FlashScheduleState) -> float:
+        compute, memory, overhead = self._terms(s)
+        return max(compute, memory) + overhead
+
+    def _terms(self, s: FlashScheduleState) -> tuple[float, float, float]:
+        """``(compute, memory, overhead)`` seconds of a state the kernel
+        launches; the cost is the larger of the first two plus the third."""
         sp = self.space
         bq, bkv, hd = s.block_q, s.block_kv, sp.head_dim
         heads = sp.heads
@@ -131,7 +167,7 @@ class FlashAnalyticalHopperCost(CostBackend):
             + visits * 2 * bkv * hd  # a K and a V tile per visit
         ) * self.in_bytes
         t_overhead = barriers * _BARRIER_S * self.kv_visits(s) / s.n_q_blocks
-        return max(t_compute, traffic / _HBM_BYTES_S) + t_overhead
+        return t_compute, traffic / _HBM_BYTES_S, t_overhead
 
     def measure_fingerprint(self) -> str:
         # the bf16 model is of the tensor-core kernel: costs of the CUDA-core

@@ -166,6 +166,11 @@ class TuningRecords:
         except KeyError:  # op's space module not available here
             return None
 
+    def best_cost(self, key: str) -> float:
+        """The recorded best cost of ``key``, or ``inf`` without a record."""
+        rec = self.lookup(key)
+        return rec["cost"] if rec else math.inf
+
     def __len__(self) -> int:
         return len(self._data)
 
@@ -351,6 +356,14 @@ class TrialJournal:
             return None
         return self._costs.get(workload, {}).get(state_key)
 
+    def n_trials(self, workload: str) -> int:
+        """Distinct states journaled for ``workload``."""
+        return len(self._costs.get(workload, ()))
+
+    def workloads(self) -> Iterable[str]:
+        """The journaled workload keys."""
+        return self._costs.keys()
+
     def __len__(self) -> int:
         return sum(len(d) for d in self._costs.values())
 
@@ -395,6 +408,19 @@ class TrialJournal:
             if d is not None and d < best_d:
                 best_key, best_d = key, d
         return best_key
+
+    def nearest_workload(
+        self,
+        m: int,
+        k: int,
+        n: int,
+        dtype: Optional[str] = None,
+        backend: Optional[str] = None,
+        exclude: Optional[str] = None,
+    ) -> Optional[str]:
+        """The GEMM spelling of :meth:`nearest` (the JAX package's name)."""
+        return self.nearest("gemm", (m, k, n), dtype=dtype, backend=backend,
+                            exclude=exclude)
 
     # -- write -----------------------------------------------------------------
     def _ingest(self, workload: str, state_key: str, state_lists: list,

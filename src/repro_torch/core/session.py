@@ -71,7 +71,7 @@ from .space import SearchSpace, State
 from .tuners import TUNERS, Budget, Trial, TuneResult
 from .tuners.base import decode_cost, encode_cost
 
-__all__ = ["Workload", "TuningSession", "ArchTuneReport"]
+__all__ = ["Workload", "GemmWorkload", "TuningSession", "ArchTuneReport"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +100,31 @@ class Workload:
 
             object.__setattr__(self, "depths", get_op(self.op).default_depths)
 
+    # -- GEMM-era accessors (kept so shape-listing code reads naturally) -----
+    @property
+    def m(self) -> int:
+        return self.dims[0]
+
+    @property
+    def k(self) -> int:
+        return self.dims[1]
+
+    @property
+    def n(self) -> int:
+        return self.dims[2]
+
+    @property
+    def d_m(self) -> int:
+        return self.depths[0]
+
+    @property
+    def d_k(self) -> int:
+        return self.depths[1]
+
+    @property
+    def d_n(self) -> int:
+        return self.depths[2]
+
     def space(self) -> SearchSpace:
         from .ops import get_op
 
@@ -107,6 +132,22 @@ class Workload:
 
     def key(self, backend: str) -> str:
         return workload_key_for(self.op, self.dims, self.dtype, backend)
+
+
+def GemmWorkload(
+    m: int,
+    k: int,
+    n: int,
+    dtype: str = "bfloat16",
+    d_m: int = 4,
+    d_k: int = 2,
+    d_n: int = 4,
+    label: str = "",
+) -> Workload:
+    """The GEMM workload's own constructor (the JAX package's name):
+    the generic :class:`Workload` with ``op="gemm"``."""
+    return Workload(op="gemm", dims=(m, k, n), dtype=dtype, depths=(d_m, d_k, d_n),
+                    label=label)
 
 
 @dataclasses.dataclass
@@ -638,3 +679,29 @@ class TuningSession:
                 f"lane_failures={stats.n_failures}"
             )
         return report
+
+    def compare(
+        self,
+        wl: Workload,
+        tuner_names: Sequence[str],
+        budget: Budget,
+        n_seeds: int = 1,
+        tuner_kwargs: Optional[dict[str, dict]] = None,
+        n_workers: int = 1,
+        **options,
+    ) -> dict[str, list[TuneResult]]:
+        """Paper-style head-to-head under an identical budget: each tuner
+        of ``tuner_names`` tunes ``wl`` once per seed ``self.seed + s``,
+        ``s`` in ``range(n_seeds)``, with its ``tuner_kwargs`` entry.
+        ``options`` go to :meth:`tune_workload` as they are: a search on
+        the card's measured times needs ``warm_start=True`` (the untiled
+        start cannot launch) and gains from ``analyze="prune"``."""
+        out: dict[str, list[TuneResult]] = {}
+        for name in tuner_names:
+            kw = (tuner_kwargs or {}).get(name, {})
+            out[name] = [
+                self.tune_workload(wl, name, budget, tuner_kwargs=kw, seed=self.seed + s,
+                                   n_workers=n_workers, **options)
+                for s in range(n_seeds)
+            ]
+        return out

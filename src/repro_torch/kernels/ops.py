@@ -25,10 +25,25 @@ kernels' launch counters as one ``Counter``.
 The lookup is memoized per ``(op, dims, dtype, backend)`` and dropped by
 :func:`set_kernel_policy` and by any records change (a records change
 listener).  :func:`dispatch_stats` counts, per op, which source drove
-each call.  ``gemm`` is differentiable: its ``torch.autograd.Function``
-computes ``dA = g Bᵀ`` and ``dB = Aᵀ g`` with the same kernel, each
-looked up under its own shape's key, cast to its operand's type and
-counted under the launch role ``dA`` / ``dB``.
+each call.
+
+The dispatch of one 2-D product is the PyTorch operator
+``repro_torch::gemm`` (``torch.ops.repro_torch.gemm(a, b, config)``,
+``config`` a :class:`~repro_torch.kernels.gemm.KernelConfig` as its seven
+ints, or None for the policy's choice).  Being an operator, it is what a
+``TorchDispatchMode`` sees of a product, and its autograd is recorded
+however its output is made: remat ``dots``
+(``models/transformer._remat``) keeps each product of a block's forward
+and hands it back in the recompute (:func:`kept_products`), which
+launches nothing there.  Its autograd computes ``dA = g Bᵀ`` and
+``dB = Aᵀ g`` through the same operator, each looked up under its own
+shape's key, cast to its operand's type and counted under the launch
+role ``dA`` / ``dB``.  Its work is counted exactly once on every device:
+the kernel's wrapper reports it (``utils/op_costs.kernel_ran``), and an
+``OpCounter`` runs the operator's Python body under itself, so the
+operator adds nothing of its own and the ops around the launch (padding,
+alignment copies, a ``torch.matmul``) count as ops.  On ``meta`` the
+operator runs the same body: the card's decisions, nothing launched.
 
 Entry points run on the card: ``gemm`` takes ``device="cuda"`` unless
 the caller asks for ``device="cpu"`` (the plain version) or
@@ -40,14 +55,17 @@ nothing is launched), and refuses operands that live elsewhere.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
 from typing import Optional
 
 import torch
+from torch.utils import flop_counter
 
 from repro_torch.core.analysis import dtype_in_bytes, flash_launch_error
 from repro_torch.core.records import add_change_listener, global_records, workload_key_for
+from repro_torch.utils.op_costs import expand_under_counter
 from .flash_attention import LAUNCHES as FLASH_LAUNCHES
 from .flash_attention import default_blocks
 from .gemm import LAUNCHES as GEMM_LAUNCHES
@@ -64,6 +82,7 @@ __all__ = [
     "flash_schedule",
     "flash_blocks",
     "launch_counts",
+    "kept_products",
     "note_dispatch",
     "invalidate_dispatch_cache",
     "dispatch_stats",
@@ -277,26 +296,98 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if misaligned(t) else t
 
 
-class _Gemm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, a, b, config):
-        ctx.save_for_backward(a, b)
-        return _dispatch(a, b, config)
+def _config_ints(config: Optional[KernelConfig]) -> Optional[list[int]]:
+    return None if config is None else list(dataclasses.astuple(config))
 
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        g = g.contiguous()
-        # the backward products get their own tuned configs (shapes differ);
-        # each is cast to its operand's type, as the JAX package's VJP casts
-        da = db = None
-        if ctx.needs_input_grad[0]:
-            with launch_role("dA"):
-                da = _dispatch(g, b.t().contiguous()).to(a.dtype)
-        if ctx.needs_input_grad[1]:
-            with launch_role("dB"):
-                db = _dispatch(a.t().contiguous(), g).to(b.dtype)
-        return da, db, None
+
+class _Kept(threading.local):
+    frame: Optional[tuple[collections.deque, bool]] = None
+
+
+_KEPT = _Kept()
+
+
+@contextlib.contextmanager
+def kept_products(saved: collections.deque, replay: bool):
+    """Inside the block, each call of the GEMM operator on this thread
+    keeps its output in ``saved`` or, with ``replay``, returns the next
+    one kept there without running: remat ``dots``
+    (``models/transformer._checkpointed``) keeps a block's products in its
+    forward and replays them in the recompute, in the same order.  The
+    autograd of a replayed call is recorded as for a computed one."""
+    prev = _KEPT.frame
+    _KEPT.frame = (saved, replay)
+    try:
+        yield
+    finally:
+        _KEPT.frame = prev
+
+
+def _gemm_body(a: torch.Tensor, b: torch.Tensor,
+               config: Optional[list[int]] = None) -> torch.Tensor:
+    """The operator's body on every device: :func:`_dispatch` under the
+    config its ints name (the operator's schema takes no dataclass), or a
+    product kept by :func:`kept_products`."""
+    frame = _KEPT.frame
+    if frame is not None and frame[1]:
+        out, version = frame[0].popleft()
+        if out._version != version or out.shape != (a.shape[0], b.shape[1]):
+            raise RuntimeError("a kept product was changed in place, or the recompute "
+                               "asks for another product than the forward made")
+        return out
+    out = _dispatch(a, b, None if config is None else KernelConfig(*config))
+    if frame is not None:
+        frame[0].append((out.detach(), out._version))
+    return out
+
+
+_gemm_op = torch.library.custom_op(
+    "repro_torch::gemm", _gemm_body, mutates_args=(),
+    schema="(Tensor a, Tensor b, int[]? config=None) -> Tensor")
+# the modes that count work run the body in the operator's place, and so
+# see the ops around the kernel: the port's op counter, and torch's FLOP
+# counter (its mode class: ``_FlopCounterMode`` since torch 2.5)
+expand_under_counter(torch.ops.repro_torch.gemm.default, _gemm_body)
+
+
+def _body_under(mode, func, types, args, kwargs):
+    with mode:
+        return _gemm_body(*args, **kwargs)
+
+
+torch.library.register_torch_dispatch(
+    "repro_torch::gemm",
+    getattr(flop_counter, "_FlopCounterMode", flop_counter.FlopCounterMode), _body_under)
+
+
+@_gemm_op.register_fake
+def _gemm_fake(a, b, config=None):
+    if a.device.type == "meta":  # a dry run's trace: the card's decisions
+        return _gemm_body(a, b, config)
+    return a.new_empty((a.shape[0], b.shape[1]))  # a FakeTensor: the shape only
+
+
+def _gemm_setup(ctx, inputs, output) -> None:
+    ctx.save_for_backward(inputs[0], inputs[1])
+
+
+def _gemm_backward(ctx, g):
+    a, b = ctx.saved_tensors
+    g = g.contiguous()
+    # the backward products get their own tuned configs (shapes differ);
+    # each is cast to its operand's type, as the JAX package's VJP casts
+    da = db = None
+    if ctx.needs_input_grad[0]:
+        with launch_role("dA"):
+            da = torch.ops.repro_torch.gemm(g, b.t().contiguous()).to(a.dtype)
+    if ctx.needs_input_grad[1]:
+        with launch_role("dB"):
+            db = torch.ops.repro_torch.gemm(a.t().contiguous(), g).to(b.dtype)
+    return da, db, None
+
+
+# looked up at each call, so a check can plant a fault in the backward
+_gemm_op.register_autograd(lambda ctx, g: _gemm_backward(ctx, g), setup_context=_gemm_setup)
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, config: Optional[KernelConfig] = None,
@@ -313,5 +404,5 @@ def gemm(a: torch.Tensor, b: torch.Tensor, config: Optional[KernelConfig] = None
             f"operands on {a.device}/{b.device}, but gemm runs on {dev}"
         )
     lead, k, n = a.shape[:-1], a.shape[-1], b.shape[-1]
-    out = _Gemm.apply(a.reshape(-1, k), b, config)
+    out = torch.ops.repro_torch.gemm(a.reshape(-1, k), b, _config_ints(config))
     return out.reshape(*lead, n)

@@ -85,7 +85,11 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, return_state: bool = False):
     seg = dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :]  # (b,c,qi,qj,h)
     ii = torch.arange(q, device=x.device)
     causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
-    L = torch.where(causal, torch.exp(seg), 0.0)
+    # masked before the exponential: above the diagonal seg grows with the
+    # chunk and its exp overflows (at 256, every published config's chunk),
+    # and the backward of the JAX package's where(causal, exp(seg), 0) then
+    # multiplies the masked zeros by inf: NaN gradients (ROADMAP.md)
+    L = torch.exp(torch.where(causal, seg, -math.inf))
     del seg
     scores = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * L
     del L

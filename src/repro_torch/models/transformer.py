@@ -11,7 +11,8 @@ thing.  PyTorch runs eagerly, so the layer ``scan`` of the JAX package is
 a Python loop over the stacked layers, taken apart once per forward
 (:func:`unbind_layers`).  Under autograd each block runs under
 :func:`_remat` (the config's ``remat``: ``full`` keeps only the block's
-inputs and recomputes the rest in the backward).
+inputs and recomputes the rest in the backward; ``dots`` keeps its 2-D
+products too).
 
 Training's losses (:func:`lm_loss_from_logits`, :func:`streaming_lm_loss`,
 :func:`loss_fn`) are the JAX package's: cross-entropy over labels >= 0,
@@ -29,6 +30,7 @@ any prompt length.
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional
 
@@ -38,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.api import constrain, logical
 from repro_torch.kernels.gemm import launch_role
-from repro_torch.kernels.ops import gemm
+from repro_torch.kernels.ops import gemm, kept_products
 from repro_torch.models import common as cm
 from repro_torch.utils.tree import tree_from_numpy
 
@@ -192,12 +194,32 @@ def unbind_layers(layers: dict, n: int) -> list[dict]:
     return per
 
 
-def _checkpointed(fn):
+def _kept_product_frames():
+    """``torch.utils.checkpoint``'s ``context_fn`` for ``dots``: the
+    forward keeps each GEMM product, the recompute replays them."""
+    saved = collections.deque()
+    return kept_products(saved, replay=False), kept_products(saved, replay=True)
+
+
+def _checkpointed(fn, keep_products: bool = False):
     """``fn`` under a non-reentrant ``torch.utils.checkpoint`` while
-    autograd records: only its inputs are kept, and the backward runs it
-    again, with grad on as its first run had, so it takes the same
-    attention path.  GEMM launches of the second run count under the
-    launch role ``recompute``."""
+    autograd records: the backward runs it again, with grad on as its
+    first run had, so it takes the same attention path.  Only its inputs
+    are kept, and everything is recomputed; with ``keep_products``
+    (``dots``) the GEMM operator's outputs are kept too, and the
+    recompute takes them back in place of running each product
+    (``kernels/ops.kept_products``): every 2-D product of the blocks but
+    the MoE router's small f32 ``mm``.  Attention's batched products, the
+    MoE experts' and the SSD scan's run again, as under JAX's
+    ``dots_with_no_batch_dims_saveable``.  GEMM launches of the second run
+    count under the launch role ``recompute``; a kept product launches
+    none there.  (Selective checkpointing,
+    ``create_selective_checkpoint_contexts``, would keep the same products,
+    but its dispatch mode runs Python on every op of the forward and the
+    recompute, which made yi-6b's step slower than ``full``'s:
+    ``chip_smoke.py`` phase 16(a) times both, ``PERF.md`` §6.)"""
+
+    context_fn = {"context_fn": _kept_product_frames} if keep_products else {}
 
     def run(*args):
         if not torch.is_grad_enabled():
@@ -212,22 +234,22 @@ def _checkpointed(fn):
 
         # the blocks draw no random numbers: no RNG state to stash and
         # restore (which would copy the card's generator state each block)
-        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False,
+                          **context_fn)
 
     return run
 
 
 def _remat(cfg: ArchConfig, fn):
     """A block body under the config's rematerialization: ``none`` keeps
-    every intermediate for the backward, ``full`` only the body's inputs
-    (:func:`_checkpointed`)."""
+    every intermediate for the backward, ``full`` only the body's inputs,
+    ``dots`` its inputs and its 2-D products (:func:`_checkpointed`)."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "full":
         return _checkpointed(fn)
     if cfg.remat == "dots":
-        raise ValueError("remat 'dots' (save the non-batched products) is not ported; "
-                         "ROADMAP.md lists it with the reference gaps")
+        return _checkpointed(fn, keep_products=True)
     raise ValueError(f"unknown remat {cfg.remat!r}")
 
 

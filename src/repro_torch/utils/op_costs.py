@@ -36,6 +36,17 @@ counts the same on every device):
   bytes are each operand read once and the output written once, see
   ``kernels/flash_attention.flash_work``), and the plain version's ops
   run :func:`uncounted`, so nothing is counted twice.
+- **The port's operators.** An operator of the ``repro_torch``
+  namespace (the GEMM's dispatch, ``repro_torch::gemm``) counts nothing
+  itself: the counter runs the operator's Python body
+  (:func:`expand_under_counter`) under itself, so the ops it dispatches
+  around the kernel (a padding, an alignment copy, a ``torch.matmul``
+  where no kernel config fits) count as ops, and the kernel as its
+  wrapper reports it.  The operator's work is thus counted once, and as it was
+  counted before the dispatch was an operator.  A composite op reaching
+  the counter inside such a body (which runs below autograd, where
+  nothing has decomposed it) is decomposed under the counter, as
+  autograd would have decomposed it outside.
 - **Kinds.** Work is also summed by kind (:data:`KINDS`): the two
   kernels, library products, the products inside the attention
   functions (``models/common.py``, marked :func:`counted_as`
@@ -56,6 +67,7 @@ counts the same on every device):
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import threading
 import weakref
@@ -67,6 +79,7 @@ from torch.utils.flop_counter import flop_registry
 __all__ = [
     "OpCounter",
     "KINDS",
+    "expand_under_counter",
     "COLLECTIVE_KINDS",
     "kernel_ran",
     "uncounted",
@@ -108,6 +121,9 @@ _REDUCTIONS = {_aten.sum, _aten.mean, _aten.amax, _aten.amin, _aten.max, _aten.m
 #: the counters in force, innermost last (kernel reports reach them all)
 _ACTIVE: list["OpCounter"] = []
 _SCOPE = threading.local()
+#: the port's operators (``repro_torch::*`` overloads) -> the Python body a
+#: counter runs in their place
+_BODIES: dict = {}
 
 
 def _numel(ts) -> int:
@@ -132,6 +148,7 @@ class OpCounter(TorchDispatchMode):
         self._coll = {}
         self._storages: dict[int, weakref.ref] = {}
         self._suppress = 0
+        self._in_body = 0  # inside a port operator's body
         self._memo: dict = {}
 
     def __enter__(self):
@@ -179,8 +196,28 @@ class OpCounter(TorchDispatchMode):
         self._storages.pop(key, None)
         self.live_bytes -= n
 
+    @contextlib.contextmanager
+    def _again(self):
+        """This counter in force again inside its own handler (one entry
+        in the counters in force all the same)."""
+        TorchDispatchMode.__enter__(self)
+        try:
+            yield
+        finally:
+            TorchDispatchMode.__exit__(self, None, None, None)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        body = _BODIES.get(func)
+        if body is None and self._in_body and _composite(func):
+            body = func.decompose
+        if body is not None:
+            self._in_body += 1
+            try:
+                with self._again():
+                    return body(*args, **kwargs)
+            finally:
+                self._in_body -= 1
         try:
             key = (func, _key(args), _key(kwargs))
         except _NoKey:
@@ -230,6 +267,17 @@ class OpCounter(TorchDispatchMode):
 
 
 _INFO: dict = {}
+_COMPOSITE: dict = {}
+
+
+def _composite(func) -> bool:
+    """Whether an op overload has a ``CompositeImplicitAutograd`` kernel
+    (one autograd would have decomposed), worked out once."""
+    yes = _COMPOSITE.get(func)
+    if yes is None:
+        yes = _COMPOSITE[func] = torch._C._dispatch_has_kernel_for_dispatch_key(
+            func.name(), "CompositeImplicitAutograd")
+    return yes
 
 
 def _info(func) -> tuple:
@@ -339,6 +387,13 @@ def _bytes(packet, ins: list, outs: list) -> int:
 
 
 # -- the kernels' reports ---------------------------------------------------------
+
+
+def expand_under_counter(op, body) -> None:
+    """Register ``body``, the Python function the port's operator ``op``
+    (an overload) runs: a counter runs it under itself in the operator's
+    place (see the module docstring)."""
+    _BODIES[op] = body
 
 
 def kernel_ran(kind: str, dims: tuple, flops: int, nbytes: int, out: torch.Tensor) -> None:

@@ -6,6 +6,8 @@ machine that has only PyTorch built for CUDA:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_card.py
 """
 
+import collections
+
 import pytest
 import torch
 
@@ -323,6 +325,48 @@ def test_reduced_train_step_on_card_matches_the_cpu():
     assert abs(loss - loss_c) <= 2e-4 * abs(loss) and abs(norm - norm_c) <= 2e-4 * norm
     for a, b in zip(p_cpu, p_card):
         assert (b - a).abs().max().item() <= 2e-4 + 2 * 1e-3
+
+
+@pytest.mark.gpu
+def test_reduced_dots_step_on_card_keeps_every_block_product():
+    """The reduced yi-6b (f32) on the card under remat ``dots`` and
+    ``full``: the same loss and gradients within the reduced model's
+    limit, 2e-4; under ``dots`` the GEMM kernel launches in no block's
+    recompute (the loss head's chunks are checkpointed under every remat,
+    and recompute under both), and the forward, dA and dB launches are
+    ``full``'s."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.api import Model
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    _card()
+    cfg = get_arch("yi-6b").reduced()
+    params = tree_map(lambda t: t.to("cuda"), Model(cfg, device="cpu").init_params(seed=0))
+    samples = [SyntheticLM(cfg.vocab_size, 128, seed=1).sample(i) for i in range(4)]
+    batch = {"tokens": torch.from_numpy(np.stack([s[0] for s in samples])).long().cuda(),
+             "labels": torch.from_numpy(np.stack([s[1] for s in samples])).long().cuda()}
+    out = {}
+    for remat in ("full", "dots"):
+        gemm.reset_launches()
+        model = Model(dataclasses.replace(cfg, remat=remat), device="cuda")
+        grads, metrics = value_and_grad(model, params, batch)
+        out[remat] = (float(metrics["loss"]), tree_leaves(grads),
+                      collections.Counter(gemm.ROLE_LAUNCHES))
+    (loss_f, g_f, roles_f), (loss_d, g_d, roles_d) = out["full"], out["dots"]
+    assert abs(loss_f - loss_d) <= 2e-4 * abs(loss_f)
+    for a, b in zip(g_f, g_d):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+    head = cfg.padded_vocab
+    assert any(r == "recompute" and d[2] != head for r, d in roles_f)
+    assert not any(r == "recompute" and d[2] != head for r, d in roles_d)
+    assert {k: n for k, n in roles_d.items() if k[0] != "recompute"} == {
+        k: n for k, n in roles_f.items() if k[0] != "recompute"}
 
 
 #: the dry run's probes at yi-6b's published widths and one layer, cut to

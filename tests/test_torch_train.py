@@ -206,17 +206,19 @@ def test_streaming_loss_matches_reference_in_chunks(seq, chunk):
 
 
 def test_remat_full_equals_none_and_dots_is_refused():
+    """``full``, ``none`` and ``dots`` give one loss and the same gradients
+    on the same inputs.  (The name is from when ``dots`` was refused; it
+    is ported now, and held against the reference in
+    ``tests/test_torch_remat.py``.)"""
     cfg, model, params, _, _ = _models("yi-6b")
     _, batch = _batches(cfg, 96, "float32")
     g_full, m_full = value_and_grad(model, params, batch)
-    none = Model(cfg.reduced(remat="none", **_over("yi-6b")), device="cpu")
-    g_none, m_none = value_and_grad(none, params, batch)
-    assert float(m_full["loss"]) == float(m_none["loss"])
-    for a, b in zip(tree_leaves(g_full), tree_leaves(g_none)):
-        _close(a, b, GRAD_RTOL, GRAD_ATOL)
-    dots = Model(cfg.reduced(remat="dots"), device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        value_and_grad(dots, params, batch)
+    for remat in ("none", "dots"):
+        other = Model(cfg.reduced(remat=remat, **_over("yi-6b")), device="cpu")
+        g_other, m_other = value_and_grad(other, params, batch)
+        assert float(m_full["loss"]) == float(m_other["loss"]), remat
+        for a, b in zip(tree_leaves(g_full), tree_leaves(g_other)):
+            _close(a, b, GRAD_RTOL, GRAD_ATOL)
 
 
 def test_the_recompute_runs_under_its_launch_role():
