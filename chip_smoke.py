@@ -175,9 +175,12 @@ Phases (each prints its wall time):
      dry run's ``--all``, before phase 15 waits for it): (a) phase 14's
      yi-6b (16 of 32 layers, its seed and data) three steps under remat
      ``dots``, whose checkpoint keeps the GEMM operator's outputs
-     (``repro_torch::gemm``) and hands them back in the recompute, which
-     recomputes the rest: step 1's
-     loss equal to phase 14's within rtol 1e-5, no GEMM launch in the
+     (``repro_torch::gemm``) that the backward reads and hands them back
+     in the recompute, which recomputes the rest: step 1's
+     loss equal to phase 14's within rtol 1e-5, every block keeping the
+     JAX package's six products (wq, wk, wv, wo, gate, up; not the MLP's
+     down product, whose output feeds only the residual add), their bytes
+     printed, no GEMM launch in the
      blocks' recompute (the loss head's chunks, checkpointed under every
      remat as in the JAX package, recompute as under ``full``), the
      ``forward``/``dA``/``dB`` launches phase 14's shape by shape, step
@@ -185,7 +188,8 @@ Phases (each prints its wall time):
      the three steps timed again under selective checkpointing
      (``create_selective_checkpoint_contexts``, ``MUST_SAVE`` the
      operator, ``mm`` and ``addmm``), which keeps the same products
-     through a dispatch mode that runs Python on every op; (b) phase
+     (and the down product) through a dispatch mode that runs Python on
+     every op; (b) phase
      14(d)'s gradient check under ``dots``, the planted dB fault refused;
      (c) mamba2-130m and zamba2-1.2b at published widths, one step of 2 x
      2048 tokens each under ``full`` and ``dots``: the same loss and
@@ -196,7 +200,14 @@ Phases (each prints its wall time):
      trials) each, phase 11's protocol, every best re-timed beside the
      state ``AnalyticalHopperCost(...).optimum()`` picks (a brute force
      over the 484,000 states on the host): each result finite, launched
-     and within its budget.
+     and within its budget; (e) qwen3-moe-235b-a22b at published widths,
+     2 of 94 layers, 1 x 512 tokens, capacity factor E / k (nothing
+     drops), one forward and backward under ``full`` and under ``dots``
+     with no optimizer: under ``dots`` each block keeps attention's four
+     products and the router's f32 logits, the router's ``mm`` runs in the
+     forward only (counted by launch role in a second pass), no GEMM
+     launches in the blocks' recompute, gradients per leaf within
+     ``GRAD_REL_LIMIT`` of ``full``'s; the peak and seconds of each.
 
 Launch counts of each path are zeroed just before it and read just after:
 the GEMM tuning path is phases 3-5, the flash tuning path phase 8, the
@@ -399,6 +410,10 @@ DRY_ALL_TIMEOUT_S = 900
 DOTS_LAYERS = TRAIN_LAYERS
 DOTS_SSM, DOTS_SSM_BATCH, DOTS_SSM_SEQ = ("mamba2-130m", "zamba2-1.2b"), 2, 2048
 DOTS_LOSS_RTOL = 1e-5
+#: phase 16(e): qwen3-moe at published widths, 2 of its 94 layers, 1 x 512
+#: tokens, capacity factor E / k (nothing drops), one forward and backward
+#: under full and dots, no optimizer
+DOTS_MOE, DOTS_MOE_LAYERS, DOTS_MOE_BATCH, DOTS_MOE_SEQ = "qwen3-moe-235b-a22b", 2, 1, 512
 #: phase 16(d): ``TuningSession.compare`` of the paper's four tuners at
 #: 512^3 float32, two seeds, 0.1 % of the space (484 trials) each
 COMPARE_DIMS = (512, 512, 512)
@@ -2125,8 +2140,10 @@ def remat_dots(kernels: list, phase14: dict) -> None:
     phase 14(d)'s gradient check under ``dots``.  (c) mamba2-130m and
     zamba2-1.2b at published widths, one step each under ``full`` and
     under ``dots``: the same gradients, no launch in the blocks'
-    recompute under ``dots``.  Adds ``launches_dots`` (and its parts by
-    role) to the GEMM rows of (a)'s shapes."""
+    recompute under ``dots``.  (e) qwen3-moe's router product kept under
+    ``dots`` (:func:`moe_router_kept`; (d) is :func:`head_to_head`).  Adds
+    ``launches_dots`` (and its parts by role) to the GEMM rows of (a)'s
+    shapes."""
     import dataclasses
     import functools
     import gc
@@ -2169,7 +2186,8 @@ def remat_dots(kernels: list, phase14: dict) -> None:
     trainer = Trainer(cfg, pipe, None, lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS + 1,
                       device="cuda")
     trainer.initialize(resume=False)
-    log = trainer.train(TRAIN_STEPS)
+    with ops.watch_kept() as kept_blocks:
+        log = trainer.train(TRAIN_STEPS)
     roles = collections.Counter(gemm_mod.ROLE_LAUNCHES)
     flash_launched = sum(fa.LAUNCHES.values())
     peak = torch.cuda.max_memory_allocated()
@@ -2216,6 +2234,7 @@ def remat_dots(kernels: list, phase14: dict) -> None:
                              f"at {want}")
     if flash_launched:
         raise SystemExit(f"flash launched {flash_launched} times in training")
+    check_kept_products(cfg, tokens, kept_blocks, DOTS_LAYERS * TRAIN_STEPS)
     step_roles, busy, gemm_ms = trace_train_step(trainer, TRAIN_STEPS + 1, step_s)
     est = {role: sum(step_roles[(role, d)] * phase14["kernel_ms"][d] for d in shapes)
            for role in ("forward", "recompute", "dA", "dB")}
@@ -2239,8 +2258,9 @@ def remat_dots(kernels: list, phase14: dict) -> None:
     torch.cuda.empty_cache()
 
     # the same steps under selective checkpointing, the design dots does
-    # not use: a dispatch mode that keeps the same products (MUST_SAVE for
-    # the operator, mm and addmm) but runs Python on every op
+    # not use: a dispatch mode that keeps the operator's products (MUST_SAVE
+    # for it, mm and addmm: the down product too, which dots leaves out) but
+    # runs Python on every op
     def keep_2d(ctx, op, *args, **kwargs):
         return CheckpointPolicy.MUST_SAVE if op in (
             torch.ops.repro_torch.gemm.default, torch.ops.aten.mm.default,
@@ -2330,6 +2350,140 @@ def remat_dots(kernels: list, phase14: dict) -> None:
         del params, got, g_full, g_dots, grads, model, batch
         gc.collect()
         torch.cuda.empty_cache()
+
+    # -- (e) qwen3-moe at published widths: the router's product kept under dots
+    moe_router_kept()
+
+
+def check_kept_products(cfg, tokens: int, kept_blocks: list, n_blocks: int) -> None:
+    """Phase 16(a): every yi-6b block under ``dots`` kept the six products
+    the JAX package's block keeps under ``dots_with_no_batch_dims_saveable``
+    (wq, wk, wv, wo, gate, up: ``tests/test_torch_remat.py`` holds them
+    against its ``print_saved_residuals``), left out the MLP's down
+    product, and its recompute took the placeholder in its place."""
+    hd = cfg.resolved_head_dim
+    q, kv, d, ff = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.d_model, cfg.d_ff
+    want = collections.Counter(((tokens, n), torch.bfloat16) for n in (q, kv, kv, d, ff, ff))
+    down = ((tokens, d), torch.bfloat16)
+    nbytes = [math.prod(shape) * torch.empty((), dtype=dt).element_size()
+              for shape, dt in kept_blocks[0].kept] if kept_blocks else []
+    if kept_blocks:
+        print(f"[dots-kept] one yi-6b layer ({tokens} tokens) keeps {len(nbytes)} products: "
+              f"{[(shape, str(dt).removeprefix('torch.')) for shape, dt in kept_blocks[0].kept]}"
+              f", {sum(nbytes)} bytes ({sum(nbytes) / 1e6:.1f} MB; each "
+              f"{nbytes}); left out: the down product {down[0]} "
+              f"({math.prod(down[0]) * 2} bytes); recompute took its placeholder: "
+              f"{kept_blocks[0].placeholder_handed}", flush=True)
+    bad = [i for i, b in enumerate(kept_blocks)
+           if collections.Counter(b.kept) != want or b.unread != down or not b.placeholder_handed]
+    if len(kept_blocks) != n_blocks or bad:
+        raise SystemExit(f"dots kept other products than the reference's six in blocks {bad} "
+                         f"of {len(kept_blocks)} (want {n_blocks} blocks): "
+                         f"{kept_blocks[bad[0]] if bad else None}")
+
+
+def moe_router_kept() -> None:
+    """Phase 16(e): qwen3-moe at published widths (2 of 94 layers, 1 x 512
+    tokens, capacity factor E / k so that nothing drops), one forward and
+    backward under ``full`` and under ``dots`` with no optimizer.  Under
+    ``dots`` each block keeps attention's four products and the router's
+    f32 logits (``ops.kept_mm``), the reference's five: the router's
+    product runs in the forward only, where ``full`` runs it again in the
+    recompute, and no GEMM launches in the blocks' recompute; the
+    gradients agree per leaf within ``GRAD_REL_LIMIT``."""
+    import dataclasses
+    import gc
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import Model
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.utils.tree import tree_paths
+
+    class RouterProducts(TorchDispatchMode):
+        """Counts the router's ``mm`` (its ``(T, E)`` output) by launch role."""
+
+        def __init__(self, shape):
+            super().__init__()
+            self.shape, self.by_role = shape, collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is torch.ops.aten.mm.default and tuple(out.shape) == self.shape:
+                self.by_role[getattr(gemm_mod._ROLE, "name", "forward")] += 1
+            return out
+
+    t0 = time.perf_counter()
+    arch = get_arch(DOTS_MOE)
+    arch = dataclasses.replace(arch, n_layers=DOTS_MOE_LAYERS,
+                               moe_capacity_factor=arch.n_experts / arch.experts_per_token)
+    tokens = DOTS_MOE_BATCH * DOTS_MOE_SEQ
+    params = Model(arch, device="cuda").init_params(seed=1)
+    data = SyntheticLM(arch.vocab_size, DOTS_MOE_SEQ, seed=2)
+    toks, labs = zip(*(data.sample(i) for i in range(DOTS_MOE_BATCH)))
+    batch = {"tokens": torch.from_numpy(np.stack(toks)).long().cuda(),
+             "labels": torch.from_numpy(np.stack(labs)).long().cuda()}
+    hd = arch.resolved_head_dim
+    q, kv, d = arch.n_heads * hd, arch.n_kv_heads * hd, arch.d_model
+    want = collections.Counter([((tokens, n), torch.bfloat16) for n in (q, kv, kv, d)]
+                               + [((tokens, arch.n_experts), torch.float32)])
+    got = {}
+    for remat in ("full", "dots"):
+        model = Model(dataclasses.replace(arch, remat=remat), device="cuda")
+        # timed alone, then counted again in a dispatch mode that sees each mm
+        gemm_mod.reset_launches()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()  # the weights, and full's gradients
+        t1 = time.perf_counter()
+        with ops.watch_kept() as kept_blocks:
+            grads, metrics = value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+        step = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        again = sum(n for (role, (_, _, n_out)), n in gemm_mod.ROLE_LAUNCHES.items()
+                    if role == "recompute" and n_out != arch.padded_vocab)
+        got[remat] = (dict(tree_paths(grads)), float(metrics["loss"]))
+        del grads
+        router = RouterProducts((tokens, arch.n_experts))
+        with router:
+            value_and_grad(model, params, batch)
+        one = [(sh, str(dt).removeprefix("torch.")) for sh, dt in kept_blocks[0].kept
+               ] if kept_blocks else []
+        print(f"[dots-moe] {DOTS_MOE} ({DOTS_MOE_LAYERS} of 94 layers, published widths, "
+              f"bf16, capacity factor {arch.moe_capacity_factor:g}) {DOTS_MOE_BATCH} x "
+              f"{DOTS_MOE_SEQ} tokens, remat {remat}: loss={got[remat][1]:.6f} step_s={step:.4f} "
+              f"(one forward and backward, the first of its model) peak_gb={peak / 1e9:.2f} "
+              f"(held before it {held / 1e9:.2f}, the step's own {(peak - held) / 1e9:.2f}); "
+              f"blocks' recompute GEMM launches {again}; router products by role (a second "
+              f"pass, counted) {dict(router.by_role)}; kept a block {one}", flush=True)
+        if remat == "dots":
+            bad = [b for b in kept_blocks if collections.Counter(b.kept) != want or b.unread]
+            if (len(kept_blocks) != DOTS_MOE_LAYERS or bad or again
+                    or router.by_role != {"forward": DOTS_MOE_LAYERS}):
+                raise SystemExit(f"{DOTS_MOE} under dots: kept {kept_blocks}, router products "
+                                 f"{dict(router.by_role)}, recompute launches {again}")
+        elif router.by_role != {"forward": DOTS_MOE_LAYERS, "recompute": DOTS_MOE_LAYERS}:
+            raise SystemExit(f"{DOTS_MOE} under full: router products {dict(router.by_role)}")
+        del model
+        gc.collect()
+    (g_full, l_full), (g_dots, l_dots) = got["full"], got["dots"]
+    rel = {path: ((g_dots[path].float() - g.float()).norm()
+                  / g.float().norm().clamp(min=1e-30)).item() for path, g in g_full.items()}
+    print(f"[dots-moe] {DOTS_MOE}: worst per-leaf relative L2 error, dots vs full: "
+          f"{worst(rel):.4g} (limit {GRAD_REL_LIMIT}); the router's product kept, not "
+          f"recomputed ({time.perf_counter() - t0:.1f}s)", flush=True)
+    if worst(rel) > GRAD_REL_LIMIT or not abs(l_full - l_dots) <= DOTS_LOSS_RTOL * abs(l_full):
+        raise SystemExit(f"{DOTS_MOE}: dots against full: gradients {rel}, loss {l_dots!r} "
+                         f"against {l_full!r}")
+    del params, got, g_full, g_dots, batch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def head_to_head(kernels: list, rand, flush, peak_bytes: float) -> None:

@@ -67,8 +67,10 @@ from .records import (
     TrialJournal,
     TuningRecords,
     global_records,
+    parse_workload_key,
     parse_workload_key_generic,
     set_global_records,
+    workload_key,
     workload_key_for,
 )
 from .session import ArchTuneReport, GemmWorkload, TuningSession, Workload
@@ -118,7 +120,8 @@ __all__ = [
     "MeasureEngine", "MeasureOutcome", "MeasureStats",
     "OPS", "OpSpec", "get_op", "op_names", "register_op",
     "TrialJournal", "TuningRecords", "global_records",
-    "parse_workload_key_generic", "set_global_records", "workload_key_for",
+    "parse_workload_key", "parse_workload_key_generic", "set_global_records",
+    "workload_key", "workload_key_for",
     "ArchTuneReport", "GemmWorkload", "TuningSession", "Workload",
     "FactoredSearchSpace", "SearchSpace", "State", "state_from_lists",
     "TuneCheckpointer", "TuneInterrupted",

@@ -41,6 +41,8 @@ __all__ = [
     "TrialJournal",
     "iter_journal_rows",
     "workload_key_for",
+    "workload_key",
+    "parse_workload_key",
     "parse_workload_key_generic",
     "op_of_workload_key",
     "donor_distance",
@@ -84,8 +86,24 @@ def workload_key_for(op: str, dims: Sequence[int], dtype: str = "bfloat16",
     return f"{op}/" + "x".join(str(d) for d in dims) + f"/{dtype}/{backend}"
 
 
+def workload_key(m: int, k: int, n: int, dtype: str = "bfloat16",
+                 backend: str = "analytical_h100") -> str:
+    """The GEMM spelling of :func:`workload_key_for`, under the H100
+    analytical model's namespace unless another backend is named."""
+    return workload_key_for("gemm", (m, k, n), dtype, backend)
+
+
 _KEY_RE = re.compile(r"^gemm/m(\d+)k(\d+)n(\d+)/([^/]+)/(.+)$")
 _GENERIC_KEY_RE = re.compile(r"^([A-Za-z0-9_-]+)/(\d+(?:x\d+)*)/([^/]+)/(.+)$")
+
+
+def parse_workload_key(key: str) -> Optional[tuple[int, int, int, str, str]]:
+    """Inverse of :func:`workload_key`: ``(m, k, n, dtype, backend)``, or
+    None for a key that is not a GEMM's."""
+    m = _KEY_RE.match(key)
+    if m is None:
+        return None
+    return int(m.group(1)), int(m.group(2)), int(m.group(3)), m.group(4), m.group(5)
 
 
 def parse_workload_key_generic(

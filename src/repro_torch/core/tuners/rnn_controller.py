@@ -113,6 +113,7 @@ class RNNControllerTuner(Tuner):
                 self._setup()  # builds the modules and optimizer, then overwrite
             self.net.load_state_dict(tree_from_jsonable(state["params"], torch.from_numpy))
             load_adam_state(self.opt, tree_from_jsonable(state["opt_state"]))
+            self._memo.clear()
 
     # -- networks --------------------------------------------------------------
     def _setup(self, reference_params: Optional[dict] = None) -> None:
@@ -145,6 +146,7 @@ class RNNControllerTuner(Tuner):
         self.net = _Controller(gru, head, emb0).to(self.device)
         self.opt = make_adam(self.net, self.lr)
         self._onehots = torch.eye(n_in, device=self.device)
+        self._memo: dict[tuple, tuple] = {}
         self._ready = True
 
     def _logp_entropy(self, choices: torch.Tensor, masks: torch.Tensor):
@@ -178,32 +180,48 @@ class RNNControllerTuner(Tuner):
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         self.opt.step()
+        self._memo.clear()  # the network changed
 
     # -- sampling ----------------------------------------------------------------
     @torch.no_grad()
     def _sample_config(self) -> tuple[State, np.ndarray, np.ndarray]:
+        """One configuration drawn from the controller.  Between train
+        steps the network is fixed, so a step's hidden state and choice
+        distribution depend only on the choices before it: they are
+        memoized by that prefix (``_memo``, cleared whenever the network
+        changes), and a draw whose prefix was seen costs one ``searchsorted``
+        instead of a GRU step and a device read.  The draws are the same:
+        one ``self.rng`` number a step, on the same cumulative
+        probabilities.  (A controller whose policy has collapsed draws
+        thousands of already-measured configurations a round, which the
+        memo makes cheap.)"""
         net = self.net
-        h = net.gru.h0
-        x = net.emb0
         remaining = [b for b, _ in self.budgets]
         exps: list[list[int]] = [[0] * d for _, d in self.budgets]
         choices, masks = [], []
         for (di, slot) in self.seq_spec:
-            h = net.gru(h, x)
-            logits = net.head(h).cpu().numpy().astype(np.float64)
-            mask = np.zeros(self.max_e + 1, dtype=bool)
-            mask[: remaining[di] + 1] = True
-            logits[~mask] = _MASKED
-            z = logits - logits.max()
-            p = np.exp(z)
-            p /= p.sum()
-            c = int(np.searchsorted(np.cumsum(p), self.rng.random()))
+            prefix = tuple(choices)
+            hit = self._memo.get(prefix)
+            if hit is None:
+                if prefix:
+                    h = net.gru(self._memo[prefix[:-1]][0], self._onehots[prefix[-1] + 1])
+                else:
+                    h = net.gru(net.gru.h0, net.emb0)
+                logits = net.head(h).cpu().numpy().astype(np.float64)
+                mask = np.zeros(self.max_e + 1, dtype=bool)
+                mask[: remaining[di] + 1] = True
+                logits[~mask] = _MASKED
+                z = logits - logits.max()
+                p = np.exp(z)
+                p /= p.sum()
+                hit = self._memo[prefix] = (h, np.cumsum(p), mask)
+            _, cum, mask = hit
+            c = int(np.searchsorted(cum, self.rng.random()))
             c = min(c, remaining[di])
             choices.append(c)
             masks.append(mask)
             exps[di][slot] = c
             remaining[di] -= c
-            x = self._onehots[c + 1]
         for di, (_, d) in enumerate(self.budgets):
             exps[di][d - 1] = remaining[di]
         rows = []

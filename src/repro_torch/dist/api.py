@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -29,6 +29,8 @@ __all__ = [
 
 #: a logical entry: a name, or None for "replicated along this dim"
 LogicalName = Optional[str]
+#: a physical mapping: one axis name, a tuple of axis names, or None
+Physical = Union[str, tuple, None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +40,7 @@ class MeshRules:
 
     overrides: Optional[dict] = None
 
-    def get(self, name: Optional[str]):
+    def get(self, name: Optional[str]) -> Physical:
         return None if name is None else (self.overrides or {}).get(name)
 
 

@@ -33,9 +33,9 @@ The dispatch of one 2-D product is the PyTorch operator
 ints, or None for the policy's choice).  Being an operator, it is what a
 ``TorchDispatchMode`` sees of a product, and its autograd is recorded
 however its output is made: remat ``dots``
-(``models/transformer._remat``) keeps each product of a block's forward
-and hands it back in the recompute (:func:`kept_products`), which
-launches nothing there.  Its autograd computes ``dA = g Bᵀ`` and
+(``models/transformer._remat``) keeps the products of a block's forward
+that its backward reads, and hands them back in the recompute
+(:func:`kept_products`), which launches nothing there.  Its autograd computes ``dA = g Bᵀ`` and
 ``dB = Aᵀ g`` through the same operator, each looked up under its own
 shape's key, cast to its operand's type and counted under the launch
 role ``dA`` / ``dB``.  Its work is counted exactly once on every device:
@@ -83,6 +83,11 @@ __all__ = [
     "flash_blocks",
     "launch_counts",
     "kept_products",
+    "closing_product",
+    "kept_mm",
+    "watch_kept",
+    "KeptBlock",
+    "KeptStore",
     "note_dispatch",
     "invalidate_dispatch_cache",
     "dispatch_stats",
@@ -300,27 +305,127 @@ def _config_ints(config: Optional[KernelConfig]) -> Optional[list[int]]:
     return None if config is None else list(dataclasses.astuple(config))
 
 
+@dataclasses.dataclass
+class KeptBlock:
+    """What one block's forward under :func:`kept_products` kept for its
+    backward: each kept product's ``(shape, dtype)`` in call order, the
+    closing product it did not keep (or None), and whether its recompute
+    took the placeholder in that product's place."""
+    kept: list
+    unread: Optional[tuple] = None
+    placeholder_handed: bool = False
+
+
+class KeptStore:
+    """The products one block keeps between its forward and its recompute
+    (:func:`kept_products`)."""
+
+    def __init__(self):
+        self.saved: collections.deque = collections.deque()  # (tensor, version)
+        self.closing = None  # the closing product, until another product follows it
+        self.unread: Optional[tuple] = None  # (shape, dtype) of the one not kept
+        self.log: Optional[KeptBlock] = None
+
+
 class _Kept(threading.local):
-    frame: Optional[tuple[collections.deque, bool]] = None
+    frame: Optional[tuple[KeptStore, bool]] = None
+    closing: bool = False
 
 
 _KEPT = _Kept()
+_WATCHERS: list[list] = []
 
 
 @contextlib.contextmanager
-def kept_products(saved: collections.deque, replay: bool):
-    """Inside the block, each call of the GEMM operator on this thread
-    keeps its output in ``saved`` or, with ``replay``, returns the next
-    one kept there without running: remat ``dots``
-    (``models/transformer._checkpointed``) keeps a block's products in its
-    forward and replays them in the recompute, in the same order.  The
-    autograd of a replayed call is recorded as for a computed one."""
+def kept_products(store: KeptStore, replay: bool):
+    """Inside the block, each product on this thread (a call of the GEMM
+    operator, or :func:`kept_mm`) keeps its output in ``store`` or, with
+    ``replay``, returns the next one kept there without running: remat
+    ``dots`` (``models/transformer._checkpointed``) keeps a block's
+    products in its forward and replays them in the recompute, in the same
+    order.  The autograd of a replayed call is recorded as for a computed
+    one.
+
+    A block keeps every product but its closing one: the product made
+    under :func:`closing_product` with no product after it in the block,
+    whose output feeds only the residual add that ends the block (the
+    MLP's down product, an SSM block's output projection).  The backward
+    of an add reads neither operand, so nothing in the backward reads that
+    product, and JAX's ``dots_with_no_batch_dims_saveable`` does not save
+    it either.  The recompute ends at the last tensor the forward saved
+    (the non-reentrant checkpoint's early stop), which is that product's
+    operands: its call there takes a placeholder filled with NaN, and
+    nothing after it runs.  A closing product that another product
+    follows (an SSM layer inside a hybrid group) is kept: the next layer's
+    norm reads the residual sum.  Each forward's :class:`KeptBlock` goes to
+    the lists :func:`watch_kept` holds open."""
     prev = _KEPT.frame
-    _KEPT.frame = (saved, replay)
+    _KEPT.frame = (store, replay)
     try:
         yield
     finally:
         _KEPT.frame = prev
+        if not replay:
+            if store.closing is not None:
+                out = store.closing[0]
+                store.unread, store.closing = (tuple(out.shape), out.dtype), None
+            store.log = KeptBlock([(tuple(t.shape), t.dtype) for t, _ in store.saved],
+                                  store.unread)
+            for seen in _WATCHERS:
+                seen.append(store.log)
+
+
+@contextlib.contextmanager
+def closing_product():
+    """Marks the product made inside as its block's closing one: its output
+    feeds only the residual add that ends the block (see
+    :func:`kept_products`)."""
+    prev = _KEPT.closing
+    _KEPT.closing = True
+    try:
+        yield
+    finally:
+        _KEPT.closing = prev
+
+
+@contextlib.contextmanager
+def watch_kept():
+    """Yields a list that gets one :class:`KeptBlock` for each block
+    forward under remat ``dots`` that ends, on any thread, while the
+    ``with`` lasts."""
+    seen: list[KeptBlock] = []
+    _WATCHERS.append(seen)
+    try:
+        yield seen
+    finally:
+        _WATCHERS.remove(seen)
+
+
+def _keep(store: KeptStore, out: torch.Tensor) -> None:
+    if store.closing is not None:  # a product follows it: the block reads it
+        store.saved.append(store.closing)
+        store.closing = None
+    entry = (out.detach(), out._version)
+    if _KEPT.closing:
+        store.closing = entry
+    else:
+        store.saved.append(entry)
+
+
+def _replayed(store: KeptStore, m: int, n: int, device: torch.device) -> torch.Tensor:
+    """The next kept product of the recompute, or the placeholder of the
+    closing product that was not kept."""
+    if store.saved:
+        out, version = store.saved.popleft()
+        if out._version == version and out.shape == (m, n):
+            return out
+    elif store.unread is not None and store.unread[0] == (m, n):
+        dtype, store.unread = store.unread[1], None
+        if store.log is not None:
+            store.log.placeholder_handed = True
+        return torch.full((), float("nan"), dtype=dtype, device=device).expand(m, n)
+    raise RuntimeError("a kept product was changed in place, or the recompute asks for "
+                       "another product than the forward made")
 
 
 def _gemm_body(a: torch.Tensor, b: torch.Tensor,
@@ -330,14 +435,10 @@ def _gemm_body(a: torch.Tensor, b: torch.Tensor,
     product kept by :func:`kept_products`."""
     frame = _KEPT.frame
     if frame is not None and frame[1]:
-        out, version = frame[0].popleft()
-        if out._version != version or out.shape != (a.shape[0], b.shape[1]):
-            raise RuntimeError("a kept product was changed in place, or the recompute "
-                               "asks for another product than the forward made")
-        return out
+        return _replayed(frame[0], a.shape[0], b.shape[1], a.device)
     out = _dispatch(a, b, None if config is None else KernelConfig(*config))
     if frame is not None:
-        frame[0].append((out.detach(), out._version))
+        _keep(frame[0], out)
     return out
 
 
@@ -406,3 +507,36 @@ def gemm(a: torch.Tensor, b: torch.Tensor, config: Optional[KernelConfig] = None
     lead, k, n = a.shape[:-1], a.shape[-1], b.shape[-1]
     out = torch.ops.repro_torch.gemm(a.reshape(-1, k), b, _config_ints(config))
     return out.reshape(*lead, n)
+
+
+class _KeptMatmul(torch.autograd.Function):
+    """``a @ b`` that a ``dots`` block keeps like the GEMM operator's
+    products, with ``mm``'s backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        store, replay = _KEPT.frame
+        if replay:
+            out = _replayed(store, a.shape[0], b.shape[1], a.device)
+        else:
+            out = a @ b
+            _keep(store, out)
+        ctx.save_for_backward(a, b)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = g @ b.t() if ctx.needs_input_grad[0] else None
+        db = a.t() @ g if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def kept_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of 2-D tensors as ``torch.matmul`` computes it, outside
+    the GEMM kernel (the MoE router's f32 product, which a top-k over its
+    logits would amplify any rounding change of), kept by a ``dots``
+    block as its 2-D products are (:func:`kept_products`)."""
+    if _KEPT.frame is None:
+        return a @ b
+    return _KeptMatmul.apply(a, b)

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.api import constrain, logical
+from repro_torch.kernels.ops import closing_product
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 
@@ -198,7 +199,8 @@ def _ssm_inputs(cfg, xBC, dt_raw, p):
 def _gated_out(cfg, p, y, z, res):
     y = y.reshape(*y.shape[:2], cfg.d_inner)
     y = cm.rmsnorm(p["norm"], y * F.silu(z.float()).to(y.dtype), cfg.norm_eps)
-    return res + cm.dense(p["out_proj"], y)
+    with closing_product():  # its output feeds only the block's residual add
+        return res + cm.dense(p["out_proj"], y)
 
 
 def mamba_block_prefill(cfg: ArchConfig, p: dict, x: torch.Tensor):

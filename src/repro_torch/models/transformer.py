@@ -11,8 +11,8 @@ thing.  PyTorch runs eagerly, so the layer ``scan`` of the JAX package is
 a Python loop over the stacked layers, taken apart once per forward
 (:func:`unbind_layers`).  Under autograd each block runs under
 :func:`_remat` (the config's ``remat``: ``full`` keeps only the block's
-inputs and recomputes the rest in the backward; ``dots`` keeps its 2-D
-products too).
+inputs and recomputes the rest in the backward; ``dots`` keeps the 2-D
+products its backward reads too).
 
 Training's losses (:func:`lm_loss_from_logits`, :func:`streaming_lm_loss`,
 :func:`loss_fn`) are the JAX package's: cross-entropy over labels >= 0,
@@ -30,7 +30,6 @@ any prompt length.
 
 from __future__ import annotations
 
-import collections
 import math
 from typing import Optional
 
@@ -40,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.api import constrain, logical
 from repro_torch.kernels.gemm import launch_role
-from repro_torch.kernels.ops import gemm, kept_products
+from repro_torch.kernels.ops import KeptStore, closing_product, gemm, kept_mm, kept_products
 from repro_torch.models import common as cm
 from repro_torch.utils.tree import tree_from_numpy
 
@@ -196,9 +195,9 @@ def unbind_layers(layers: dict, n: int) -> list[dict]:
 
 def _kept_product_frames():
     """``torch.utils.checkpoint``'s ``context_fn`` for ``dots``: the
-    forward keeps each GEMM product, the recompute replays them."""
-    saved = collections.deque()
-    return kept_products(saved, replay=False), kept_products(saved, replay=True)
+    forward keeps the block's products, the recompute replays them."""
+    store = KeptStore()
+    return kept_products(store, replay=False), kept_products(store, replay=True)
 
 
 def _checkpointed(fn, keep_products: bool = False):
@@ -206,16 +205,22 @@ def _checkpointed(fn, keep_products: bool = False):
     autograd records: the backward runs it again, with grad on as its
     first run had, so it takes the same attention path.  Only its inputs
     are kept, and everything is recomputed; with ``keep_products``
-    (``dots``) the GEMM operator's outputs are kept too, and the
-    recompute takes them back in place of running each product
-    (``kernels/ops.kept_products``): every 2-D product of the blocks but
-    the MoE router's small f32 ``mm``.  Attention's batched products, the
-    MoE experts' and the SSD scan's run again, as under JAX's
-    ``dots_with_no_batch_dims_saveable``.  GEMM launches of the second run
-    count under the launch role ``recompute``; a kept product launches
-    none there.  (Selective checkpointing,
-    ``create_selective_checkpoint_contexts``, would keep the same products,
-    but its dispatch mode runs Python on every op of the forward and the
+    (``dots``) the block keeps, besides its inputs, exactly the 2-D
+    products that JAX's ``dots_with_no_batch_dims_saveable`` saves for the
+    JAX package's block (``kernels/ops.kept_products``): every output of
+    the GEMM operator and the MoE router's f32 product (:func:`kept_mm`)
+    that the backward reads, which the recompute takes back in place of
+    running it.  The block's closing product (the MLP's down product, an
+    SSM block's output projection), whose output feeds only the residual
+    add, is not kept: the backward reads nothing of it, and the recompute,
+    which stops at the last tensor the forward saved, takes a placeholder
+    there.  So a dense block keeps wq, wk, wv, wo, gate and up.
+    Attention's batched products, the MoE experts' and the SSD scan's run
+    again, as under JAX's policy.  GEMM launches of the second run count
+    under the launch role ``recompute``: a ``dots`` block launches none
+    there.  (Selective checkpointing,
+    ``create_selective_checkpoint_contexts``, could keep products too, but
+    its dispatch mode runs Python on every op of the forward and the
     recompute, which made yi-6b's step slower than ``full``'s:
     ``chip_smoke.py`` phase 16(a) times both, ``PERF.md`` §6.)"""
 
@@ -243,7 +248,8 @@ def _checkpointed(fn, keep_products: bool = False):
 def _remat(cfg: ArchConfig, fn):
     """A block body under the config's rematerialization: ``none`` keeps
     every intermediate for the backward, ``full`` only the body's inputs,
-    ``dots`` its inputs and its 2-D products (:func:`_checkpointed`)."""
+    ``dots`` its inputs and the 2-D products its backward reads
+    (:func:`_checkpointed`)."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "full":
@@ -309,7 +315,8 @@ def mlp_apply(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         hidden = cm.mlp_act(cfg.mlp_kind, cm.dense(p["wi"], x), cm.dense(p["wg"], x))
     else:
         hidden = cm.mlp_act(cfg.mlp_kind, cm.dense(p["wi"], x))
-    return cm.dense(p["wo"], hidden)
+    with closing_product():  # its output feeds only the block's residual add
+        return cm.dense(p["wo"], hidden)
 
 
 def _moe_route(cfg: ArchConfig, p: dict, xf: torch.Tensor):
@@ -317,7 +324,7 @@ def _moe_route(cfg: ArchConfig, p: dict, xf: torch.Tensor):
     balance + router z-loss), all in f32."""
     e, k = cfg.n_experts, cfg.experts_per_token
     t = xf.shape[0]
-    router_logits = xf.float() @ p["router"]["w"].float()
+    router_logits = kept_mm(xf.float(), p["router"]["w"].float())
     probs = torch.softmax(router_logits, dim=-1)
     top_w, top_e = torch.topk(probs, k, dim=-1)
     if cfg.router_norm_topk:

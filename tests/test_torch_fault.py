@@ -223,8 +223,14 @@ def test_process_lanes_recover_every_planted_transient(tmp_path, frozen_clock):
     """A seeded plan of crashes, hangs and corrupt values over process
     lanes with retries: every transient is recovered, each crash and
     hang respawns a worker, and the journal's cost table and the records
-    are the fault-free reference run's, the records byte for byte."""
-    plan = FaultPlan(seed=2, p_crash=0.15, p_hang=0.05, p_corrupt=0.15, hang_s=10.0, fires=1)
+    are the fault-free reference run's, the records byte for byte.  A
+    clean trial takes at most 0.84 s from dispatch to result (its first
+    on a worker builds the backend) with this file, ``test_torch_remat.py``
+    and ``test_torch_train.py`` side by side under ``-n 6``: the lane
+    timeout is 12 s, above 10x that, so no clean trial counts as a hang
+    under the suite's load, and a planted hang sleeps 40 s, over 3x the
+    timeout, so every one of them does."""
+    plan = FaultPlan(seed=2, p_crash=0.15, p_hang=0.05, p_corrupt=0.15, hang_s=40.0, fires=1)
     wl_kw = dict(op="gemm", dims=(512, 256, 1024), dtype="float32", label="a")
     def ref_factory(space):  # the same wrapper (its name keys the records), no faults
         return RefFaultCost(RefTable(space), RefPlan(seed=2), fault_dir=str(tmp_path / "rf"))
@@ -240,7 +246,7 @@ def test_process_lanes_recover_every_planted_transient(tmp_path, frozen_clock):
     stats = MeasureStats()
     # a budget no slot exhausts: a degraded slot measures in this process,
     # where a planted crash would end the test run
-    with ProcessExecutor(timeout_s=2.0, max_respawns=1000) as ex, \
+    with ProcessExecutor(timeout_s=12.0, max_respawns=1000) as ex, \
             TrialJournal(str(tmp_path / "port.jsonl")) as j:
         session = TuningSession(TuningRecords(str(tmp_path / "port.json")),
                                 cost_factory=factory, seed=3, verbose=False, journal=j)

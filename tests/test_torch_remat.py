@@ -1,20 +1,26 @@
 """Remat ``dots`` against the JAX package's, and the GEMM operator it rests on.
 
-``dots`` runs each block under a checkpoint whose forward keeps the
-outputs of the ``repro_torch::gemm`` operator (every 2-D product of a
-block but the MoE router's small f32 one) and whose recompute takes them
-back in place of running the products; everything else is recomputed,
-as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` keeps
-every ``dot_general`` without batch dimensions.  Held here, on the CPU:
+``dots`` runs each block under a checkpoint whose forward keeps the 2-D
+products its backward reads (the ``repro_torch::gemm`` operator's outputs
+and the MoE router's f32 product, but not the block's closing product,
+which feeds only the residual add) and whose recompute takes them back
+in place of running the products; everything else is recomputed, as
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` saves the
+``dot_general`` outputs without batch dimensions that the backward
+reads.  Held here, on the CPU:
 
 - loss and gradients of the five families under ``dots`` against the
   reference's ``value_and_grad`` under ``dots`` (its Pallas GEMM off, its
   default), at the training limits of ``tests/test_torch_train.py``:
   loss rtol 1e-5, f32 gradients rtol 1e-4 / atol 1e-6;
-- what is saved: the products the port does not recompute against the
-  residuals ``jax.ad_checkpoint.print_saved_residuals`` lists for the
-  reference's block, and with the reference's Pallas GEMM on, which its
-  policy does not see (it saves none of its products);
+- what is saved: the products each block of the six families keeps
+  (dense, MoE, encoder-decoder, VLM, SSM, hybrid), as a multiset of
+  shapes and types, against the residuals
+  ``jax.ad_checkpoint.print_saved_residuals`` lists for the reference's
+  block, and with the reference's Pallas GEMM on, which its policy does
+  not see (it saves none of its products);
+- the closing product's placeholder: NaN in the recompute, and the
+  ``dots`` gradients equal ``full``'s all the same, so nothing reads it;
 - what is recomputed (the GEMM kernel's work reports, which a kept
   product does not make): no GEMM in the recompute under ``dots``, each
   block product once under ``full``, attention's batched products under
@@ -30,6 +36,7 @@ nothing (the reference's drop gap, ROADMAP.md)."""
 import collections
 import contextlib
 import io
+import math
 import re
 
 import jax
@@ -46,6 +53,7 @@ from repro.models.api import Model as RefModel
 from repro_torch.configs import registry
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.kernels import gemm as gemm_mod
+from repro_torch.kernels import ops
 from repro_torch.launch import dryrun
 from repro_torch.models import transformer as tf
 from repro_torch.models.api import Model
@@ -57,6 +65,10 @@ from repro_torch.utils.tree import tree_from_numpy, tree_paths
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 FAMILIES = ["yi-6b", "qwen3-moe-235b-a22b", "whisper-tiny", "mamba2-130m", "zamba2-1.2b"]
+#: one arch of each family: dense, MoE, encoder-decoder, VLM, SSM, hybrid
+EVERY_FAMILY = ["yi-6b", "qwen3-moe-235b-a22b", "whisper-tiny", "llava-next-34b",
+                "mamba2-130m", "zamba2-1.2b"]
+FRONTEND_LEN = 16  # the VLM's precomputed frontend embeddings a sequence
 GEMM = torch.ops.repro_torch.gemm.default  # the operator opcheck takes
 BATCHED = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
 
@@ -88,9 +100,10 @@ def _models(name: str, remat: str = "dots"):
     return cfg, Model(cfg, device="cpu"), params, ref, ref_params
 
 
-def _batch(cfg, seed: int = 5):
-    """Tokens and labels (some masked), and whisper's encoder frames, the
-    same for both packages."""
+def _batch(cfg, seed: int = 5, frontend: bool = False):
+    """Tokens and labels (some masked), and whisper's encoder frames (and,
+    with ``frontend``, a VLM's frontend embeddings), the same for both
+    packages."""
     seq = 64 if cfg.family in ("ssm", "hybrid") else 96  # above the threshold (64)
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (2, seq)).astype(np.int32)
@@ -101,6 +114,9 @@ def _batch(cfg, seed: int = 5):
     if cfg.family == "encdec":
         frames = rng.standard_normal((2, cfg.encoder_len, cfg.d_model)).astype(np.float32)
         ref["enc_frames"], port["enc_frames"] = jnp.asarray(frames), torch.from_numpy(frames)
+    if frontend and cfg.family == "vlm":
+        emb = rng.standard_normal((2, FRONTEND_LEN, cfg.d_model)).astype(np.float32)
+        ref["frontend_embeds"], port["frontend_embeds"] = jnp.asarray(emb), torch.from_numpy(emb)
     return ref, port
 
 
@@ -162,41 +178,108 @@ def test_dots_matches_the_reference_dots(name):
 # -- what is saved, what is recomputed ------------------------------------------------
 
 
-def _reference_residuals(cfg, layer, x, pallas: bool) -> list[tuple[int, ...]]:
-    """Shapes of what the reference's block under ``dots`` keeps for its
-    backward, less its arguments and constants."""
-    pos = jnp.arange(x.shape[1])[None]
-    body = ref_tf._remat(cfg, lambda p, x: ref_tf.block_apply(cfg, p, x, pos, moe=False)[0])
+_JAX_TYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _reference_residuals(body, params, x, pallas: bool = False) -> list[tuple]:
+    """``(shape, dtype)`` of what the reference's block ``body`` (under
+    ``dots``) keeps for its backward, less its arguments and constants.  A
+    residual stacked by a layer scan (a hybrid group's SSM layers) counts
+    as one product a layer."""
     if pallas:
         ref_ops.set_kernel_policy(ref_ops.KernelPolicy(use_pallas=True, interpret=True))
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
-            jax.ad_checkpoint.print_saved_residuals(lambda p, x: body(p, x).sum(), layer, x)
+            jax.ad_checkpoint.print_saved_residuals(lambda p, x: body(p, x).sum(), params, x)
     finally:
         ref_ops.set_kernel_policy(ref_ops.KernelPolicy())
-    shapes = []
+    kept = []
     for line in out.getvalue().splitlines():
         if "from the argument" in line or "from a constant" in line:
             continue
-        dims = re.match(r"\w+\[([\d,]*)\]", line).group(1)
-        shapes.append(tuple(int(d) for d in dims.split(",") if d))
-    return shapes
+        dtype, dims = re.match(r"(\w+)\[([\d,]*)\]", line).groups()
+        shape = tuple(int(d) for d in dims.split(",") if d)
+        kept += [(shape[-2:], _JAX_TYPES[dtype])] * math.prod(shape[:-2])
+    return kept
+
+
+def _reference_blocks(name: str, cfg, ref_params, seq: int) -> list[list[tuple]]:
+    """What each remat block of the reference's model keeps under ``dots``,
+    in the order the port runs its blocks: whisper's encoder blocks, then
+    its decoder blocks (cross attention over the encoder's output); a
+    hybrid's groups (their SSM layers and the shared block); the layers
+    of the others.  Each block of a kind is the same function of the same
+    shapes, so the first layer's parameters stand for every layer's."""
+    from repro.models import hybrid as ref_hy
+    from repro.models import mamba2 as ref_mb
+
+    def first(tree):
+        return jax.tree_util.tree_map(lambda t: t[0], tree)
+
+    dt = jnp.dtype(cfg.compute_dtype)
+    x = jnp.zeros((2, seq, cfg.d_model), dt)
+    pos = jnp.arange(seq)[None]
+    if cfg.family == "ssm":
+        body = ref_mb._remat_wrap(cfg, lambda p, x: ref_mb.mamba_block_apply(cfg, p, x))
+        return [_reference_residuals(body, first(ref_params["layers"]), x)] * cfg.n_layers
+    if cfg.family == "hybrid":
+        i, n_groups, _ = ref_hy._split(cfg)
+
+        def group(gp, x):
+            x = ref_hy._run_group_stack(cfg, gp, x, i)
+            return ref_tf.block_apply(cfg, ref_params["shared_attn"], x, pos, moe=False)[0]
+
+        body = jax.checkpoint(
+            group, policy=jax.checkpoint_policies.dots_with_no_batch_dims_saveable)
+        return [_reference_residuals(body, first(ref_params["groups"]), x)] * n_groups
+    blocks = []
+    enc_out = None
+    if cfg.family == "encdec":
+        xe = jnp.zeros((2, cfg.encoder_len, cfg.d_model), dt)
+        body = ref_tf._remat(cfg, lambda p, x: ref_tf.block_apply(
+            cfg, p, x, jnp.arange(cfg.encoder_len)[None], moe=False, causal=False)[0])
+        blocks += [_reference_residuals(body, first(ref_params["encoder"]["layers"]), xe)
+                   ] * cfg.n_encoder_layers
+        enc_out = xe
+    body = ref_tf._remat(cfg, lambda p, x: ref_tf.block_apply(
+        cfg, p, x, pos, moe=cfg.family == "moe", enc_out=enc_out)[0])
+    return blocks + [_reference_residuals(body, first(ref_params["layers"]), x)] * cfg.n_layers
+
+
+def _kept_and_grads(name: str, remat: str):
+    """One port train step (``value_and_grad``) of the reduced ``name``
+    under ``remat``: the blocks' :class:`ops.KeptBlock` records, the
+    gradients, the placeholders the recompute took, and the models."""
+    cfg, model, params, ref, ref_params = _models(name, remat)
+    _, batch = _batch(cfg, frontend=True)
+    handed = []
+    replayed = ops._replayed
+
+    def recording(store, m, n, device):  # the same call, its result noted
+        out = replayed(store, m, n, device)
+        if out.stride() == (0, 0):
+            handed.append(out)
+        return out
+
+    with ops.watch_kept() as seen, pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "_replayed", recording)
+        grads, _ = value_and_grad(model, params, batch)
+    return cfg, ref, ref_params, batch, seen, dict(tree_paths(grads)), handed
 
 
 @pytest.mark.parametrize("remat", ["full", "dots"])
 def test_saved_products_are_the_references_residuals(remat):
     """One reduced yi-6b block (2 x 96 tokens, chunked attention).  Under
-    ``dots`` the products the port does not run again in the recompute are
-    the reference's saved ``dot_general`` outputs (2-D, as its ``gemm``
-    flattens the leading dims), plus the block's last product: its output
-    only feeds the residual add, so JAX's backward reads nothing of it,
-    while the port keeps every product of the forward until the
-    recompute.  Attention's batched products are recomputed.  Under
-    ``full`` every product runs again.  With its
-    Pallas GEMM on, the reference's ``dots`` keeps none of its products
-    (a ``pallas_call`` is not a ``dot_general``): the gap ROADMAP.md
-    lists."""
+    ``dots`` the block keeps the reference's six saved ``dot_general``
+    outputs (2-D, as its ``gemm`` flattens the leading dims): wq, wk, wv,
+    wo, gate and up.  Its seventh product, the MLP's down product, feeds
+    only the residual add, so JAX's backward reads nothing of it: the
+    port does not keep it, and its recompute computes none of the seven.
+    Attention's batched products are recomputed.  Under ``full`` every
+    product runs again and nothing is kept.  With its Pallas GEMM on, the
+    reference's ``dots`` keeps none of its products (a ``pallas_call`` is
+    not a ``dot_general``): the gap ROADMAP.md lists."""
     cfg, _, params, ref, ref_params = _models("yi-6b", remat)
     x = np.random.default_rng(1).standard_normal((2, 96, cfg.d_model)).astype(np.float32)
     layer = jax.tree_util.tree_map(lambda t: t[0], ref_params["layers"])
@@ -204,7 +287,7 @@ def test_saved_products_are_the_references_residuals(remat):
     xt = torch.from_numpy(x).requires_grad_()
     pos = torch.arange(96)[None]
     body = tf._remat(cfg, lambda p, x: tf.block_apply(cfg, p, x, pos, moe=False)[0])
-    with _Products() as first:
+    with _Products() as first, ops.watch_kept() as seen:
         y = body(port_layer, xt).sum()
     with _Products() as backward:
         y.backward()
@@ -215,13 +298,62 @@ def test_saved_products_are_the_references_residuals(remat):
     assert batched and all(again[k] == n for k, n in batched.items())
     if remat == "full":
         assert again == forward  # everything runs again
+        assert seen == []
         return
     assert not any(what == "gemm" for what, _ in again)
-    assert products[-1] == (192, cfg.d_ff, cfg.d_model)  # the MLP's down product
-    want = _reference_residuals(ref.cfg, layer, jnp.asarray(x), pallas=False)
-    assert sorted((m, n) for m, _, n in products[:-1]) == sorted(want)
-    assert all(len(s) == 2 for s in want) and len(want) == 6
-    assert _reference_residuals(ref.cfg, layer, jnp.asarray(x), pallas=True) == []
+    assert len(products) == 7 and products[-1] == (192, cfg.d_ff, cfg.d_model)
+    (block,) = seen
+    down = ((192, cfg.d_model), torch.float32)
+    assert block.unread == down and block.placeholder_handed
+    want = _reference_residuals(ref_tf._remat(ref.cfg, lambda p, x: ref_tf.block_apply(
+        ref.cfg, p, x, jnp.arange(96)[None], moe=False)[0]), layer, jnp.asarray(x))
+    assert sorted(block.kept) == sorted(want) == sorted(
+        ((m, n), torch.float32) for m, _, n in products[:-1])
+    assert all(len(s) == 2 for s, _ in want) and len(want) == 6
+    assert _reference_residuals(ref_tf._remat(ref.cfg, lambda p, x: ref_tf.block_apply(
+        ref.cfg, p, x, jnp.arange(96)[None], moe=False)[0]), layer, jnp.asarray(x),
+        pallas=True) == []
+
+
+@pytest.mark.parametrize("name", EVERY_FAMILY)
+def test_every_familys_dots_blocks_keep_the_references_products(name):
+    """A train step of each family's reduced model under ``dots``: every
+    block keeps, as a multiset of shapes and types, what the reference's
+    block keeps (``print_saved_residuals``, less arguments and
+    constants).  The dense and VLM blocks keep six products; the MoE
+    block attention's four and the router's f32 logits (its experts'
+    products have a batch dim); whisper's encoder block five, its decoder
+    block nine (with cross attention's four); an SSM block its input
+    projection; a hybrid group its SSM layers' input and output
+    projections and the shared block's six.  The closing product (the
+    MLP's down product, an SSM block's output projection), which feeds
+    only the residual add, is the one left out where the block has one,
+    and its recompute took the placeholder in its place."""
+    cfg, ref, ref_params, batch, seen, _, _ = _kept_and_grads(name, "dots")
+    seq = batch["tokens"].shape[1] + (FRONTEND_LEN if cfg.family == "vlm" else 0)
+    want = _reference_blocks(name, ref.cfg, ref_params, seq)
+    assert len(seen) == len(want) > 0
+    for block, kept in zip(seen, want):
+        assert collections.Counter(block.kept) == collections.Counter(kept)
+        assert block.placeholder_handed == (block.unread is not None)
+        assert (block.unread is None) == (cfg.family == "moe")
+
+
+@pytest.mark.parametrize("name", EVERY_FAMILY)
+def test_dots_gradients_equal_fulls_with_a_nan_placeholder(name):
+    """The closing product's placeholder in the recompute is NaN, and the
+    ``dots`` gradients equal ``full``'s all the same (finite, at the
+    training limits): nothing the backward reads comes from it.  The MoE
+    router's kept product, whose backward is its own, too."""
+    cfg, _, _, _, seen, dots, handed = _kept_and_grads(name, "dots")
+    full = _kept_and_grads(name, "full")[5]
+    assert len(handed) == sum(b.unread is not None for b in seen)
+    assert handed or cfg.family == "moe"
+    assert all(torch.isnan(t).all() for t in handed)
+    assert list(dots) == list(full)
+    for path, g in full.items():
+        assert torch.isfinite(dots[path]).all(), path
+        _close(dots[path], g.numpy(), GRAD_RTOL, GRAD_ATOL)
 
 
 @pytest.mark.parametrize("name", ["yi-6b", "mamba2-130m", "zamba2-1.2b"])

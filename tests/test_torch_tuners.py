@@ -325,6 +325,37 @@ def test_rnn_train_step_matches_reference():
     _assert_one_adam_step(port, old, _np(params), _np(opt_state))
 
 
+def test_rnn_sampling_memo_changes_no_draw():
+    """The controller memoizes each step's hidden state and choice
+    distribution by the choices before it while its network is fixed: the
+    same seed draws the same configurations, choices and masks with the
+    memo emptied before every draw, before and after a train step."""
+    space = GemmConfigSpace(256, 256, 256)
+    memo, fresh = (RNNControllerTuner(space, None, seed=5, device="cpu") for _ in range(2))
+    for t in (memo, fresh):
+        t._setup()
+
+    def draws(t, n, clear):
+        out = []
+        for _ in range(n):
+            if clear:
+                t._memo.clear()
+            s, c, m = t._sample_config()
+            out.append((s.key(), c.tolist(), m.tolist()))
+        return out
+
+    for _ in range(2):
+        got = draws(memo, 200, clear=False)
+        assert got == draws(fresh, 200, clear=True)
+        assert len(memo._memo) < 200 * len(memo.seq_spec)  # later draws hit
+        choices = np.stack([np.asarray(c, np.int32) for _, c, _ in got[:8]])
+        masks = np.stack([np.asarray(m) for _, _, m in got[:8]])
+        adv = np.random.default_rng(3).normal(size=8).astype(np.float32)
+        for t in (memo, fresh):
+            t._train_step(choices, masks, adv)
+        assert memo._memo == {}
+
+
 @pytest.mark.parametrize("ref_cls,port_cls,first_round", [
     (RefNA2C, NA2CTuner, 1 + 16),  # c_ref's state, then one batch of 16
     (RefRNN, RNNControllerTuner, 1 + 8),  # the untiled state, then 8 samples
