@@ -13,10 +13,11 @@ single-card dry run: every (arch x shape) cell's roofline from a trace on
 the meta device, and yi-6b's steps counted on the card against it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --search-only [path/to/src]   # phases 11(b), 16(d) alone
 
 Phases (each prints its wall time):
 
-  1. build both kernels (``src/repro_torch/kernels/csrc/*.cu``) and two
+  1. build both kernels (``src/repro_torch/kernels/csrc/*.cu``) and
      variants of each with a planted fault (its source with one line
      changed, built in a temporary directory), one nvcc per source, all
      started together; count the tensor-core instructions (``HGMMA``,
@@ -25,12 +26,21 @@ Phases (each prints its wall time):
      print ptxas' registers, spills and injected ``warpgroup.arrive``s for
      them (the GEMM's ``wgmma`` instantiations must have neither spills
      nor injected arrives; phase 9 prints the served flash instantiation's);
+     a ``[sass]`` line for each of the 16 f32 SIMT instantiations
+     (FFMA, LDS.128, LDGSTS.128 and LDG.E.128 counts, registers, spills),
+     failing on a spill, on no 16-byte cp.async, or on no LDS.128 where
+     reg_m or reg_n is 4 or more;
   2. hold the GEMM kernels against their plain PyTorch version on small
      products: every compiled instantiation's launch limit against the
-     analyzer's, the f32 SIMT kernel under several configs, every bf16
+     analyzer's, the f32 ring (stages and shared-memory bytes the
+     kernel launches a tile with) against ``analysis.gemm_stages`` /
+     ``gemm_smem_bytes``, the f32 SIMT kernel under several configs and
+     every register tile under one stage and under a ring of 4 over 4 or
+     more slabs (``kernels.gemm.simt_ring_configs``), every bf16
      ``wgmma`` instantiation with one and two warpgroups, the bf16
      bandwidth kernel at M = 8 and 16, and the autograd backward; then see
-     the bf16 limit refuse both planted GEMM faults;
+     the limits refuse the three planted GEMM faults (the f32 one at
+     1024^3);
   3. tune the five yi-6b bf16 GEMMs (8192 tokens) and one decode product,
      (8, 4096, 11008), with G-BFS on times measured on the card, each
      seeded from the kernel's heuristic state;
@@ -47,7 +57,9 @@ Phases (each prints its wall time):
      dtype's list, f32 and bf16, causal and full, G in {1, 4, 8}, every
      head_dim, and the bf16 block_kv of 48, 80, 96 and 112 on sequences
      they divide), the wrapper refuses indivisible blocks, and the bf16
-     limit refuses both planted faults;
+     limit refuses both planted faults; then the f32 kernel (CUDA cores,
+     on no served path) timed at one shape it checks against SDPA in
+     f32, its own ``kernels`` row (``flash_f32[...]``);
   8. tune yi-6b's prefill attention (4096, 4096, 128) bf16 with G-BFS on
      times measured on the card, seeded from the kernel's heuristic
      blocks, then rerun ``tune --op flash --warm-start`` on the same
@@ -238,7 +250,10 @@ a path's launches are the counts less the recorded, plus the replayed:
 the prefill's, the warm-up's, and each graph's once per replay.  Each
 kernel row gives ``launches_tune``, ``launches_serve`` (phase 9) and
 ``launches_families`` (phase 13, at the row's shape; the flash row at
-every shape) and their sum as ``launches``.  GEMM rows give each
+every shape) and their sum as ``launches``.  The ``flash_f32[...]`` row
+counts the float32 flash kernel's launches on the same paths, read
+from ``flash_attention.DTYPE_LAUNCHES`` (keyed by dtype; ``LAUNCHES``
+is keyed by shape alone, and the other flash rows count every dtype).  GEMM rows give each
 time twice: ``ms``/``library_ms`` timed as earlier slices timed them
 (the event span holds the host's enqueue of the call), and
 ``ms_spin``/``library_ms_spin`` with the card kept busy while the host
@@ -287,11 +302,13 @@ TOL = {torch.float32: (1e-4, 8e-4), torch.bfloat16: (1.6e-2, 2e-3)}
 #: GEMM against an f32 torch.matmul: the JAX package's GEMM tolerances
 MATMUL_TOL = {torch.float32: (1e-4, 8e-4), torch.bfloat16: (0.05, 0.4)}
 GEMM_CU = os.path.join(SRC, "repro_torch", "kernels", "csrc", "gemm.cu")
-#: planted faults the bf16 GEMM limit must refuse, each in the kernel it
+#: planted faults the GEMM limits must refuse, each in the kernel it
 #: breaks: one line of the source, and what a variant built beside it has
 GEMM_FAULTS = {
     # the wgmma kernel's warpgroups read the ring slot after slab i's
     "wrong_ring_slot": ("const int slot = i % stages;", "const int slot = (i + 1) % stages;"),
+    # the f32 SIMT kernel multiplies the ring slot after slab i's
+    "simt_wrong_slot": ("const int cur = i % stages;", "const int cur = (i + 1) % stages;"),
     # the bandwidth kernel's reduction leaves out the last warp's partial sums
     "split_k_drop": (
         "for (int w = 0; w < kStreamWarps; ++w) s += red[w * bm * BN + e];",
@@ -422,6 +439,11 @@ COMPARE_SEEDS = 2
 COMPARE_FRACTION = 0.001
 
 
+#: phase 2: the product every f32 register tile is checked on under one
+#: stage and under a full ring (``kernels.gemm.simt_ring_configs``)
+SIMT_RING_DIMS = (256, 2048, 256)
+
+
 def phase(name: str, t0: float) -> None:
     print(f"[phase] {name}: {time.perf_counter() - t0:.1f}s", flush=True)
 
@@ -514,10 +536,11 @@ def fault_variant(source: str, faults: dict, name: str, out_dir: str):
     return build_library(path, build_dir=out_dir)
 
 
-def sass_counts(lib, pattern: re.Pattern) -> dict:
-    """Tensor-core instructions (``HGMMA`` for wgmma, ``HMMA`` for
-    mma.sync) per kernel whose name ``pattern`` matches, keyed by the
-    pattern's groups, from ``cuobjdump -sass`` of the built library."""
+def sass_counts(lib, pattern: re.Pattern, ops: str = r"\b(HGMMA|HMMA)\.") -> dict:
+    """Instructions matching ``ops`` (by default the tensor-core ones:
+    ``HGMMA`` for wgmma, ``HMMA`` for mma.sync) per kernel whose name
+    ``pattern`` matches, keyed by the pattern's groups, from ``cuobjdump
+    -sass`` of the built library."""
     from repro_torch.kernels.build import nvcc_path
 
     cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
@@ -531,7 +554,7 @@ def sass_counts(lib, pattern: re.Pattern) -> dict:
             if key:
                 counts[key] = collections.Counter()
         elif key:
-            counts[key].update(re.findall(r"\b(HGMMA|HMMA)\.", line))
+            counts[key].update(re.findall(ops, line))
     return counts
 
 
@@ -598,6 +621,39 @@ def gemm_tensor_core_report(lib, ptxas_log: str) -> None:
                          f"(spill bytes, arrives): {bad}")
 
 
+#: the SIMT kernel's opcodes the ``[sass]`` lines count: its FMAs, its
+#: 128-bit shared loads, and its 128-bit global loads (cp.async's LDGSTS,
+#: or a plain LDG)
+SIMT_OPS = r"\b(FFMA|LDS(?:\.U)?\.128|LDGSTS\.[\w.]*\.128|LDG\.E(?:\.\w+)*\.128)\b"
+
+
+def simt_report(lib, ptxas_log: str) -> None:
+    """One ``[sass]`` line for each float32 SIMT instantiation
+    ``gemm_tiled<float, RM, RN>``: its FFMA, LDS.128, LDGSTS.128 and
+    LDG.E.128 counts, registers and spill stores; exits on a missing
+    instantiation, a spill, no 128-bit copy (cp.async of B's rows), or
+    no 128-bit shared load where reg_m or reg_n is 4 or more."""
+    pattern = re.compile(r"gemm_tiledIfLi(\d+)ELi(\d+)E")
+    counts = sass_counts(lib, pattern, SIMT_OPS)
+    ptxas, _ = ptxas_report(ptxas_log, pattern)
+    bad = []
+    for rm, rn in sorted(counts):
+        by_kind = collections.Counter()
+        for op, n in counts[rm, rn].items():
+            by_kind[op.split(".")[0] + (".128" if op.endswith(".128") else "")] += n
+        spills = _spills(ptxas[rm, rn])
+        print(f"[sass] gemm_tiled<float, {rm}, {rn}>: FFMA {by_kind['FFMA']} LDS.128 "
+              f"{by_kind['LDS.128']} LDGSTS.128 {by_kind['LDGSTS.128']} LDG.E.128 "
+              f"{by_kind['LDG.128']}; registers {_regs(ptxas[rm, rn])}; spill stores "
+              f"{spills} B", flush=True)
+        if (spills or not by_kind["FFMA"] or not by_kind["LDGSTS.128"]
+                or (max(rm, rn) >= 4 and not by_kind["LDS.128"])):
+            bad.append((rm, rn))
+    if len(counts) != 16 or bad:
+        raise SystemExit(f"f32 SIMT instantiations missing ({16 - len(counts)}) or with a spill "
+                         f"or without 128-bit loads: {bad}")
+
+
 def tensor_core_report(lib, ptxas_log: str) -> dict:
     """Count the tensor-core instructions (``HGMMA`` for wgmma, ``HMMA`` for
     mma.sync) of each bf16 flash instantiation (one per head_dim and
@@ -623,15 +679,15 @@ def tensor_core_report(lib, ptxas_log: str) -> dict:
 
 def refuse_gemm_fault(what: str, name: str, lib, a, b, cfg, ref) -> float:
     """Launch the planted-fault variant ``name`` on the operands the
-    correct kernel was checked on; the bf16 limit must refuse it.
+    correct kernel was checked on; the operands' limit must refuse it.
     Returns its max abs error."""
     from repro_torch.kernels.gemm import launch_with
 
-    err, ok = within(launch_with(lib, a, b, cfg), ref, torch.bfloat16, gemm_tol(a.shape[1]))
-    print(f"[fault] gemm {what} {cfg}: {name} max abs err {err} -> "
+    err, ok = within(launch_with(lib, a, b, cfg), ref, a.dtype, gemm_tol(a.shape[1]))
+    print(f"[fault] gemm {a.dtype} {what} {cfg}: {name} max abs err {err} -> "
           f"{'within the limit' if ok else 'refused'}", flush=True)
     if ok:
-        raise SystemExit(f"the bf16 GEMM limit let the planted fault {name} pass ({what})")
+        raise SystemExit(f"the {a.dtype} GEMM limit let the planted fault {name} pass ({what})")
     return err
 
 
@@ -667,7 +723,7 @@ def main() -> None:
     from repro_torch.core import Budget, TrialJournal, TuningRecords, TuningSession
     from repro_torch.core.analysis import (
         GEMM_BW_BN, GEMM_WG_INSTANCES, flash_max_threads, gemm_bf16_max_threads,
-        gemm_kernel_kind, max_threads_for_reg_tile,
+        gemm_kernel_kind, gemm_smem_bytes, gemm_stages, max_threads_for_reg_tile,
     )
     from repro_torch.core.records import set_global_records
     from repro_torch.core.session import Workload
@@ -676,8 +732,8 @@ def main() -> None:
     from repro_torch.kernels import ops
     from repro_torch.kernels.gemm import (
         LAUNCHES, KernelConfig, build_kernel, default_config, gemm_plain,
-        gemm_tiled, kernel_config_from_state, kernel_max_threads, kernel_max_threads_bf16,
-        state_from_config,
+        gemm_tiled, kernel_config_from_state, kernel_f32_ring, kernel_max_threads,
+        kernel_max_threads_bf16, simt_ring_configs, state_from_config,
     )
     from repro_torch.launch.serve import ServeEngine
     from repro_torch.launch.tune import flash_workloads_for_arch, workloads_for_arch
@@ -743,6 +799,7 @@ def main() -> None:
                        for name in GEMM_FAULTS}
     flash_ptxas = tensor_core_report(*builds["flash"][0])
     gemm_tensor_core_report(*builds["gemm"][0])
+    simt_report(*builds["gemm"][0])
     phase("1 build", t0)
 
     # -- 2. kernel vs plain on small products ----------------------------------
@@ -762,6 +819,19 @@ def main() -> None:
                              f"disagrees with the analyzer ({want})")
     print(f"[check] launch limits of 16 f32 and {len(bf16_instances)} bf16 GEMM "
           f"instantiations equal the analyzer's")
+    ring_configs = simt_ring_configs()
+    ring_tiles = {(c.block_m, c.block_k, c.block_n) for c in ring_configs} | {
+        (128, 64, 128), (64, 512, 32), (8, 1024, 8), (12, 8, 16), (10, 8, 16), (16, 1024, 40),
+        (512, 128, 512)}
+    for tile in sorted(ring_tiles):
+        got = kernel_f32_ring(*tile)
+        want = (gemm_stages(*tile, 4), gemm_smem_bytes(*tile, 4) if gemm_stages(*tile, 4) else 0)
+        if got != want:
+            raise SystemExit(f"the f32 ring of {tile}: the kernel launches {got} (stages, "
+                             f"bytes), the analyzer says {want}")
+    print(f"[check] the f32 SIMT ring (stages, shared-memory bytes) of {len(ring_tiles)} tiles "
+          f"equals the analyzer's: " + " ".join(
+              f"{bm}x{bk}x{bn}:{gemm_stages(bm, bk, bn, 4)}" for bm, bk, bn in sorted(ring_tiles)))
     simt_configs = [
         KernelConfig(128, 32, 128, 32, 64, 8, 8),
         KernelConfig(64, 16, 64, 32, 32, 4, 4),
@@ -769,7 +839,10 @@ def main() -> None:
         KernelConfig(128, 8, 64, 64, 16, 8, 2),
         KernelConfig(32, 64, 32, 0, 0, 1, 1),
         KernelConfig(8, 128, 8, 0, 0, 1, 1),
-    ]
+        # N = 2 (mod 4): B's rows by 4-byte copies; bk = 12: A in runs of 4 k
+        KernelConfig(32, 8, 10, 32, 10, 1, 2),
+        KernelConfig(32, 12, 10, 16, 10, 2, 1),
+    ] + ring_configs
     # every wgmma instantiation with one warpgroup and with two (along m and
     # along n); the bandwidth kernel at 8 and 16 rows, every column count
     wgmma_configs = [KernelConfig(bm, bk, bn, sm, sn) for bk, sm, sn in GEMM_WG_INSTANCES
@@ -777,11 +850,13 @@ def main() -> None:
     stream_configs = [KernelConfig(bm, bk, bn, bm, bn) for bm in (8, 16) for bn in GEMM_BW_BN
                       for bk in (16, 48, 256, 512)]
     small = {
-        torch.float32: (((1024, 1024, 1024), (512, 256, 768), (256, 1024, 128)), simt_configs),
+        torch.float32: (((1024, 1024, 1024), (512, 256, 768), (256, 1024, 128), (64, 96, 1010),
+                         SIMT_RING_DIMS), simt_configs),
         torch.bfloat16: (((256, 512, 512), (128, 1024, 256), (64, 512, 512), (8, 4096, 1024),
                           (16, 1024, 512), (8, 11008, 256)), wgmma_configs + stream_configs),
     }
     n_checked, worst = collections.Counter(), collections.defaultdict(float)
+    simt_rings = collections.defaultdict(set)  # (reg_m, reg_n) -> one stage / a ring checked
     for dtype, (shapes, configs) in small.items():
         for m, k, n in shapes:
             a, b = rand((m, k), dtype), rand((k, n), dtype)
@@ -796,6 +871,9 @@ def main() -> None:
                                   gemm_tol(k))
                 n_checked[kind] += 1
                 worst[kind] = max(worst[kind], err)
+                if kind == "simt" and k >= 4 * cfg.block_k:
+                    simt_rings[cfg.reg_m, cfg.reg_n].add(
+                        min(gemm_stages(cfg.block_m, cfg.block_k, cfg.block_n, 4), 2))
         a = rand((256, 512), dtype).requires_grad_()
         b = rand((512, 384), dtype).requires_grad_()
         g = rand((256, 384), dtype)
@@ -805,13 +883,17 @@ def main() -> None:
     if not (n_checked["wgmma"] >= len(GEMM_WG_INSTANCES) and n_checked["stream"]
             and n_checked["simt"]):
         raise SystemExit(f"too few kernel/plain cases: {dict(n_checked)}")
+    if len(simt_rings) != 16 or any(v != {1, 2} for v in simt_rings.values()):
+        raise SystemExit(f"f32 register tiles not checked under one stage and a ring over "
+                         f"4 or more slabs: {dict(simt_rings)}")
     torch.cuda.synchronize()
     print(f"[check] kernel/plain products agree: {dict(n_checked)}; max abs err "
           f"{dict(worst)}; and 2 backward passes")
-    for (m, k, n), fault in (((1024, 1024, 1024), "wrong_ring_slot"),
-                             ((8, 4096, 4096), "split_k_drop")):
-        a, b = rand((m, k), torch.bfloat16), rand((k, n), torch.bfloat16)
-        cfg = default_config(m, k, n)
+    for (m, k, n), dtype, fault in (((1024, 1024, 1024), torch.bfloat16, "wrong_ring_slot"),
+                                    ((8, 4096, 4096), torch.bfloat16, "split_k_drop"),
+                                    ((1024, 1024, 1024), torch.float32, "simt_wrong_slot")):
+        a, b = rand((m, k), dtype), rand((k, n), dtype)
+        cfg = default_config(m, k, n, dtype.itemsize)
         refuse_gemm_fault(f"{(m, k, n)}", fault, gemm_fault_libs[fault], a, b, cfg,
                           gemm_plain(a, b, cfg))
     phase("2 kernel vs plain", t0)
@@ -1023,10 +1105,13 @@ def main() -> None:
         k, v = rand((2, 256, 2, 128), torch.bfloat16), rand((2, 256, 2, 128), torch.bfloat16)
         refuse_faults("q (2, 256, 16, 128)", fault_libs, q, k, v, (64, 32),
                       fa.flash_attention_plain(q, k, v, 64, 32))
+        f32_flash = flash_f32_row(rand, flush, peak_bytes)
+        kernels.append(f32_flash)
         phase("7 flash kernel vs plain", t0)
 
         # -- flash tuning path: counts zeroed here, read after phase 8 ---------------
         fa.LAUNCHES.clear()
+        fa.DTYPE_LAUNCHES.clear()
 
         # -- 8. tune the prefill attention, then the CLI on the same records ----------
         t0 = time.perf_counter()
@@ -1051,8 +1136,11 @@ def main() -> None:
                        "--max-trials", str(FLASH_CLI_TRIALS), "--records", records_path])
         flash_cli = json.loads(re.search(r"flash_launches=(.*)", out).group(1))
         flash_tune_launches = sum(fa.LAUNCHES.values()) + sum(flash_cli.values())
+        cli_dtype = json.loads(re.search(r"flash_dtype_launches=(.*)", out).group(1))
+        f32_flash["launches_tune"] = fa.DTYPE_LAUNCHES["float32"] + cli_dtype.get("float32", 0)
         print(f"[launches] flash tuning path: {flash_tune_launches} kernel launches "
-              f"({sum(flash_cli.values())} in the CLI process)")
+              f"({sum(flash_cli.values())} in the CLI process), float32 "
+              f"{f32_flash['launches_tune']}")
         phase("8 tune flash", t0)
 
         # -- 9. serve yi-6b at full width on the records -------------------------------
@@ -1075,6 +1163,7 @@ def main() -> None:
         ops.reset_dispatch_stats()
         LAUNCHES.clear()
         fa.LAUNCHES.clear()
+        fa.DTYPE_LAUNCHES.clear()
         engine = ServeEngine(cfg, params, max_batch=SERVE_REQUESTS,
                              max_len=SERVE_BUCKET + SERVE_TOKENS, prompt_buckets=[SERVE_BUCKET],
                              gen_buckets=[SERVE_TOKENS], device="cuda")
@@ -1083,6 +1172,8 @@ def main() -> None:
         stats = ops.dispatch_stats()
         launched, parts = serve_launches(ops.launch_counts(), engine.launch_report())
         serve_flash = sum(n for (kind, _), n in launched.items() if kind == "flash")
+        f32_flash["launches_serve"] = fa.DTYPE_LAUNCHES["float32"]
+        f32_flash["launches"] = f32_flash["launches_tune"] + f32_flash["launches_serve"]
         serve_gemm = {d: n for (kind, d), n in launched.items() if kind == "gemm"}
         served_gemms = sorted(serve_gemm)
         missing = sorted(set(SERVED_SHAPES) - set(served_gemms))
@@ -1105,7 +1196,7 @@ def main() -> None:
         print(f"[serve] GEMM dispatch split: records={stats['gemm']['records']} "
               f"heuristic={stats['gemm']['heuristic']} matmul={stats['gemm']['matmul']}; "
               f"GEMM kernel launches={sum(serve_gemm.values())}; "
-              f"flash kernel launches={serve_flash}")
+              f"flash kernel launches={serve_flash} (float32 {f32_flash['launches_serve']})")
         print(f"[serve] sample tokens: {tokens[0][:8].tolist()}")
         if stats["flash"]["records"] != cfg.n_layers or stats["flash"]["heuristic"] != 0:
             raise SystemExit(f"flash dispatch {stats['flash']}: expected {cfg.n_layers} "
@@ -1252,9 +1343,9 @@ def paper_tuners(kernels: list, gemm_rows: dict, rand, flush, peak_bytes: float,
     )
     from repro_torch.core.records import set_global_records
     from repro_torch.core.session import Workload
-    from repro_torch.core.tuners import TUNERS, NA2CTuner
+    from repro_torch.core.tuners import NA2CTuner
     from repro_torch.kernels import ops
-    from repro_torch.kernels.gemm import LAUNCHES, gemm_plain, gemm_tiled, kernel_config_from_state
+    from repro_torch.kernels.gemm import LAUNCHES, gemm_plain, kernel_config_from_state
 
     # -- (a) N-A2C on the served path: counts zeroed here, read after the serve
     rec = os.path.join(workdir, "na2c.json")
@@ -1316,9 +1407,54 @@ def paper_tuners(kernels: list, gemm_rows: dict, rand, flush, peak_bytes: float,
     na2c_journal = rec + ".journal.jsonl"
 
     # -- (b) the paper's comparison at Fig. 7's operating point --------------------
-    # how much of the space each dtype's kernels can launch at all
-    from repro_torch.core.analysis import HopperSpec, _gemm_state_launch_error
+    paper_comparison(kernels, rand, flush, peak_bytes)
 
+    # -- (c) N-A2C twice on the card: one seed, one trial sequence -------------------
+    space = GemmConfigSpace(256, 256, 256)
+    cost = AnalyticalHopperCost(space, dtype="float32")
+    s0 = get_op("gemm").default_state(space, "float32")
+    runs = [NA2CTuner(space, cost, seed=0, s0=s0, device="cuda").tune(
+        Budget(max_trials=NA2C_REPEAT_TRIALS)) for _ in range(2)]
+    seqs = [[(t.state.key(), t.cost) for t in r.trials] for r in runs]
+    print(f"[na2c] two runs on the card (256^3 float32 model, seed 0): trials="
+          f"{len(seqs[0])} identical={seqs[0] == seqs[1]} best={runs[0].best_cost:.4e}s",
+          flush=True)
+    if seqs[0] != seqs[1] or len(seqs[0]) != NA2C_REPEAT_TRIALS:
+        raise SystemExit("N-A2C on the card gave two different trial sequences")
+    return na2c_journal
+
+
+def draw_counter(rnn_controller):
+    """The RNN controller's draw counts by seed (``DRAWS``), zeroed; None
+    for a package from before they were counted (``--search-only`` on an
+    older tree)."""
+    draws = getattr(rnn_controller, "DRAWS", None)
+    if draws is not None:
+        draws.clear()
+    return draws
+
+
+def draws_note(draws, seed: int, wall_s: float) -> str:
+    """The RNN controller's draws in a search under ``seed`` and its wall
+    time per draw (the measurements included), for its ``[paper]`` and
+    ``[compare]`` lines; empty where the draws are not counted."""
+    if draws is None:
+        return ""
+    n = draws[seed]
+    return f" draws={n} wall_us_per_draw={1e6 * wall_s / max(n, 1):.2f}"
+
+
+def paper_comparison(kernels: list, rand, flush, peak_bytes: float) -> None:
+    """Phase 11(b): Fig. 7's operating point on the card, every tuner of
+    ``TUNERS`` once on 1024^3 float32 (the SIMT kernel); adds the
+    ``gemm[paper/1024^3-f32]`` row."""
+    from repro_torch.core import Budget, GemmConfigSpace, TuningRecords, TuningSession
+    from repro_torch.core.session import Workload
+    from repro_torch.core.tuners import TUNERS, rnn_controller
+    from repro_torch.core.analysis import HopperSpec, _gemm_state_launch_error
+    from repro_torch.kernels.gemm import LAUNCHES, gemm_plain, gemm_tiled, kernel_config_from_state
+
+    # how much of the space each dtype's kernels can launch at all
     paper_space, spec = GemmConfigSpace(*PAPER_DIMS), HopperSpec()
     n_launch = collections.Counter()
     for st in paper_space.enumerate():
@@ -1327,6 +1463,7 @@ def paper_tuners(kernels: list, gemm_rows: dict, rand, flush, peak_bytes: float,
     print(f"[paper] launchable states of GemmConfigSpace{PAPER_DIMS} (default HopperSpec): "
           f"bfloat16 {n_launch[2]}, float32 {n_launch[4]} of {paper_space.size()}", flush=True)
     LAUNCHES.clear()
+    draws = draw_counter(rnn_controller)
     results = {}
     for name in TUNERS:
         session = TuningSession(TuningRecords(), verbose=False, device="cuda")
@@ -1354,6 +1491,8 @@ def paper_tuners(kernels: list, gemm_rows: dict, rand, flush, peak_bytes: float,
         c0 = res.trials[0].cost
         c_ref = (f" c_ref={c0 if math.isfinite(c0) else 1.0}"
                  if name in ("n-a2c", "rnn-controller") else "")
+        if name == "rnn-controller":  # its draws, most of them already measured
+            c_ref += draws_note(draws, 0, res.wall_s)
         print(f"[paper] tuner={name} trials={res.n_trials} launchable={n_fin} "
               f"({n_fin / res.n_trials:.3f}) best_ms={best_ms[name]:.4f} "
               f"measured_ms={res.best_cost * 1e3:.4f} found_at={found} "
@@ -1392,20 +1531,6 @@ def paper_tuners(kernels: list, gemm_rows: dict, rand, flush, peak_bytes: float,
         "library_ms": lib_unspun, "ms_spin": best_ms[fastest], "library_ms_spin": lib_ms,
     })
     del a, b
-
-    # -- (c) N-A2C twice on the card: one seed, one trial sequence -------------------
-    space = GemmConfigSpace(256, 256, 256)
-    cost = AnalyticalHopperCost(space, dtype="float32")
-    s0 = get_op("gemm").default_state(space, "float32")
-    runs = [NA2CTuner(space, cost, seed=0, s0=s0, device="cuda").tune(
-        Budget(max_trials=NA2C_REPEAT_TRIALS)) for _ in range(2)]
-    seqs = [[(t.state.key(), t.cost) for t in r.trials] for r in runs]
-    print(f"[na2c] two runs on the card (256^3 float32 model, seed 0): trials="
-          f"{len(seqs[0])} identical={seqs[0] == seqs[1]} best={runs[0].best_cost:.4e}s",
-          flush=True)
-    if seqs[0] != seqs[1] or len(seqs[0]) != NA2C_REPEAT_TRIALS:
-        raise SystemExit("N-A2C on the card gave two different trial sequences")
-    return na2c_journal
 
 
 def tuning_at_scale(kernels: list, gemm_rows: dict, rand, workdir: str,
@@ -1450,7 +1575,7 @@ def tuning_at_scale(kernels: list, gemm_rows: dict, rand, workdir: str,
     ops.reset_dispatch_stats()
 
     # -- (a) process lanes sharing the card, planted faults, retries ----------------
-    launches, flash_launches, runs = collections.Counter(), 0, {}
+    launches, flash_launches, flash_f32, runs = collections.Counter(), 0, 0, {}
     for n_lanes in (1, SCALE_LANES):
         root = os.path.join(workdir, f"lanes{n_lanes}")
         rec = os.path.join(root, "yi-6b.json")
@@ -1505,6 +1630,7 @@ def tuning_at_scale(kernels: list, gemm_rows: dict, rand, workdir: str,
             for shape, count in w["gemm_launches"].items():
                 launches[tuple(int(d) for d in shape.split("x"))] += count
             flash_launches += sum(w["flash_launches"].values())
+            flash_f32 += w["flash_dtype_launches"].get("float32", 0)
         runs[n_lanes] = (report, rec, wall)
     gate1 = gate.stats()
     overlaps = gate1["overlaps"] - gate0["overlaps"]
@@ -1675,8 +1801,11 @@ def tuning_at_scale(kernels: list, gemm_rows: dict, rand, workdir: str,
         if row["name"].startswith("flash_attention["):
             row["launches_tune"] += flash_launches
             row["launches"] += flash_launches
+        elif row["name"].startswith("flash_f32["):
+            row["launches_tune"] += flash_f32
+            row["launches"] += flash_f32
     print(f"[launches] phase 12: GEMM {sum(launches.values())} (workers alive at the end, "
-          f"dispatch and the CLIs), flash {flash_launches}", flush=True)
+          f"dispatch and the CLIs), flash {flash_launches} (float32 {flash_f32})", flush=True)
     if not all(launches.get(wl.dims, 0) for wl in workloads if wl.op == "gemm") \
             or not flash_launches:
         raise SystemExit(f"phase 12 never launched a kernel on {dict(launches)}")
@@ -1815,12 +1944,14 @@ def serve_families(kernels: list) -> None:
         ops.reset_dispatch_stats()
         LAUNCHES.clear()
         fa.LAUNCHES.clear()
+        fa.DTYPE_LAUNCHES.clear()
         engine = ServeEngine(cfg, params, max_batch=reqs, max_len=max_len,
                              prompt_buckets=[bucket] if paddable else None,
                              gen_buckets=[SERVE_TOKENS], device="cuda")
         tokens = engine.generate(prompts, SERVE_TOKENS, prompt_lens=lens, frontend_embeds=fe)
         timing, rep, stats = engine.last_timing, engine.cache_report(), ops.dispatch_stats()
         launched, parts = serve_launches(ops.launch_counts(), engine.launch_report())
+        flash_f32 = fa.DTYPE_LAUNCHES["float32"]
         peak = torch.cuda.max_memory_allocated()
         check_tokens(name, tokens, cfg, reqs)
         want = engine.eager_reference(prompts, SERVE_TOKENS, prompt_lens=lens,
@@ -1845,6 +1976,8 @@ def serve_families(kernels: list) -> None:
             if row["name"].startswith("flash_attention"):
                 row["launches_families"] += sum(
                     n for (kind, _), n in launched.items() if kind == "flash")
+            elif row["name"].startswith("flash_f32["):
+                row["launches_families"] += flash_f32
             elif row.get("shape"):
                 row["launches_families"] += launched.get(("gemm", tuple(row["shape"])), 0)
         gemm_err, flash_err = check_served_kernels(
@@ -2045,7 +2178,7 @@ def train_yi6b(kernels: list, rand, flush, peak_ops: float, peak_bytes: float) -
         del a, b
         torch.cuda.empty_cache()
     for row in kernels:
-        if row["name"].startswith("flash_attention"):
+        if row["name"].startswith(("flash_attention", "flash_f32[")):
             row["launches_train"] = 0
             row["train"] = "not on the training path: the kernel has no backward"
         else:
@@ -2496,11 +2629,13 @@ def head_to_head(kernels: list, rand, flush, peak_bytes: float) -> None:
     host.  Adds the ``gemm[compare/512^3-f32]`` row."""
     from repro_torch.core import (AnalyticalHopperCost, Budget, GemmConfigSpace, GemmWorkload,
                                   TuningRecords, TuningSession)
+    from repro_torch.core.tuners import rnn_controller
     from repro_torch.kernels.gemm import LAUNCHES, gemm_plain, gemm_tiled, kernel_config_from_state
 
     m, k, n = COMPARE_DIMS
     # the search: counts zeroed here, read after it
     LAUNCHES.clear()
+    draws = draw_counter(rnn_controller)
     t0 = time.perf_counter()
     session = TuningSession(TuningRecords(), verbose=False, device="cuda")
     wl = GemmWorkload(m, k, n, dtype="float32", label="compare/512^3-f32")
@@ -2537,11 +2672,13 @@ def head_to_head(kernels: list, rand, flush, peak_bytes: float) -> None:
             best_ms[name, seed] = timed_ms(lambda: gemm_tiled(a, b, cfg), 20, flush, spin=True)
             n_fin = sum(math.isfinite(t.cost) for t in res.trials)
             found = next(i for i, t in enumerate(res.trials) if t.cost == res.best_cost) + 1
+            note = (draws_note(draws, session.seed + seed, res.wall_s)
+                    if name == "rnn-controller" else "")
             print(f"[compare] tuner={name} seed={session.seed + seed} trials={res.n_trials} "
                   f"launchable={n_fin} best_ms={best_ms[name, seed]:.4f} "
                   f"measured_ms={res.best_cost * 1e3:.4f} found_at={found} "
-                  f"vs_model_optimum={best_ms[name, seed] / opt_ms:.4f} wall_s={res.wall_s:.2f} "
-                  f"config={cfg} max_abs_err={err}", flush=True)
+                  f"vs_model_optimum={best_ms[name, seed] / opt_ms:.4f} wall_s={res.wall_s:.2f}"
+                  f"{note} config={cfg} max_abs_err={err}", flush=True)
     for name in results:
         ms = [best_ms[name, s] for s in range(COMPARE_SEEDS)]
         print(f"[compare] {name}: best_ms over seeds {[round(x, 4) for x in ms]} mean "
@@ -2876,6 +3013,7 @@ def dry_run_on_card(kernels: list, dry: BackgroundDryRun, rand, flush, hw, smi: 
     h, hd = yi.n_heads, yi.resolved_head_dim
     failures, launched = [], collections.Counter()
     flash_launched = collections.Counter()  # (batch, (sq, sk, hd)) -> launches
+    flash_f32 = 0  # of those, the float32 kernel's
 
     class DropsDB(OpCounter):
         """A planted counting fault: the dB products go uncounted."""
@@ -2900,6 +3038,7 @@ def dry_run_on_card(kernels: list, dry: BackgroundDryRun, rand, flush, hw, smi: 
             gc.collect()  # nothing of the warm-up left for the counted step to free
             gemm_mod.reset_launches()
             fa.LAUNCHES.clear()
+            fa.DTYPE_LAUNCHES.clear()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             card = dryrun.count_step(cell["run"])
@@ -2909,6 +3048,7 @@ def dry_run_on_card(kernels: list, dry: BackgroundDryRun, rand, flush, hw, smi: 
             roles = collections.Counter(role for role, _ in gemm_mod.ROLE_LAUNCHES.elements())
             launched.update(gemm_l)
             flash_launched.update({(batch, dims): c for dims, c in flash_l.items()})
+            flash_f32 += fa.DTYPE_LAUNCHES["float32"]
             label = f"yi-6b {name} ({depth} of 32 layers, batch {batch})"
             problems = count_problems(card, meta, gemm_l, flash_l, flash_flops)
             if card.kernel_launches != collections.Counter(
@@ -2993,6 +3133,9 @@ def dry_run_on_card(kernels: list, dry: BackgroundDryRun, rand, flush, hw, smi: 
         kernels.append(row)
     for row in kernels:
         row.setdefault("launches_dryrun", 0)
+        if row["name"].startswith("flash_f32["):
+            row["launches_dryrun"] += flash_f32
+            row["launches"] += flash_f32
     print(f"[launches] phase 15: GEMM {sum(launched.values())} over {len(launched)} shapes, "
           f"flash {sum(flash_launched.values())} ({dict(flash_launched)})", flush=True)
 
@@ -3062,6 +3205,56 @@ def flash_row(name: str, batch: int, seq: int, heads: int, kv_heads: int, hd: in
     }
 
 
+#: phase 7's f32 flash row: q (batch, seq, heads, hd) over k/v of kv_heads,
+#: causal, one of the shapes phase 7 checks
+FLASH_F32_SHAPE = (2, 256, 16, 2, 128)
+
+
+def flash_f32_row(rand, flush, peak_bytes: float) -> dict:
+    """A ``kernels`` row for the float32 flash kernel (CUDA cores), which
+    no served or tuned path launches: at ``FLASH_F32_SHAPE`` under the
+    blocks dispatch gives it, held against its plain version within
+    ``FLASH_TOL``, timed (unspun and spun) beside its plain version,
+    ``scaled_dot_product_attention`` in float32 and its bound (the causal
+    triangle's products at the FP32 CUDA-core peak; q, k, v read and the
+    output written once)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    f32 = torch.float32
+    batch, seq, heads, kv_heads, hd = FLASH_F32_SHAPE
+    blocks, src = ops.flash_blocks(seq, seq, hd, f32, grid_y=batch * heads)
+    q = rand((batch, seq, heads, hd), f32)
+    k, v = rand((batch, seq, kv_heads, hd), f32), rand((batch, seq, kv_heads, hd), f32)
+    err = check_close(f"flash f32 {tuple(q.shape)} {blocks}", fa.flash_attention(q, k, v, *blocks),
+                      fa.flash_attention_plain(q, k, v, *blocks), f32, FLASH_TOL)
+    ms = timed_ms(lambda: fa.flash_attention(q, k, v, *blocks), 20, flush)
+    ms_spin = timed_ms(lambda: fa.flash_attention(q, k, v, *blocks), 20, flush, spin=True)
+    plain_ms = timed_ms(lambda: fa.flash_attention_plain(q, k, v, *blocks), 3, flush)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_ms, lib_spin = timed_ms(sdpa, 20, flush), timed_ms(sdpa, 20, flush, spin=True)
+    flops = 4 * batch * heads * hd * seq * (seq + 1) // 2
+    nbytes = 4 * batch * seq * (2 * heads + 2 * kv_heads) * hd
+    bound_ms = 1e3 * max(flops / FP32_PEAK, nbytes / peak_bytes)
+    print(f"[time] flash f32 q {tuple(q.shape)} k/v {tuple(k.shape)} blocks {blocks} ({src}): "
+          f"kernel_ms={ms:.4f} spun {ms_spin:.4f}; plain_ms={plain_ms:.4f}; SDPA f32 "
+          f"library_ms={lib_ms:.4f} spun {lib_spin:.4f}; bound_ms={bound_ms:.4f} (fp32 peak "
+          f"66.9 TFLOP/s); kernel/SDPA spun {ms_spin / lib_spin:.2f}x; max abs err {err}",
+          flush=True)
+    return {
+        # not "flash_attention[...]": the served flash launches go to those rows
+        "name": f"flash_f32[{batch}x{seq}x{heads}/{kv_heads}x{hd}]", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:34", "shape": [batch, seq, heads, hd],
+        # no launch counts here: phases 8 and 9 write them from DTYPE_LAUNCHES
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "operations" if flops / FP32_PEAK >= nbytes / peak_bytes else "bytes",
+        "library_ms": lib_ms, "ms_spin": ms_spin, "library_ms_spin": lib_spin,
+    }
+
+
 def gemm_row(name: str, dims: tuple, rand, flush, hw) -> dict:
     """A ``kernels`` row for a bf16 GEMM shape no earlier phase timed:
     the kernel under the config dispatch gives it, held against an f32
@@ -3097,6 +3290,48 @@ def gemm_row(name: str, dims: tuple, rand, flush, hw) -> dict:
         "bound_by": "operations" if flops / hw.peak_flops >= nbytes / hw.hbm_bw else "bytes",
         "library_ms": lib_ms, "ms_spin": ms_spin, "library_ms_spin": lib_spin,
     }
+
+
+def search_only(src: str) -> None:
+    """Phases 11(b) and 16(d) alone, the paper's searches on the f32 SIMT
+    kernel, on the package under ``src``: this checkout's, or another
+    tree's, whose kernel they then build and time under the same
+    protocol (two trees compared in turns on one card):
+
+        python3 chip_smoke.py --search-only [path/to/src]
+
+    Prints the card, the GEMM source's digest, both phases' lines and the
+    two kernels rows."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA card is available")
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.kernels.build import source_digest
+    from repro_torch.kernels.gemm import build_kernel
+    from repro_torch.utils.roofline import H100
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    import repro_torch
+
+    print(f"[search-only] {os.path.dirname(repro_torch.__file__)} gemm.cu "
+          f"{source_digest('gemm.cu')}", flush=True)
+    build_kernel()
+    peak_bytes = H100.for_device(torch.cuda.get_device_name(0)).hbm_bw
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(100 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    kernels: list = []
+    t0 = time.perf_counter()
+    paper_comparison(kernels, rand, flush, peak_bytes)
+    phase("11(b) the paper's comparison", t0)
+    t0 = time.perf_counter()
+    head_to_head(kernels, rand, flush, peak_bytes)
+    phase("16(d) the head-to-head", t0)
+    print(json.dumps({"kernels": kernels}))
 
 
 def become_subreaper() -> None:
@@ -3171,6 +3406,9 @@ def stop_children() -> None:
 if __name__ == "__main__":
     become_subreaper()
     try:
-        main()
+        if sys.argv[1:2] == ["--search-only"]:
+            search_only(sys.argv[2] if len(sys.argv) > 2 else SRC)
+        else:
+            main()
     finally:
         stop_children()

@@ -19,10 +19,10 @@ Verdict lattice (``AnalysisResult.verdict``):
   * *launch* (:func:`gemm_launch_error`), per dtype.  float32 (the SIMT
     kernel): a register tile the kernel has no instantiation for, a block
     below the kernel's minimum, a thread count that is not whole warps
-    or exceeds the register-capped limit of its instantiation, operand
-    slabs over the shared-memory budget.  bfloat16 at ``block_m >= 64``
-    (the ``wgmma`` kernel): a register tile other than 1x1
-    (``register_tile``), a warpgroup tile or slab depth with no
+    or exceeds the register-capped limit of its instantiation, one
+    (padded) slab of its ring over the shared-memory budget.  bfloat16
+    at ``block_m >= 64`` (the ``wgmma`` kernel): a register tile other
+    than 1x1 (``register_tile``), a warpgroup tile or slab depth with no
     instantiation (``wgmma_shape``), accumulators over the register cliff
     (``accumulator_cliff``), more than two warpgroups, or a ring of fewer
     than two stages (``ring_too_shallow``).  bfloat16 below 64 rows
@@ -69,6 +69,8 @@ __all__ = [
     "gemm_launch_error",
     "gemm_kernel_kind",
     "gemm_stages",
+    "simt_lda",
+    "GEMM_SIMT_MAX_STAGES",
     "gemm_bf16_max_threads",
     "GEMM_WG_INSTANCES",
     "GEMM_BW_BN",
@@ -142,6 +144,19 @@ def max_threads_for_reg_tile(reg_m: int, reg_n: int) -> int:
     return 1024 if t <= 4 else (512 if t <= 16 else 256)
 
 
+#: the SIMT kernel's ring: stages = min(GEMM_SIMT_MAX_STAGES, opt-in shared
+#: memory // slab bytes) (``kSimtMaxStages``); one stage launches too
+GEMM_SIMT_MAX_STAGES = 4
+
+
+def simt_lda(block_m: int) -> int:
+    """Row stride (elements) of the SIMT kernel's transposed A slab: the
+    least stride >= ``block_m`` that is 4 modulo 8, so a warp's 4-byte
+    stores of 8 k by 4 rows and its 16-byte row loads hit distinct banks
+    (``simt_lda`` in ``gemm.cu``)."""
+    return block_m + (12 - block_m % 8) % 8
+
+
 # -- the bfloat16 kernels of gemm.cu --------------------------------------------
 
 #: threads of one warpgroup, and the M of one ``wgmma`` instruction
@@ -198,16 +213,18 @@ def _stream_stage_elems(block_m: int, block_k: int, block_n: int) -> int:
 
 def gemm_stages(block_m: int, block_k: int, block_n: int, in_bytes: int = 2,
                 spec: Optional[HopperSpec] = None) -> int:
-    """Depth of the bf16 kernels' ring of K slabs, derived from shared
-    memory as the launcher derives it.  ``wgmma``: ``min(4, (opt-in
-    shared memory - 1 KB of alignment slack) // ((bm + bn) * bk * 2))``.
-    The bandwidth kernel: ``min(8, 96 KB // stage bytes)``.  The SIMT
-    kernel stages one slab."""
+    """Depth of a kernel's ring of K slabs, derived from shared memory as
+    the launcher derives it.  SIMT (float32): ``min(4, opt-in shared
+    memory // ((simt_lda(bm) + bn) * bk * 4))``, 0 where one slab does
+    not fit.  ``wgmma``: ``min(4, (opt-in shared memory - 1 KB of
+    alignment slack) // ((bm + bn) * bk * 2))``.  The bandwidth kernel:
+    ``min(8, 96 KB // stage bytes)``."""
     kind = gemm_kernel_kind(block_m, in_bytes)
+    spec = spec or HopperSpec()
     if kind == "simt":
-        return 1
+        slab = (simt_lda(block_m) + block_n) * block_k * in_bytes
+        return min(GEMM_SIMT_MAX_STAGES, spec.smem_per_block // slab)
     if kind == "wgmma":
-        spec = spec or HopperSpec()
         slab = (block_m + block_n) * block_k * 2
         return min(GEMM_WG_MAX_STAGES, (spec.smem_per_block - GEMM_ALIGN_SLACK) // slab)
     stage = 2 * _stream_stage_elems(block_m, block_k, block_n)
@@ -216,15 +233,16 @@ def gemm_stages(block_m: int, block_k: int, block_n: int, in_bytes: int = 2,
 
 def gemm_smem_bytes(block_m: int, block_k: int, block_n: int,
                     in_bytes: int = 2, spec: Optional[HopperSpec] = None) -> int:
-    """Shared memory of one CTA.  SIMT (float32): the A (bk x bm) and B
-    (bk x bn) operand slabs.  ``wgmma``: the ring of ``gemm_stages`` such
-    slabs and 1 KB of alignment slack.  Bandwidth kernel: its ring of
-    padded slabs plus the f32 partial sums of its warps.  Accumulators
-    live in registers."""
+    """Shared memory of one CTA.  SIMT (float32): the ring of
+    ``gemm_stages`` slabs, each an A slab transposed with rows padded to
+    ``simt_lda`` and a B slab (one slab's bytes where it does not fit
+    once).  ``wgmma``: the ring of ``gemm_stages`` slabs and 1 KB of
+    alignment slack.  Bandwidth kernel: its ring of padded slabs plus the
+    f32 partial sums of its warps.  Accumulators live in registers."""
     kind = gemm_kernel_kind(block_m, in_bytes)
     stages = gemm_stages(block_m, block_k, block_n, in_bytes, spec)
     if kind == "simt":
-        return (block_m + block_n) * block_k * in_bytes
+        return max(stages, 1) * (simt_lda(block_m) + block_n) * block_k * in_bytes
     if kind == "wgmma":
         return stages * (block_m + block_n) * block_k * 2 + GEMM_ALIGN_SLACK
     return (stages * 2 * _stream_stage_elems(block_m, block_k, block_n)
@@ -290,10 +308,10 @@ def _simt_launch_error(block_m, block_k, block_n, sub_m, sub_n, reg_m, reg_n,
         return ("threads_over_limit",
                 f"{threads} threads per CTA exceeds {cap}, the register-capped "
                 f"limit for a {reg_m}x{reg_n} register tile")
-    smem = gemm_smem_bytes(block_m, block_k, block_n, in_bytes)
-    if smem > spec.smem_per_block:
+    if gemm_stages(block_m, block_k, block_n, in_bytes, spec) < 1:
+        smem = gemm_smem_bytes(block_m, block_k, block_n, in_bytes, spec)
         return ("smem_overflow",
-                f"operand slabs take {smem} B of shared memory, over the "
+                f"one A/B slab takes {smem} B of shared memory, over the "
                 f"{spec.smem_per_block} B budget (in_bytes={in_bytes})")
     return None
 

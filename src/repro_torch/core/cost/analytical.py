@@ -9,10 +9,13 @@ kernel cannot launch cost ``inf`` (the shared rule of
 
 * float32 (the SIMT kernel): ``2*M*K*N`` operations at the CUDA-core f32
   rate, scaled by the share of the inner loop's instructions that are
-  FMAs (``rm*rn`` FMAs per ``rm + rn`` shared-memory loads) and by how
-  full the last wave of CTAs leaves the SMs; against memory time, every
-  CTA reading its A and B strips once (A is read ``n0`` times over, B
-  ``m0`` times) and writing its C tile once, at the card's memory rate.
+  FMAs (``rm*rn`` FMAs per k step against its shared-memory loads, one
+  for each run of up to 4 values: ``ceil(rm/4) + ceil(rn/4)``) and by
+  how full the last wave of CTAs leaves the SMs, which hold as many
+  CTAs as threads and the ring's shared memory allow; against memory
+  time, every CTA reading its A and B strips once (A is read ``n0``
+  times over, B ``m0`` times) and writing its C tile once, at the
+  card's memory rate.
 * bfloat16, ``bm >= 64`` (the ``wgmma`` kernel): ``2*M*K*N`` operations
   at the dense bf16 tensor-core rate times ``_WGMMA_EFFICIENCY`` times
   ``bk / (bk + 16)`` (each slab's products drain before a block-wide
@@ -147,7 +150,7 @@ class AnalyticalHopperCost(CostBackend):
         smem = self.space.working_set_bytes(s, self.in_bytes)
         per_sm = max(1, min(_THREADS_PER_SM // threads, _SMEM_PER_SM // smem, 32))
         fill = self._fill(m0 * n0, per_sm)
-        fma_share = rm * rn / (rm * rn + rm + rn)
+        fma_share = rm * rn / (rm * rn + math.ceil(rm / 4) + math.ceil(rn / 4))
         t_compute = 2.0 * m * k * n / (_F32_FLOPS * fma_share * fill)
         traffic = (m * k * n0 + k * n * m0 + m * n) * self.in_bytes
         return t_compute, traffic / _HBM_BYTES_S, 0.0
@@ -189,9 +192,10 @@ class AnalyticalHopperCost(CostBackend):
         return (k * n * m0 + m * k * n0 + m * n) * 2 / rate
 
     def measure_fingerprint(self) -> str:
-        # the bf16 model is of the tensor-core and bandwidth kernels: costs
-        # of the SIMT model it replaced are not served from a journal
-        model = "|wgmma" if self.in_bytes == 2 else ""
+        # each dtype's model names the kernel it models, so costs of the
+        # models it replaced (bf16 on SIMT, f32 without the ring and its
+        # 128-bit loads) are not served from a journal
+        model = "|wgmma" if self.in_bytes == 2 else "|ring"
         return (f"r{self.n_repeats}|{self.dtype}{model}" + noise_part(self)
                 + self.space_fingerprint())
 

@@ -179,8 +179,9 @@ def timing_lock_path(device) -> str:
 
 def worker_stats() -> dict:
     """This process's peak device memory (its caching allocator's) and
-    the launches of each kernel wrapper by shape: a measurement worker
-    reports them through ``ProcessExecutor.worker_call``."""
+    the launches of each kernel wrapper by shape (flash's by dtype too):
+    a measurement worker reports them through
+    ``ProcessExecutor.worker_call``."""
     from repro_torch.kernels import flash_attention, gemm
 
     out = {"pid": os.getpid(), "peak_allocated": 0, "peak_reserved": 0}
@@ -190,6 +191,7 @@ def worker_stats() -> dict:
     for name, counter in (("gemm_launches", gemm.LAUNCHES),
                           ("flash_launches", flash_attention.LAUNCHES)):
         out[name] = {"x".join(map(str, dims)): n for dims, n in counter.items() if n}
+    out["flash_dtype_launches"] = {d: n for d, n in flash_attention.DTYPE_LAUNCHES.items() if n}
     return out
 
 

@@ -23,6 +23,8 @@ where the reference ``vmap``s.  The networks run on ``device`` —
 
 from __future__ import annotations
 
+import bisect
+import collections
 import math
 from typing import Optional
 
@@ -44,7 +46,12 @@ from .nn import (
     params_from_reference,
 )
 
-__all__ = ["RNNControllerTuner"]
+__all__ = ["RNNControllerTuner", "DRAWS"]
+
+#: configurations drawn from the controller, by tuner seed: ``_draw`` adds
+#: one a draw, measured or not.  Once the policy has collapsed, most draws
+#: repeat a measured configuration and the search's time goes to them.
+DRAWS: collections.Counter = collections.Counter()
 
 #: logit of a choice beyond the remaining exponent budget
 _MASKED = -1e9
@@ -146,7 +153,11 @@ class RNNControllerTuner(Tuner):
         self.net = _Controller(gru, head, emb0).to(self.device)
         self.opt = make_adam(self.net, self.lr)
         self._onehots = torch.eye(n_in, device=self.device)
+        self._seq_dims = [di for di, _ in self.seq_spec]
         self._memo: dict[tuple, tuple] = {}
+        # a draw's configuration, choices, masks, key and legitimacy are a
+        # function of its choices alone (not of the network)
+        self._drawn: dict[tuple, tuple] = {}
         self._ready = True
 
     def _logp_entropy(self, choices: torch.Tensor, masks: torch.Tensor):
@@ -183,42 +194,78 @@ class RNNControllerTuner(Tuner):
         self._memo.clear()  # the network changed
 
     # -- sampling ----------------------------------------------------------------
-    @torch.no_grad()
     def _sample_config(self) -> tuple[State, np.ndarray, np.ndarray]:
-        """One configuration drawn from the controller.  Between train
-        steps the network is fixed, so a step's hidden state and choice
-        distribution depend only on the choices before it: they are
-        memoized by that prefix (``_memo``, cleared whenever the network
-        changes), and a draw whose prefix was seen costs one ``searchsorted``
-        instead of a GRU step and a device read.  The draws are the same:
-        one ``self.rng`` number a step, on the same cumulative
-        probabilities.  (A controller whose policy has collapsed draws
-        thousands of already-measured configurations a round, which the
-        memo makes cheap.)"""
+        """One configuration drawn from the controller, with its choices
+        and masks (see :meth:`_draw`)."""
+        return self._draw()[:3]
+
+    def _draw(self) -> tuple[State, np.ndarray, np.ndarray, str, bool]:
+        """One configuration drawn from the controller: ``(state, choices,
+        masks, key, legitimate)``.  Between train steps the network is
+        fixed, so a step's hidden state and choice distribution depend
+        only on the choices before it: they are memoized by that prefix
+        (``_memo``, cleared whenever the network changes), each entry
+        linked to the entries its choices lead to, so a draw whose prefix
+        was seen costs one bisection a step instead of a GRU step and a
+        device read, and a configuration drawn before is reached whole.
+        The draws are the same: one ``self.rng`` number a step, on the same
+        cumulative probabilities (``bisect_left`` is ``searchsorted``'s
+        left side).  (A controller whose policy has collapsed draws
+        millions of already-measured configurations before a new one,
+        which this makes cheap.)"""
+        DRAWS[self.seed] += 1
+        uniform, bisect_left = self.rng.random, bisect.bisect_left
+        remaining = [b for b, _ in self.budgets]
+        choices: list[int] = []
+        node = self._memo.get(())
+        for di in self._seq_dims:
+            if node is None:
+                node = self._step(tuple(choices), remaining[di])
+            c = bisect_left(node[1], uniform())
+            if c > remaining[di]:
+                c = remaining[di]
+            choices.append(c)
+            remaining[di] -= c
+            parent, node = node, node[2].get(c)
+        drawn, node = node, parent
+        if drawn is None:
+            key = tuple(choices)
+            drawn = self._drawn.get(key)
+            if drawn is None:
+                drawn = self._drawn[key] = self._configuration(choices)
+            node[2][c] = drawn
+        return drawn
+
+    @torch.no_grad()
+    def _step(self, prefix: tuple, left: int) -> tuple:
+        """The memo entry of the step after ``prefix``: its hidden state,
+        the cumulative probabilities of its choices (those above ``left``,
+        the exponents still left, masked), and the entries its choices lead
+        to; linked from its parent's."""
         net = self.net
+        if prefix:
+            h = net.gru(self._memo[prefix[:-1]][0], self._onehots[prefix[-1] + 1])
+        else:
+            h = net.gru(net.gru.h0, net.emb0)
+        logits = net.head(h).cpu().numpy().astype(np.float64)
+        logits[left + 1:] = _MASKED
+        z = logits - logits.max()
+        p = np.exp(z)
+        p /= p.sum()
+        node = self._memo[prefix] = (h, np.cumsum(p).tolist(), {})
+        if prefix:
+            self._memo[prefix[:-1]][2][prefix[-1]] = node
+        return node
+
+    def _configuration(self, choices: list[int]) -> tuple[State, np.ndarray, np.ndarray, str, bool]:
+        """The state a choice sequence spells, with the choices, each
+        step's mask (the exponents still left), its key and legitimacy."""
         remaining = [b for b, _ in self.budgets]
         exps: list[list[int]] = [[0] * d for _, d in self.budgets]
-        choices, masks = [], []
-        for (di, slot) in self.seq_spec:
-            prefix = tuple(choices)
-            hit = self._memo.get(prefix)
-            if hit is None:
-                if prefix:
-                    h = net.gru(self._memo[prefix[:-1]][0], self._onehots[prefix[-1] + 1])
-                else:
-                    h = net.gru(net.gru.h0, net.emb0)
-                logits = net.head(h).cpu().numpy().astype(np.float64)
-                mask = np.zeros(self.max_e + 1, dtype=bool)
-                mask[: remaining[di] + 1] = True
-                logits[~mask] = _MASKED
-                z = logits - logits.max()
-                p = np.exp(z)
-                p /= p.sum()
-                hit = self._memo[prefix] = (h, np.cumsum(p), mask)
-            _, cum, mask = hit
-            c = int(np.searchsorted(cum, self.rng.random()))
-            c = min(c, remaining[di])
-            choices.append(c)
+        masks = []
+        for (di, slot), c in zip(self.seq_spec, choices):
+            mask = np.zeros(self.max_e + 1, dtype=bool)
+            mask[: remaining[di] + 1] = True
             masks.append(mask)
             exps[di][slot] = c
             remaining[di] -= c
@@ -231,7 +278,8 @@ class RNNControllerTuner(Tuner):
             row[0] *= odd
             rows.append(row)
         s = self.space.state_from_lists(rows)
-        return s, np.asarray(choices, np.int32), np.stack(masks)
+        return (s, np.asarray(choices, np.int32), np.stack(masks), s.key(),
+                self.space.is_legitimate(s))
 
     # -- REINFORCE loop ------------------------------------------------------------
     def run(self, ctx: TuningContext) -> None:
@@ -253,12 +301,10 @@ class RNNControllerTuner(Tuner):
             guard = 0
             while len(sampled) < self.batch_size and guard < 64:
                 guard += 1
-                s, choices, masks = self._sample_config()
-                if not self.space.is_legitimate(s):
+                s, choices, masks, key, legitimate = self._draw()
+                if not legitimate or key in ctx.visited or key in round_keys:
                     continue
-                if ctx.seen(s) or s.key() in round_keys:
-                    continue
-                round_keys.add(s.key())
+                round_keys.add(key)
                 sampled.append((s, choices, masks))
             if not sampled:
                 continue

@@ -12,15 +12,35 @@
 // f32 accumulators in registers.  Three kernels, chosen by dtype and bm:
 //
 // float32: gemm_tiled<float, RM, RN>, on CUDA cores (f32 has to stay exact to
-//   1e-4, which TF32 tensor cores are not).  The tuner's state maps onto it
-//   level by level:
+//   1e-4, which TF32 tensor cores are not).  Bound by operations at the
+//   tuned shapes (1024^3 does 2 G operations on 12 MB: 170 per byte, above
+//   the ~20 of the FP32 ridge), so the goal is an FMA stream that neither
+//   waits for its operands nor spends its issue slots on loads.  The tuner's
+//   state maps onto it level by level:
 //     m0 x n0          CTA grid (gridDim.y x gridDim.x)
 //     bm x bn          CTA tile; bk the shared-memory K slab, k0 = K/bk trips
 //     sub_m x sub_n    warp tile: (sub_m/reg_m) x (sub_n/reg_n) consecutive
 //                      threads cover it, (bm/sub_m) x (bn/sub_n) of them per CTA
 //     reg_m x reg_n    per-thread register tile (a template parameter)
-//   Each thread loads reg_m + reg_n shared-memory values per reg_m * reg_n
-//   FMAs; the register tile sets its arithmetic intensity.
+//   * A ring of `stages` slabs: slab i + S - 1 is copied by cp.async while
+//     slab i is multiplied.  stages = min(4, opt-in shared memory / slab
+//     bytes) (analysis.gemm_stages): a slab that fits once runs with one
+//     stage, the same loop with its slot refilled after a barrier.
+//   * B's rows arrive by 16-byte cp.async into [bk][bn] (4-byte copies where
+//     N or bn is not a multiple of 4).  A is stored transposed, [bk][lda]
+//     with lda = 4 (mod 8), by 4-byte cp.async: a warp reads 8 consecutive k
+//     of 4 rows (whole 32-byte sectors) and its 32 stores hit 32 banks.  (A
+//     16-byte load through registers would hold bm * bk / threads staging
+//     registers across the FMAs, a runtime count, where the 8 x 8 tile
+//     already holds 64 accumulators.)
+//   * A thread's register tile is one run of reg_m (reg_n) rows (columns),
+//     or two runs of 4 half a warp tile apart at 8; each run is one 64- or
+//     128-bit shared load, so an 8 x 8 tile loads 4 times per 64 FMAs, and
+//     a quarter warp's 16-byte loads hit distinct banks or broadcast.
+//   * The k loop is unrolled 8 deep; each output sums its K terms in order.
+//   * __launch_bounds__ keep the thread limit and ask for two CTAs an SM
+//     where the register tile fits the cap that leaves (64 registers at 512
+//     threads, 128 at 256): all but the 1024-thread tiles and 2 x 8, 8 x 2.
 //
 // bfloat16, bm >= 64: gemm_tiled_wgmma<BK, MT, SN>, on the tensor cores.
 //   Bound.  At the served and tuned shapes (M >= 8192, K, N >= 512) a GEMM
@@ -94,71 +114,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-// -- float32: CUDA cores ---------------------------------------------------------
-
-constexpr int max_threads(int tile) { return tile <= 4 ? 1024 : (tile <= 16 ? 512 : 256); }
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-template <typename T, int RM, int RN>
-__global__ void __launch_bounds__(max_threads(RM * RN), 1)
-gemm_tiled(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C,
-           int K, int N, int bm, int bk, int bn, int sub_m, int sub_n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);  // [bk][bm]: the A slab, transposed
-  T* Bs = As + bk * bm;                 // [bk][bn]
-
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int m2 = sub_m / RM, n2 = sub_n / RN;  // threads per warp tile
-  const int warp_tiles_n = bn / sub_n;
-  const int group = tid / (m2 * n2), lane = tid % (m2 * n2);
-  const int row0 = (group / warp_tiles_n) * sub_m + (lane / n2) * RM;
-  const int col0 = (group % warp_tiles_n) * sub_n + (lane % n2) * RN;
-  const int64_t tile_m = static_cast<int64_t>(blockIdx.y) * bm;
-  const int64_t tile_n = static_cast<int64_t>(blockIdx.x) * bn;
-
-  float acc[RM][RN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += bk) {
-    for (int e = tid; e < bm * bk; e += nthreads) {
-      const int r = e / bk, c = e % bk;
-      As[c * bm + r] = A[(tile_m + r) * K + k0 + c];
-    }
-    for (int e = tid; e < bk * bn; e += nthreads) {
-      const int r = e / bn, c = e % bn;
-      Bs[r * bn + c] = B[static_cast<int64_t>(k0 + r) * N + tile_n + c];
-    }
-    __syncthreads();
-    for (int kk = 0; kk < bk; ++kk) {
-      float a[RM], b[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = to_f32(As[kk * bm + row0 + i]);
-#pragma unroll
-      for (int j = 0; j < RN; ++j) b[j] = to_f32(Bs[kk * bn + col0 + j]);
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j)
-      C[(tile_m + row0 + i) * N + tile_n + col0 + j] = from_f32<T>(acc[i][j]);
-}
-
-// -- bfloat16: shared helpers ------------------------------------------------------
+// -- shared helpers ----------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -166,6 +122,9 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(smem)), "l"(gmem));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -185,6 +144,209 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
     default: cp_async_wait<0>(); break;
   }
 }
+
+// -- float32: CUDA cores ---------------------------------------------------------
+
+constexpr int max_threads(int tile) { return tile <= 4 ? 1024 : (tile <= 16 ? 512 : 256); }
+// CTAs an SM holds under the register cap: two where the register tile fits
+// the cap that leaves (64 registers a thread at 512 threads, 128 at 256); one
+// at 1024 threads, and for the 2 x 8 and 8 x 2 tiles, whose operand runs
+// take 78-79 registers (ptxas spills them under 64)
+constexpr int min_blocks(int rm, int rn) {
+  return rm * rn <= 4 || (rm * rn == 16 && rm != rn) ? 1 : 2;
+}
+
+constexpr int kSimtMaxStages = 4;  // analysis.GEMM_SIMT_MAX_STAGES
+constexpr int kSimtUnroll = 8;     // k steps of one unrolled block of the inner loop
+
+// the row stride (floats) of a transposed A slab: the least ld >= bm with
+// ld = 4 (mod 8) (analysis.simt_lda)
+__host__ __device__ constexpr int simt_lda(int bm) { return bm + (12 - bm % 8) % 8; }
+
+int simt_slab_bytes(int bm, int bk, int bn) {
+  return (simt_lda(bm) + bn) * bk * static_cast<int>(sizeof(float));
+}
+
+int simt_stages(int bm, int bk, int bn, int smem_optin) {
+  const int fit = smem_optin / simt_slab_bytes(bm, bk, bn);
+  return fit < kSimtMaxStages ? fit : kSimtMaxStages;
+}
+
+// W consecutive floats, one load or store of 32 W bits (p is 4 W-byte aligned)
+template <int W> struct Run;
+template <> struct Run<1> {
+  static __device__ __forceinline__ void load(float* r, const float* p) { r[0] = *p; }
+  static __device__ __forceinline__ void store(float* p, const float* r) { *p = r[0]; }
+};
+template <> struct Run<2> {
+  static __device__ __forceinline__ void load(float* r, const float* p) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    r[0] = v.x, r[1] = v.y;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* r) {
+    *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+  }
+};
+template <> struct Run<4> {
+  static __device__ __forceinline__ void load(float* r, const float* p) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* r) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  }
+};
+
+// How a CTA's threads split one slab's copies: thread t takes the elements
+// e = t, t + threads, ... of a grid with `cols` columns, each as (row, col)
+// with e = row * cols + col.  The steps are computed once on the host (kernel
+// parameters sit in the constant bank, not in registers).
+struct SimtCopy {
+  int a_run;              // A: k elements a thread copies in a row (at most 8)
+  int a_drow, a_dcol;     // A's grid: (k run, row of A), bm columns
+  int b_cols;             // B's grid: (k, 16- or 4-byte unit of a row)
+  int b_drow, b_dcol;
+};
+
+SimtCopy simt_copy(int bm, int bk, int bn, int N, int threads) {
+  SimtCopy c;
+  c.a_run = (bk & -bk) < 8 ? (bk & -bk) : 8;  // threads is whole warps: a multiple of it
+  c.a_drow = threads / c.a_run / bm, c.a_dcol = threads / c.a_run % bm;
+  c.b_cols = bn % 4 == 0 && N % 4 == 0 ? bn / 4 : bn;  // 16-byte units where rows align
+  c.b_drow = threads / c.b_cols, c.b_dcol = threads % c.b_cols;
+  return c;
+}
+
+// (row, col) of one thread's copy e, stepped by (drow, dcol) without a division
+struct Walk {
+  int row, col;
+  __device__ __forceinline__ void next(int drow, int dcol, int cols) {
+    row += drow, col += dcol;
+    if (col >= cols) col -= cols, ++row;
+  }
+};
+
+// one k step: a thread's RM values of A and RN of B from shared memory, in
+// runs of up to 4 (two runs half a warp tile apart at 8), then RM x RN FMAs
+template <int RM, int RN>
+__device__ __forceinline__ void fma_step(float (&acc)[RM][RN], const float* ap, const float* bp,
+                                         int row_step, int col_step) {
+  constexpr int WM = RM < 4 ? RM : 4, WN = RN < 4 ? RN : 4;
+  float a[RM], b[RN];
+#pragma unroll
+  for (int r = 0; r < RM / WM; ++r) Run<WM>::load(a + r * WM, ap + r * row_step);
+#pragma unroll
+  for (int r = 0; r < RN / WN; ++r) Run<WN>::load(b + r * WN, bp + r * col_step);
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+}
+
+// One CTA: a bm x bn tile of C, (bm / RM) x (bn / RN) threads, each holding
+// RM x RN accumulators; K in bk-deep slabs through a ring of `stages` slots.
+template <typename T, int RM, int RN>
+__global__ void __launch_bounds__(max_threads(RM * RN), min_blocks(RM, RN))
+gemm_tiled(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C,
+           int K, int N, int bm, int bk, int bn, int sub_m, int sub_n, int stages,
+           const SimtCopy copy) {
+  static_assert(sizeof(T) == sizeof(float), "the SIMT kernel is float32's");
+  constexpr int WM = RM < 4 ? RM : 4, WN = RN < 4 ? RN : 4;  // run widths
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lda = simt_lda(bm);
+  float* As = reinterpret_cast<float*>(smem);  // [stages][bk][lda]: A slabs, transposed
+  float* Bs = As + stages * bk * lda;          // [stages][bk][bn]
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int m2 = sub_m / RM, n2 = sub_n / RN;  // threads per warp tile
+  const int warp_tiles_n = bn / sub_n;
+  const int group = tid / (m2 * n2), lane = tid % (m2 * n2);
+  // a thread's rows: RM / WM runs of WM, the second sub_m / 2 below the first
+  // (so a quarter warp's 16-byte loads cover 32 distinct banks); likewise columns
+  const int row_step = sub_m / 2, col_step = sub_n / 2;
+  const int row0 = (group / warp_tiles_n) * sub_m + (lane / n2) * WM;
+  const int col0 = (group % warp_tiles_n) * sub_n + (lane % n2) * WN;
+  const int64_t tile_m = static_cast<int64_t>(blockIdx.y) * bm;
+  const int64_t tile_n = static_cast<int64_t>(blockIdx.x) * bn;
+  const T* Ab = A + tile_m * K;
+  const T* Bb = B + tile_n;
+  const int n_k = K / bk;
+
+  // A: each warp copies runs of a_run (8) consecutive k of 32 / a_run rows
+  // (whole 32-byte sectors), 4 bytes a copy, each landing transposed; with
+  // lda = 4 (mod 8) the 32 stores of a warp hit 32 distinct banks.  B: 16
+  // bytes a copy where its rows are 16-byte aligned (copy.b_cols < bn)
+  const int a_k = tid % copy.a_run;
+  const Walk a0{tid / copy.a_run / bm, tid / copy.a_run % bm};  // (k run, row of A)
+  const Walk b0{tid / copy.b_cols, tid % copy.b_cols};          // (k, unit of a row)
+
+  auto load = [&](int st, int kt) {
+    float* as = As + st * bk * lda;
+    float* bs = Bs + st * bk * bn;
+    const int64_t k0 = static_cast<int64_t>(kt) * bk;
+    for (Walk e = a0; e.row * copy.a_run < bk; e.next(copy.a_drow, copy.a_dcol, bm)) {
+      const int c = e.row * copy.a_run + a_k;
+      cp_async4(as + c * lda + e.col, Ab + static_cast<int64_t>(e.col) * K + k0 + c);
+    }
+    for (Walk e = b0; e.row < bk; e.next(copy.b_drow, copy.b_dcol, copy.b_cols)) {
+      const T* src = Bb + (k0 + e.row) * N;
+      if (copy.b_cols < bn)
+        cp_async16(bs + e.row * bn + 4 * e.col, src + 4 * e.col);
+      else
+        cp_async4(bs + e.row * bn + e.col, src + e.col);
+    }
+  };
+
+  float acc[RM][RN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.0f;
+
+  // the ring: slabs 0 .. stages - 2 first, one copy group each; then slab
+  // i + stages - 1 is in flight while slab i is multiplied.  One stage: the
+  // slot is refilled once every thread is done with the slab before.
+  for (int st = 0; st < stages - 1; ++st) {
+    if (st < n_k) load(st, st);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_k; ++i) {
+    if (stages == 1) {
+      if (i > 0) __syncthreads();
+      load(0, i);
+      cp_async_commit();
+    }
+    // slab i has landed; every thread is done with slab i - 1, whose slot
+    // the next copy overwrites
+    cp_async_wait_upto(stages > 1 ? stages - 2 : 0);
+    __syncthreads();
+    if (stages > 1) {
+      const int nxt = i + stages - 1;
+      if (nxt < n_k) load(nxt % stages, nxt);
+      cp_async_commit();
+    }
+    const int cur = i % stages;
+    const float* ap = As + cur * bk * lda + row0;
+    const float* bp = Bs + cur * bk * bn + col0;
+    int kk = 0;
+    for (; kk + kSimtUnroll <= bk; kk += kSimtUnroll)
+#pragma unroll
+      for (int u = 0; u < kSimtUnroll; ++u, ap += lda, bp += bn)
+        fma_step<RM, RN>(acc, ap, bp, row_step, col_step);
+    for (; kk < bk; ++kk, ap += lda, bp += bn) fma_step<RM, RN>(acc, ap, bp, row_step, col_step);
+  }
+  cp_async_wait<0>();  // no copy outlives the block (the last groups are empty)
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    T* crow = C + (tile_m + row0 + (i / WM) * row_step + i % WM) * N + tile_n + col0;
+#pragma unroll
+    for (int r = 0; r < RN / WN; ++r) Run<WN>::store(crow + r * col_step, &acc[i][r * WN]);
+  }
+}
+
+// -- bfloat16: shared helpers ------------------------------------------------------
+
 // cp.async writes through the generic proxy; wgmma reads through the async one
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -578,17 +740,20 @@ template <typename T, int RM, int RN>
 cudaError_t launch(const void* a, const void* b, void* c, int M, int K, int N, int bm,
                    int bk, int bn, int sub_m, int sub_n, cudaStream_t stream) {
   auto kernel = gemm_tiled<T, RM, RN>;
-  const size_t smem = static_cast<size_t>(bm + bn) * bk * sizeof(T);
   static bool opted_in = false;  // one opt-in per instantiation
   if (!opted_in) {
     const cudaError_t err = opt_in_smem(kernel);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
+  const int stages = simt_stages(bm, bk, bn, smem_optin());
+  if (stages < 1) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(stages) * simt_slab_bytes(bm, bk, bn);
   const dim3 grid(N / bn, M / bm);
   const int threads = (bm / RM) * (bn / RN);
   kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(a), static_cast<const T*>(b),
-                                          static_cast<T*>(c), K, N, bm, bk, bn, sub_m, sub_n);
+                                          static_cast<T*>(c), K, N, bm, bk, bn, sub_m, sub_n,
+                                          stages, simt_copy(bm, bk, bn, N, threads));
   return cudaGetLastError();
 }
 
@@ -699,6 +864,15 @@ int repro_gemm_max_threads(int dtype, int reg_m, int reg_n) {
     switch (reg_m * 16 + reg_n) { ALL_REG_TILES(MAXT_F32) }
   }
   return -1;
+}
+
+// The ring the float32 SIMT kernel launches a bm x bk x bn tile with on the
+// current device: its stages (0 where one slab does not fit), and in
+// *smem_bytes its shared memory (analysis.gemm_stages / gemm_smem_bytes).
+int repro_gemm_f32_ring(int bm, int bk, int bn, int* smem_bytes) {
+  const int stages = simt_stages(bm, bk, bn, smem_optin());
+  *smem_bytes = stages * simt_slab_bytes(bm, bk, bn);
+  return stages;
 }
 
 // The launch limit of the bfloat16 instantiation repro_gemm launches for

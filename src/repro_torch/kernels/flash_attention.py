@@ -19,7 +19,9 @@ kernel rounds — for CPU tensors (an empty result for ``meta`` tensors, a
 dry run's trace), and reports the grid's work to the op counters in
 force.
 Every kernel launch adds one to :data:`LAUNCHES` (keyed by
-``(seq_q, seq_kv, head_dim)``, the workload key's dims).
+``(seq_q, seq_kv, head_dim)``, the workload key's dims) and one to
+:data:`DTYPE_LAUNCHES` (keyed by the operands' dtype, ``"float32"`` or
+``"bfloat16"``).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ __all__ = [
     "launch_with",
     "kernel_max_threads",
     "LAUNCHES",
+    "DTYPE_LAUNCHES",
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,6 +60,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: kernel launches per ``(seq_q, seq_kv, head_dim)``: the wrapper adds one
 #: where it launches the kernel, and nowhere else
 LAUNCHES: collections.Counter = collections.Counter()
+#: kernel launches per operand dtype (``"float32"``, ``"bfloat16"``),
+#: counted where :data:`LAUNCHES` is
+DTYPE_LAUNCHES: collections.Counter = collections.Counter()
 
 
 #: heuristic blocks by input width, most preferred first.  bf16: two
@@ -190,7 +196,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for CUDA tensors, the plain version for CPU tensors, an empty result
     for ``meta`` tensors (a dry run's trace); on every device the grid's
     work (:func:`flash_work`) is reported to the op counters in force, and
-    only a launch counts in :data:`LAUNCHES`.  Raises
+    only a launch counts in :data:`LAUNCHES` and :data:`DTYPE_LAUNCHES`.  Raises
     ``ValueError`` on anything the kernel does not take — the causal mask
     has no offset, so causal attention needs ``Sq == Sk`` — and
     ``RuntimeError`` when a launch fails.
@@ -237,6 +243,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             out = launch_with(build_kernel()[0], q, k, v, bq, bkv, causal)
             LAUNCHES[(sq, sk, hd)] += 1
+            DTYPE_LAUNCHES[str(q.dtype).removeprefix("torch.")] += 1
     kernel_ran("flash", (sq, sk, hd),
                *flash_work(b, sq, sk, h, kvh, hd, bq, bkv, causal, q.element_size()), out)
     return out

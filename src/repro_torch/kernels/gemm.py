@@ -34,7 +34,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.analysis import GEMM_BW_BN, HopperSpec, gemm_kernel_kind, gemm_launch_error
+from repro_torch.core.analysis import (GEMM_BW_BN, HopperSpec, gemm_launch_error, gemm_stages,
+                                        max_threads_for_reg_tile)
 from repro_torch.core.config_space import TilingState
 from repro_torch.utils.op_costs import kernel_ran, uncounted
 
@@ -53,6 +54,8 @@ __all__ = [
     "launch_with",
     "kernel_max_threads",
     "kernel_max_threads_bf16",
+    "kernel_f32_ring",
+    "simt_ring_configs",
     "LAUNCHES",
     "ROLE_LAUNCHES",
     "launch_role",
@@ -259,6 +262,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_gemm_max_threads.restype = ctypes.c_int
     lib.repro_gemm_bf16_max_threads.argtypes = [ctypes.c_int] * 5
     lib.repro_gemm_bf16_max_threads.restype = ctypes.c_int
+    lib.repro_gemm_f32_ring.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.repro_gemm_f32_ring.restype = ctypes.c_int
     return lib
 
 
@@ -278,7 +283,36 @@ def kernel_max_threads_bf16(config: KernelConfig) -> int:
     return lib.repro_gemm_bf16_max_threads(c.block_m, c.block_k, c.block_n, c.sub_m, c.sub_n)
 
 
+def kernel_f32_ring(block_m: int, block_k: int, block_n: int) -> tuple[int, int]:
+    """``(stages, shared-memory bytes)`` of the ring the compiled float32
+    SIMT kernel launches a tile with on this card (must equal
+    ``analysis.gemm_stages`` and ``gemm_smem_bytes``; 0 stages where one
+    slab does not fit)."""
+    lib, _ = build_kernel()
+    smem = ctypes.c_int(0)
+    stages = lib.repro_gemm_f32_ring(block_m, block_k, block_n, ctypes.byref(smem))
+    return stages, smem.value
+
+
 # -- the wrapper ---------------------------------------------------------------
+
+
+def simt_ring_configs() -> list[KernelConfig]:
+    """Two configs of each float32 register tile's instantiation, each
+    CTA at the tile's thread limit in 4 x 8-thread warp tiles: 8-deep
+    slabs through a ring of 4 stages, and the shallowest power-of-two
+    slab that fits the ring once (one stage).  At K = 2048 each runs 4 or
+    more slabs: the configs on which the kernel is held against
+    :func:`gemm_plain` under one stage and under a full ring."""
+    out = []
+    for rm in (1, 2, 4, 8):
+        for rn in (1, 2, 4, 8):
+            tm = 32 if max_threads_for_reg_tile(rm, rn) == 1024 else 16
+            bm, bn = tm * rm, max_threads_for_reg_tile(rm, rn) // tm * rn
+            deep = next(bk for bk in (2 ** e for e in range(3, 13))
+                        if gemm_stages(bm, bk, bn, 4) == 1)
+            out += [KernelConfig(bm, bk, bn, 4 * rm, 8 * rn, rm, rn) for bk in (8, deep)]
+    return out
 
 
 def gemm_tiled(a: torch.Tensor, b: torch.Tensor, config: KernelConfig) -> torch.Tensor:
@@ -303,10 +337,8 @@ def gemm_tiled(a: torch.Tensor, b: torch.Tensor, config: KernelConfig) -> torch.
     cfg.validate(m, k, n, a.element_size())
     # a contiguous view may start at any element; the same refusal on every
     # device, so the plain version refuses what the kernel would
-    if gemm_kernel_kind(cfg.block_m, a.element_size()) != "simt" and (
-            misaligned(a) or misaligned(b)):
-        raise ValueError("the bf16 kernels copy 16-byte chunks: operands must be "
-                         "16-byte aligned")
+    if misaligned(a) or misaligned(b):
+        raise ValueError("the kernels copy 16-byte chunks: operands must be 16-byte aligned")
     if a.device.type not in ("cpu", "meta", "cuda"):
         raise ValueError(f"no kernel for device {a.device}")
     with uncounted():  # the kernel's work is reported below, on every device

@@ -294,8 +294,8 @@ def _dispatch(a: torch.Tensor, b: torch.Tensor,
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and starting on a 16-byte boundary, as the bf16
-    kernels' copies need: a contiguous view at an odd offset is copied
+    """``t`` contiguous and starting on a 16-byte boundary, as the
+    kernels' 16-byte copies need: a contiguous view at an odd offset is copied
     (on ``meta``, where the same view is copied as on the card)."""
     t = t.contiguous()
     return t.clone() if misaligned(t) else t

@@ -299,6 +299,7 @@ def main(argv=None) -> None:
     budget = Budget(max_fraction=args.fraction, max_trials=args.max_trials)
     gemm0 = collections.Counter(gemm.LAUNCHES)
     flash0 = collections.Counter(flash_attention.LAUNCHES)
+    flash_dtype0 = collections.Counter(flash_attention.DTYPE_LAUNCHES)
     try:
         with journal if journal is not None else contextlib.nullcontext():
             report = session.tune_arch(
@@ -347,6 +348,8 @@ def main(argv=None) -> None:
     print(f"[tune] kernel_launches={json.dumps(_launch_counts(gemm.LAUNCHES, gemm0))}")
     print(f"[tune] flash_launches="
           f"{json.dumps(_launch_counts(flash_attention.LAUNCHES, flash0))}")
+    print(f"[tune] flash_dtype_launches="
+          f"{json.dumps(dict(flash_attention.DTYPE_LAUNCHES - flash_dtype0))}")
 
 
 if __name__ == "__main__":

@@ -17,6 +17,8 @@ from repro_torch.core.analysis import (
     GEMM_WG_INSTANCES,
     flash_max_threads,
     gemm_bf16_max_threads,
+    gemm_smem_bytes,
+    gemm_stages,
     max_threads_for_reg_tile,
 )
 from repro_torch.kernels import flash_attention as fa
@@ -29,12 +31,17 @@ def _card():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-#: configs per case: the SIMT kernel in f32; in bf16 the wgmma kernel (one
-#: and two warpgroups, both slab depths) and, at M = 8, the bandwidth kernel
+#: configs per case: the SIMT kernel in f32 (every register tile, one stage
+#: and a ring); in bf16 the wgmma kernel (one and two warpgroups, both slab
+#: depths) and, at M = 8, the bandwidth kernel
 GEMM_CASES = {
-    "float32": (torch.float32, (512, 256, 384),
+    "float32": (torch.float32, (256, 2048, 256),
                 (gemm.KernelConfig(128, 32, 128, 32, 64, 8, 8),
-                 gemm.KernelConfig(32, 64, 32, 0, 0, 1, 1))),
+                 gemm.KernelConfig(32, 64, 32, 0, 0, 1, 1)) + tuple(gemm.simt_ring_configs())),
+    # N = 2 (mod 4): B's rows by 4-byte copies; bk = 12: A in runs of 4 k
+    "float32-odd": (torch.float32, (64, 96, 1010),
+                    (gemm.KernelConfig(32, 8, 10, 32, 10, 1, 2),
+                     gemm.KernelConfig(32, 12, 10, 16, 10, 2, 1))),
     "bfloat16": (torch.bfloat16, (512, 256, 512),
                  (gemm.KernelConfig(128, 128, 256, 64, 256),
                   gemm.KernelConfig(256, 64, 128, 128, 128),
@@ -48,7 +55,7 @@ GEMM_CASES = {
 @pytest.mark.gpu
 # bf16: one output rounding step apart, at K <= 4096 (chip_smoke.py states
 # the limit, whose atol grows with K above that)
-@pytest.mark.parametrize("case,tol", [("float32", (1e-4, 8e-4)),
+@pytest.mark.parametrize("case,tol", [("float32", (1e-4, 8e-4)), ("float32-odd", (1e-4, 8e-4)),
                                       ("bfloat16", (1.6e-2, 2e-3)),
                                       ("bfloat16-decode", (1.6e-2, 2e-3))])
 def test_gemm_kernel_matches_plain_on_card(case, tol):
@@ -77,6 +84,20 @@ def test_gemm_launch_limits_match_the_analyzer():
     for bn in GEMM_BW_BN:
         cfg = gemm.KernelConfig(8, 16, bn, 8, bn)
         assert gemm.kernel_max_threads_bf16(cfg) == gemm_bf16_max_threads(8)
+
+
+@pytest.mark.gpu
+def test_f32_ring_matches_the_analyzer():
+    """The ring the SIMT kernel launches (stages, shared-memory bytes)
+    equals ``analysis.gemm_stages`` / ``gemm_smem_bytes``: one stage at a
+    slab that fits once, four where many fit, none over the budget."""
+    _card()
+    tiles = [(c.block_m, c.block_k, c.block_n) for c in gemm.simt_ring_configs()]
+    tiles += [(128, 64, 128), (8, 1024, 8), (10, 8, 16), (16, 1024, 40), (512, 128, 512)]
+    for tile in tiles:
+        stages = gemm_stages(*tile, 4)
+        assert gemm.kernel_f32_ring(*tile) == (stages, gemm_smem_bytes(*tile, 4) if stages else 0)
+    assert {gemm_stages(*t, 4) for t in tiles} == {0, 1, 2, 3, 4}
 
 
 @pytest.mark.gpu
@@ -113,9 +134,11 @@ def test_flash_kernel_matches_plain_on_card(dtype, tol, hd):
         k = torch.randn(2, 256, 2, hd, generator=gen, device="cuda").to(dtype)
         v = torch.randn(2, 256, 2, hd, generator=gen, device="cuda").to(dtype)
         before = fa.LAUNCHES[(256, 256, hd)]
+        before_dtype = fa.DTYPE_LAUNCHES[str(dtype).removeprefix("torch.")]
         out = fa.flash_attention(q, k, v, bq, bkv, causal)
         torch.cuda.synchronize()
         assert fa.LAUNCHES[(256, 256, hd)] == before + 1
+        assert fa.DTYPE_LAUNCHES[str(dtype).removeprefix("torch.")] == before_dtype + 1
         torch.testing.assert_close(out.float(),
                                    fa.flash_attention_plain(q, k, v, bq, bkv, causal).float(),
                                    rtol=tol[0], atol=tol[1])

@@ -118,6 +118,7 @@ def test_tune_cli_op_flash_writes_flash_records(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "cache_hit=1.00" in [l for l in out.splitlines() if "flash_s4096 g-bfs" in l][1]
     assert 'flash_launches={}' in out  # the model launches nothing
+    assert 'flash_dtype_launches={}' in out
     with pytest.raises(SystemExit):
         tune_cli.main(["--op", "gemm", "--device", "cpu", "--cost", "analytical",
                        "--records", rec])  # gemm needs --arch

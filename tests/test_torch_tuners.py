@@ -356,6 +356,26 @@ def test_rnn_sampling_memo_changes_no_draw():
         assert memo._memo == {}
 
 
+def test_rnn_draws_are_counted_by_seed():
+    """Every draw adds one to ``rnn_controller.DRAWS`` under the tuner's
+    seed, whether or not its configuration is measured; a search counts at
+    least one draw per measured trial after the first (the untiled state)."""
+    from repro_torch.core.tuners.rnn_controller import DRAWS
+
+    DRAWS.clear()
+    t = RNNControllerTuner(GemmConfigSpace(256, 256, 256), None, seed=7, device="cpu")
+    t._setup()
+    for _ in range(25):
+        t._sample_config()
+    assert DRAWS == {7: 25}
+    DRAWS.clear()
+    space = GemmConfigSpace(128, 128, 128)
+    tuner = RNNControllerTuner(space, AnalyticalHopperCost(space, dtype="float32"),
+                               seed=3, device="cpu")
+    res = tuner.tune(Budget(max_trials=40))
+    assert set(DRAWS) == {3} and DRAWS[3] >= res.n_trials - 1
+
+
 @pytest.mark.parametrize("ref_cls,port_cls,first_round", [
     (RefNA2C, NA2CTuner, 1 + 16),  # c_ref's state, then one batch of 16
     (RefRNN, RNNControllerTuner, 1 + 8),  # the untiled state, then 8 samples
