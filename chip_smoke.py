@@ -14,6 +14,7 @@ the meta device, and yi-6b's steps counted on the card against it.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --search-only [path/to/src]   # phases 11(b), 16(d) alone
+    python3 chip_smoke.py --flash-f32-only [path/to/src]  # the f32 flash rows alone
 
 Phases (each prints its wall time):
 
@@ -29,7 +30,11 @@ Phases (each prints its wall time):
      a ``[sass]`` line for each of the 16 f32 SIMT instantiations
      (FFMA, LDS.128, LDGSTS.128 and LDG.E.128 counts, registers, spills),
      failing on a spill, on no 16-byte cp.async, or on no LDS.128 where
-     reg_m or reg_n is 4 or more;
+     reg_m or reg_n is 4 or more; and a ``[sass]`` line for each head_dim
+     of the f32 flash kernel (FFMA, LDS.128, 16- and 4-byte LDGSTS and
+     MUFU.EX2 counts, registers and spills of its three block_kv
+     instantiations), failing on a spill, a missing LDGSTS of either width
+     or no LDS.128;
   2. hold the GEMM kernels against their plain PyTorch version on small
      products: every compiled instantiation's launch limit against the
      analyzer's, the f32 ring (stages and shared-memory bytes the
@@ -53,13 +58,18 @@ Phases (each prints its wall time):
      M = 32768, decode at M = 8) under the config dispatch gives them; see
      the bf16 limit refuse both planted faults at full width;
   7. check the flash kernel: each instantiation's launch limit equals the
-     analyzer's, kernel vs plain on small shapes (the blocks of each
-     dtype's list, f32 and bf16, causal and full, G in {1, 4, 8}, every
-     head_dim, and the bf16 block_kv of 48, 80, 96 and 112 on sequences
-     they divide), the wrapper refuses indivisible blocks, and the bf16
-     limit refuses both planted faults; then the f32 kernel (CUDA cores,
-     on no served path) timed at one shape it checks against SDPA in
-     f32, its own ``kernels`` row (``flash_f32[...]``);
+     analyzer's, the f32 K/V ring (stages and shared-memory bytes the
+     kernel launches a block pair with) equals ``analysis.flash_stages``
+     / ``flash_smem_bytes``, kernel vs plain on small shapes (the blocks
+     of each dtype's list, f32 and bf16, causal and full, G in {1, 4,
+     8}, every head_dim, and the bf16 block_kv of 48, 80, 96 and 112 on
+     sequences they divide), the wrapper refuses indivisible blocks, and
+     the bf16 limit refuses both bf16 planted faults; then the f32
+     kernel (CUDA cores, on no served path) at the two shapes of
+     ``FLASH_F32_SHAPES`` (a toy one and yi-6b's geometry in f32, where
+     the f32 limit refuses both f32 planted faults), each checked and
+     timed against its plain version and SDPA in f32, a ``kernels`` row
+     each (``flash_f32[...]``);
   8. tune yi-6b's prefill attention (4096, 4096, 128) bf16 with G-BFS on
      times measured on the card, seeded from the kernel's heuristic
      blocks, then rerun ``tune --op flash --warm-start`` on the same
@@ -250,10 +260,11 @@ a path's launches are the counts less the recorded, plus the replayed:
 the prefill's, the warm-up's, and each graph's once per replay.  Each
 kernel row gives ``launches_tune``, ``launches_serve`` (phase 9) and
 ``launches_families`` (phase 13, at the row's shape; the flash row at
-every shape) and their sum as ``launches``.  The ``flash_f32[...]`` row
-counts the float32 flash kernel's launches on the same paths, read
-from ``flash_attention.DTYPE_LAUNCHES`` (keyed by dtype; ``LAUNCHES``
-is keyed by shape alone, and the other flash rows count every dtype).  GEMM rows give each
+every shape) and their sum as ``launches``.  Each ``flash_f32[...]`` row
+counts the float32 flash kernel's launches on the same paths, of any
+shape, read from ``flash_attention.DTYPE_LAUNCHES`` (keyed by dtype;
+``LAUNCHES`` is keyed by shape alone, and the other flash rows count
+every dtype).  GEMM rows give each
 time twice: ``ms``/``library_ms`` timed as earlier slices timed them
 (the event span holds the host's enqueue of the call), and
 ``ms_spin``/``library_ms_spin`` with the card kept busy while the host
@@ -341,12 +352,27 @@ FAULTS = {
         " - (iq == gridDim.x - 1);",
     ),
 }
+#: planted faults the f32 flash limit must refuse, at the real shape of
+#: ``FLASH_F32_SHAPES`` (phase 7): one line of the f32 kernel's source, and
+#: what a variant built beside it has instead
+FLASH_F32_FAULTS = {
+    # the running accumulator is not rescaled when the row max grows
+    "f32_no_rescale": ("o[i][j] *= corr;", "o[i][j] *= 1.0f;"),
+    # the last q block (the latest rows) stops one kv block short
+    "f32_last_q_block_short": (
+        "const int n_visit = causal ? min(n_kv, ((iq + 1) * bq + BKV - 1) / BKV) : n_kv;",
+        "const int n_visit = (causal ? min(n_kv, ((iq + 1) * bq + BKV - 1) / BKV) : n_kv)"
+        " - (iq == gridDim.x - 1);",
+    ),
+}
 #: (block_q, block_kv) pairs phase 7 checks, per dtype: every bf16 pair G-BFS
 #: can serve at 4096 (block_q 64 or 128, block_kv 16 to 128), and f32 pairs
-#: from 16 x 16 up, several with block_kv != block_q
+#: from 16 x 16 up over every block_kv instantiation (16, 32, 64), several
+#: with block_kv != block_q, under a ring of two stages and of one (128 x 64
+#: at head_dim 128)
 FLASH_BLOCKS = {
     torch.bfloat16: tuple((bq, bkv) for bq in (64, 128) for bkv in (16, 32, 64, 128)),
-    torch.float32: ((16, 16), (32, 64), (64, 32), (64, 128), (128, 16)),
+    torch.float32: ((16, 16), (16, 64), (32, 64), (64, 32), (64, 64), (128, 16), (128, 64)),
 }
 #: the other bf16 block_kv instantiations, checked at block_q 128
 FLASH_ODD_BKV = (48, 80, 96, 112)
@@ -654,6 +680,50 @@ def simt_report(lib, ptxas_log: str) -> None:
                          f"or without 128-bit loads: {bad}")
 
 
+#: the f32 flash kernel's opcodes its ``[sass]`` lines count: FMAs, 128-bit
+#: shared loads, cp.async copies (LDGSTS, 16-byte for V and 4-byte for K and
+#: Q) and exponentials
+FLASH_F32_OPS = r"\b(FFMA|LDS(?:\.U)?\.128|LDGSTS(?:\.\w+)*|MUFU\.EX2)\b"
+
+
+def flash_f32_report(lib, ptxas_log: str) -> None:
+    """One ``[sass]`` line for each head_dim of the float32 flash kernel,
+    ``flash_fwd_f32<HD, BKV>``, with each block_kv instantiation's FFMA,
+    LDS.128, 16- and 4-byte LDGSTS and MUFU.EX2 counts, registers and
+    spill stores; exits on a missing instantiation, a spill, or no
+    LDGSTS of either width (V's 16-byte copies, K's 4-byte ones) or no
+    LDS.128 in one."""
+    from repro_torch.core.analysis import FLASH_F32_BKV, FLASH_HEAD_DIMS
+
+    pattern = re.compile(r"flash_fwd_f32ILi(\d+)ELi(\d+)E")
+    counts = sass_counts(lib, pattern, FLASH_F32_OPS)
+    ptxas, _ = ptxas_report(ptxas_log, pattern)
+    bad = []
+    for hd in sorted({k[0] for k in counts}):
+        keys = sorted(k for k in counts if k[0] == hd)
+        by = {}
+        for key in keys:
+            kinds = collections.Counter()
+            for op, n in counts[key].items():
+                if op.startswith("LDGSTS"):
+                    op = "LDGSTS.128" if op.endswith(".128") else "LDGSTS.32"
+                kinds[op.replace("LDS.U.", "LDS.")] += n
+            by[key] = kinds
+            if (_spills(ptxas[key]) or not kinds["LDGSTS.128"] or not kinds["LDGSTS.32"]
+                    or not kinds["LDS.128"] or not kinds["FFMA"]):
+                bad.append(key)
+        cols = lambda op: " ".join(f"{k[1]}:{by[k][op]}" for k in keys)
+        print(f"[sass] flash_fwd_f32<{hd}, block_kv>: FFMA {cols('FFMA')}; LDS.128 "
+              f"{cols('LDS.128')}; LDGSTS.128 {cols('LDGSTS.128')}; LDGSTS (4-byte) "
+              f"{cols('LDGSTS.32')}; MUFU.EX2 {cols('MUFU.EX2')}; registers "
+              + " ".join(f"{k[1]}:{_regs(ptxas[k])}" for k in keys)
+              + f"; spill stores {sum(_spills(ptxas[k]) for k in keys)} B", flush=True)
+    want = {(hd, bkv) for hd in FLASH_HEAD_DIMS for bkv in FLASH_F32_BKV}
+    if set(counts) != want or bad:
+        raise SystemExit(f"f32 flash instantiations missing ({sorted(want - set(counts))}) or "
+                         f"with a spill or without cp.async copies or 128-bit loads: {bad}")
+
+
 def tensor_core_report(lib, ptxas_log: str) -> dict:
     """Count the tensor-core instructions (``HGMMA`` for wgmma, ``HMMA`` for
     mma.sync) of each bf16 flash instantiation (one per head_dim and
@@ -693,15 +763,17 @@ def refuse_gemm_fault(what: str, name: str, lib, a, b, cfg, ref) -> float:
 
 def refuse_faults(what: str, fault_libs: dict, q, k, v, blocks, ref) -> None:
     """Launch each planted-fault variant on the operands the correct
-    kernel was checked on; the bf16 limit must refuse every one."""
+    kernel was checked on; the operands' limit must refuse every one."""
     from repro_torch.kernels.flash_attention import launch_with
 
+    rtol, atol = FLASH_TOL[q.dtype]
     for name, lib in fault_libs.items():
-        err, ok = within(launch_with(lib, q, k, v, *blocks), ref, torch.bfloat16, FLASH_TOL)
-        print(f"[fault] {what} blocks {blocks}: {name} max abs err {err} -> "
-              f"{'within the limit' if ok else 'refused'}", flush=True)
+        err, ok = within(launch_with(lib, q, k, v, *blocks), ref, q.dtype, FLASH_TOL)
+        print(f"[fault] {what} {q.dtype} blocks {blocks}: {name} max abs err {err} (limit "
+              f"rtol {rtol} atol {atol}) -> {'within the limit' if ok else 'refused'}", flush=True)
         if ok:
-            raise SystemExit(f"the bf16 flash limit let the planted fault {name} pass ({what})")
+            raise SystemExit(f"the {q.dtype} flash limit let the planted fault {name} pass "
+                             f"({what})")
 
 
 def run_cli(args: list[str]) -> str:
@@ -776,9 +848,11 @@ def main() -> None:
         except Exception as e:  # reported, and fatal, below
             builds[label] = (e, time.perf_counter() - t)
 
+    flash_faults = {**FAULTS, **FLASH_F32_FAULTS}
     jobs = [("gemm", build_kernel), ("flash", fa.build_kernel)] + [
-        (f"fault {name}", lambda name=name: fault_variant(FLASH_CU, FAULTS, name, fault_dir.name))
-        for name in FAULTS] + [
+        (f"fault {name}", lambda name=name: fault_variant(FLASH_CU, flash_faults, name,
+                                                          fault_dir.name))
+        for name in flash_faults] + [
         (f"fault {name}", lambda name=name: fault_variant(GEMM_CU, GEMM_FAULTS, name,
                                                           fault_dir.name))
         for name in GEMM_FAULTS]
@@ -795,9 +869,11 @@ def main() -> None:
         print(f"[build] {label} kernel built in {secs:.1f}s; "
               f"instantiations with spills: {len(spills)}")
     fault_libs = {name: fa.bind(builds[f"fault {name}"][0][0]) for name in FAULTS}
+    f32_fault_libs = {name: fa.bind(builds[f"fault {name}"][0][0]) for name in FLASH_F32_FAULTS}
     gemm_fault_libs = {name: gemm_mod.bind(builds[f"fault {name}"][0][0])
                        for name in GEMM_FAULTS}
     flash_ptxas = tensor_core_report(*builds["flash"][0])
+    flash_f32_report(*builds["flash"][0])
     gemm_tensor_core_report(*builds["gemm"][0])
     simt_report(*builds["gemm"][0])
     phase("1 build", t0)
@@ -1057,6 +1133,7 @@ def main() -> None:
                 if got != want:
                     raise SystemExit(f"flash launch limit {got} for {dtype} hd={hd} "
                                      f"disagrees with the analyzer ({want})")
+        check_f32_ring()
         n_checked, worst = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
         for dtype in (torch.float32, torch.bfloat16):
             for hd in (16, 32, 64, 128):
@@ -1105,8 +1182,10 @@ def main() -> None:
         k, v = rand((2, 256, 2, 128), torch.bfloat16), rand((2, 256, 2, 128), torch.bfloat16)
         refuse_faults("q (2, 256, 16, 128)", fault_libs, q, k, v, (64, 32),
                       fa.flash_attention_plain(q, k, v, 64, 32))
-        f32_flash = flash_f32_row(rand, flush, peak_bytes)
-        kernels.append(f32_flash)
+        f32_rows = [flash_f32_row(rand, flush, peak_bytes, shape,
+                                  f32_fault_libs if shape == FLASH_F32_SHAPES[-1] else None)
+                    for shape in FLASH_F32_SHAPES]
+        kernels.extend(f32_rows)
         phase("7 flash kernel vs plain", t0)
 
         # -- flash tuning path: counts zeroed here, read after phase 8 ---------------
@@ -1137,10 +1216,11 @@ def main() -> None:
         flash_cli = json.loads(re.search(r"flash_launches=(.*)", out).group(1))
         flash_tune_launches = sum(fa.LAUNCHES.values()) + sum(flash_cli.values())
         cli_dtype = json.loads(re.search(r"flash_dtype_launches=(.*)", out).group(1))
-        f32_flash["launches_tune"] = fa.DTYPE_LAUNCHES["float32"] + cli_dtype.get("float32", 0)
+        f32_tune = fa.DTYPE_LAUNCHES["float32"] + cli_dtype.get("float32", 0)
+        for row in f32_rows:
+            row["launches_tune"] = f32_tune
         print(f"[launches] flash tuning path: {flash_tune_launches} kernel launches "
-              f"({sum(flash_cli.values())} in the CLI process), float32 "
-              f"{f32_flash['launches_tune']}")
+              f"({sum(flash_cli.values())} in the CLI process), float32 {f32_tune}")
         phase("8 tune flash", t0)
 
         # -- 9. serve yi-6b at full width on the records -------------------------------
@@ -1172,8 +1252,9 @@ def main() -> None:
         stats = ops.dispatch_stats()
         launched, parts = serve_launches(ops.launch_counts(), engine.launch_report())
         serve_flash = sum(n for (kind, _), n in launched.items() if kind == "flash")
-        f32_flash["launches_serve"] = fa.DTYPE_LAUNCHES["float32"]
-        f32_flash["launches"] = f32_flash["launches_tune"] + f32_flash["launches_serve"]
+        for row in f32_rows:
+            row["launches_serve"] = fa.DTYPE_LAUNCHES["float32"]
+            row["launches"] = row["launches_tune"] + row["launches_serve"]
         serve_gemm = {d: n for (kind, d), n in launched.items() if kind == "gemm"}
         served_gemms = sorted(serve_gemm)
         missing = sorted(set(SERVED_SHAPES) - set(served_gemms))
@@ -1196,7 +1277,7 @@ def main() -> None:
         print(f"[serve] GEMM dispatch split: records={stats['gemm']['records']} "
               f"heuristic={stats['gemm']['heuristic']} matmul={stats['gemm']['matmul']}; "
               f"GEMM kernel launches={sum(serve_gemm.values())}; "
-              f"flash kernel launches={serve_flash} (float32 {f32_flash['launches_serve']})")
+              f"flash kernel launches={serve_flash} (float32 {fa.DTYPE_LAUNCHES['float32']})")
         print(f"[serve] sample tokens: {tokens[0][:8].tolist()}")
         if stats["flash"]["records"] != cfg.n_layers or stats["flash"]["heuristic"] != 0:
             raise SystemExit(f"flash dispatch {stats['flash']}: expected {cfg.n_layers} "
@@ -3207,14 +3288,44 @@ def flash_row(name: str, batch: int, seq: int, heads: int, kv_heads: int, hd: in
 
 #: phase 7's f32 flash row: q (batch, seq, heads, hd) over k/v of kv_heads,
 #: causal, one of the shapes phase 7 checks
-FLASH_F32_SHAPE = (2, 256, 16, 2, 128)
+#: the float32 flash kernel's rows, (batch, seq, heads, kv heads, head_dim),
+#: causal: a toy shape (128 CTAs under 64-row blocks, launch latency
+#: dominates), and yi-6b's attention geometry in f32, the operand ``tune
+#: --op flash --arch yi-6b`` times (the planted f32 faults run there)
+FLASH_F32_SHAPES = ((2, 256, 16, 2, 128), (1, 4096, 32, 4, 128))
 
 
-def flash_f32_row(rand, flush, peak_bytes: float) -> dict:
+def check_f32_ring() -> None:
+    """The K/V ring (stages, shared-memory bytes) the compiled float32
+    flash kernel launches each phase-7 block pair with, at every head_dim,
+    and the pairs on either side of the one-stage edge, equals
+    ``analysis.flash_stages`` / ``flash_smem_bytes``."""
+    from repro_torch.core.analysis import FLASH_HEAD_DIMS, flash_stages, flash_smem_bytes
+    from repro_torch.kernels import flash_attention as fa
+
+    cases = {(bq, bkv, hd) for bq, bkv in FLASH_BLOCKS[torch.float32] for hd in FLASH_HEAD_DIMS}
+    cases |= {(128, 32, 128), (128, 64, 128), (256, 64, 32), (256, 64, 128)}
+    for bq, bkv, hd in sorted(cases):
+        stages = flash_stages(bq, bkv, hd, 4)
+        want = (stages, flash_smem_bytes(bq, bkv, hd, 4) if stages else 0)
+        got = fa.kernel_f32_ring(bq, bkv, hd)
+        if got != want:
+            raise SystemExit(f"the f32 flash ring of ({bq}, {bkv}) at hd {hd}: the kernel "
+                             f"launches {got} (stages, bytes), the analyzer says {want}")
+    print(f"[check] the f32 flash ring (stages, shared-memory bytes) of {len(cases)} "
+          f"(block_q, block_kv, head_dim) equals the analyzer's: " + " ".join(
+              f"{bq}x{bkv}@{hd}:{flash_stages(bq, bkv, hd, 4)}" for bq, bkv, hd in sorted(cases)),
+          flush=True)
+
+
+def flash_f32_row(rand, flush, peak_bytes: float, shape: tuple,
+                  fault_libs: dict | None = None) -> dict:
     """A ``kernels`` row for the float32 flash kernel (CUDA cores), which
-    no served or tuned path launches: at ``FLASH_F32_SHAPE`` under the
-    blocks dispatch gives it, held against its plain version within
-    ``FLASH_TOL``, timed (unspun and spun) beside its plain version,
+    no served or tuned path launches: at ``shape`` (one of
+    ``FLASH_F32_SHAPES``), causal, under the blocks dispatch gives it,
+    held against its plain version within ``FLASH_TOL`` (and, with
+    ``fault_libs``, each planted-fault variant refused there), timed
+    (unspun and spun) beside its plain version,
     ``scaled_dot_product_attention`` in float32 and its bound (the causal
     triangle's products at the FP32 CUDA-core peak; q, k, v read and the
     output written once)."""
@@ -3222,12 +3333,17 @@ def flash_f32_row(rand, flush, peak_bytes: float) -> dict:
     from repro_torch.kernels import ops
 
     f32 = torch.float32
-    batch, seq, heads, kv_heads, hd = FLASH_F32_SHAPE
+    batch, seq, heads, kv_heads, hd = shape
     blocks, src = ops.flash_blocks(seq, seq, hd, f32, grid_y=batch * heads)
     q = rand((batch, seq, heads, hd), f32)
     k, v = rand((batch, seq, kv_heads, hd), f32), rand((batch, seq, kv_heads, hd), f32)
+    ref = fa.flash_attention_plain(q, k, v, *blocks)
     err = check_close(f"flash f32 {tuple(q.shape)} {blocks}", fa.flash_attention(q, k, v, *blocks),
-                      fa.flash_attention_plain(q, k, v, *blocks), f32, FLASH_TOL)
+                      ref, f32, FLASH_TOL)
+    if fault_libs:
+        refuse_faults(f"q {tuple(q.shape)} k/v {tuple(k.shape)}", fault_libs, q, k, v, blocks,
+                      ref)
+    del ref
     ms = timed_ms(lambda: fa.flash_attention(q, k, v, *blocks), 20, flush)
     ms_spin = timed_ms(lambda: fa.flash_attention(q, k, v, *blocks), 20, flush, spin=True)
     plain_ms = timed_ms(lambda: fa.flash_attention_plain(q, k, v, *blocks), 3, flush)
@@ -3241,14 +3357,17 @@ def flash_f32_row(rand, flush, peak_bytes: float) -> dict:
     print(f"[time] flash f32 q {tuple(q.shape)} k/v {tuple(k.shape)} blocks {blocks} ({src}): "
           f"kernel_ms={ms:.4f} spun {ms_spin:.4f}; plain_ms={plain_ms:.4f}; SDPA f32 "
           f"library_ms={lib_ms:.4f} spun {lib_spin:.4f}; bound_ms={bound_ms:.4f} (fp32 peak "
-          f"66.9 TFLOP/s); kernel/SDPA spun {ms_spin / lib_spin:.2f}x; max abs err {err}",
-          flush=True)
+          f"66.9 TFLOP/s); share of the bound spun {bound_ms / ms_spin:.3f}; kernel/SDPA spun "
+          f"{ms_spin / lib_spin:.2f}x; max abs err {err}", flush=True)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
     return {
         # not "flash_attention[...]": the served flash launches go to those rows
         "name": f"flash_f32[{batch}x{seq}x{heads}/{kv_heads}x{hd}]", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34", "shape": [batch, seq, heads, hd],
-        # no launch counts here: phases 8 and 9 write them from DTYPE_LAUNCHES
+        # no launch counts here: the main paths write them from DTYPE_LAUNCHES
+        # (every float32 launch, of any shape, counts in each f32 row)
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if flops / FP32_PEAK >= nbytes / peak_bytes else "bytes",
         "library_ms": lib_ms, "ms_spin": ms_spin, "library_ms_spin": lib_spin,
@@ -3334,6 +3453,61 @@ def search_only(src: str) -> None:
     print(json.dumps({"kernels": kernels}))
 
 
+#: block sizes ``--flash-f32-only`` sweeps at each f32 shape: every pair the
+#: tree's launch rule takes
+FLASH_F32_SWEEP = (16, 32, 64, 128)
+
+
+def flash_f32_only(src: str) -> None:
+    """The float32 flash kernel alone, on the package under ``src``: this
+    checkout's, or another tree's, whose kernel it then builds and times
+    under the same protocol (two trees compared in turns on one card):
+
+        python3 chip_smoke.py --flash-f32-only [path/to/src]
+
+    Prints the card, the flash source's digest, the two ``[time] flash
+    f32`` lines and rows of ``FLASH_F32_SHAPES`` (each checked against the
+    plain version), and the spun time of every (block_q, block_kv) of
+    ``FLASH_F32_SWEEP`` the tree's rule launches at each of them."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA card is available")
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.build import source_digest
+    from repro_torch.utils.roofline import H100
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    print(f"[flash-f32-only] {os.path.dirname(os.path.dirname(fa.__file__))} flash_attention.cu "
+          f"{source_digest('flash_attention.cu')}", flush=True)
+    fa.build_kernel()
+    peak_bytes = H100.for_device(torch.cuda.get_device_name(0)).hbm_bw
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(100 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    rows = [flash_f32_row(rand, flush, peak_bytes, shape) for shape in FLASH_F32_SHAPES]
+    for batch, seq, heads, kv_heads, hd in FLASH_F32_SHAPES:
+        q = rand((batch, seq, heads, hd), torch.float32)
+        k = rand((batch, seq, kv_heads, hd), torch.float32)
+        v = rand((batch, seq, kv_heads, hd), torch.float32)
+        swept = {}
+        for bq in FLASH_F32_SWEEP:
+            for bkv in FLASH_F32_SWEEP:
+                if (seq % bq == seq % bkv == 0 and fa.flash_launch_error(
+                        bq, bkv, hd, 4, grid_y=batch * heads) is None):
+                    swept[bq, bkv] = timed_ms(lambda: fa.flash_attention(q, k, v, bq, bkv), 5,
+                                              flush, spin=True)
+        print(f"[sweep] flash f32 q {tuple(q.shape)} k/v {tuple(k.shape)} causal, kernel_ms "
+              "spun by (block_q, block_kv): " + " ".join(
+                  f"{bq}x{bkv}:{ms:.4f}" for (bq, bkv), ms in sorted(swept.items(),
+                                                                      key=lambda x: x[1])),
+              flush=True)
+    print(json.dumps({"kernels": rows}))
+
+
 def become_subreaper() -> None:
     """Make this process the reaper of its descendants' orphans, so a
     process that outlives its parent (a lane's forkserver once a CLI has
@@ -3408,6 +3582,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--search-only"]:
             search_only(sys.argv[2] if len(sys.argv) > 2 else SRC)
+        elif sys.argv[1:2] == ["--flash-f32-only"]:
+            flash_f32_only(sys.argv[2] if len(sys.argv) > 2 else SRC)
         else:
             main()
     finally:

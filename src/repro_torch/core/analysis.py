@@ -31,10 +31,11 @@ Verdict lattice (``AnalysisResult.verdict``):
     Every kernel: a CTA grid taller than CUDA's ``gridDim.y`` limit;
   * *flash launch* (:func:`flash_launch_error`): a dtype or head_dim the
     kernel has no instantiation for, a block below 16 or not a multiple
-    of 16 (of 64 rows, one warpgroup, for block_q in bf16), threads over
+    of 16 (of 64 rows, one warpgroup, for block_q in bf16), an f32
+    block_kv other than 16, 32 or 64 (its instantiations), threads over
     the instantiation's limit, a bf16 kv block over the keys held in
-    registers, tiles over the shared-memory budget, or a grid taller
-    than ``gridDim.y``.
+    registers, tiles over the shared-memory budget (in f32 with a ring
+    of one stage), or a grid taller than ``gridDim.y``.
 
 ``WASTEFUL`` — launchable but dominated (advisory unless noted):
 
@@ -77,6 +78,10 @@ __all__ = [
     "max_threads_for_reg_tile",
     "FLASH_HEAD_DIMS",
     "FLASH_STAGES",
+    "FLASH_F32_BKV",
+    "FLASH_F32_MAX_STAGES",
+    "flash_row_threads",
+    "flash_stages",
     "flash_threads",
     "flash_max_threads",
     "flash_smem_bytes",
@@ -394,10 +399,21 @@ def _gemm_waste(space, s, in_bytes: int, spec: HopperSpec) -> Optional[tuple[str
 #: head_dim values the kernel is instantiated for
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 #: the kernel's smallest block along q and kv; blocks are multiples of it
-#: (f32: whole warps, float4 rows of the P tile, whole keys per thread;
-#: bf16: the k16 step of P @ V, one instantiation per 16 keys of block_kv)
+#: (f32: four row groups of 8 or 16 lanes, whole warps; bf16: the k16 step
+#: of P @ V, one instantiation per 16 keys of block_kv)
 FLASH_MIN_BLOCK = 16
-_FLASH_PAD = 4  # floats of padding per shared-memory row (f32 kernel)
+_FLASH_PAD = 4  # floats of padding of a d-major row (f32 kernel, ``kPad``)
+#: f32 (CUDA-core) kernel: the query rows a thread owns, in S and in O
+#: (``kF32Rows``)
+FLASH_F32_ROWS = 4
+#: ... its block_kv instantiations (``F32_BKV``): a thread holds 4 x
+#: block_kv / flash_row_threads logits of S in registers
+FLASH_F32_BKV = (16, 32, 64)
+#: ... every instantiation's ``__launch_bounds__`` (``kF32MaxThreads``)
+FLASH_F32_MAX_THREADS = 512
+#: ... the deepest K/V ring (``kF32MaxStages``): the next kv block in flight
+#: while this one is computed
+FLASH_F32_MAX_STAGES = 2
 #: bf16 (tensor-core) kernel: depth of the K/V ring of stages (``kStages``)
 FLASH_STAGES = 2
 #: ... query rows per warpgroup, the M of ``wgmma`` (``kWgRows``); block_q
@@ -410,32 +426,64 @@ FLASH_BF16_MAX_BQ = 128
 FLASH_BF16_MAX_BKV = 128
 
 
+def flash_row_threads(head_dim: int) -> int:
+    """Threads of the f32 kernel that share a query row (consecutive lanes
+    of one warp): 16 at head_dim >= 64, else 8 (``f32_row_threads``)."""
+    return 16 if head_dim >= 64 else 8
+
+
 def flash_threads(block_q: int, head_dim: int, in_bytes: int = 2) -> int:
     """Threads of one CTA: a 128-thread warpgroup per 64 query rows in
-    bf16; in f32 ``threads_per_row`` (8, or 4 below head_dim 32) per row."""
+    bf16; in f32 ``flash_row_threads`` per ``FLASH_F32_ROWS`` rows."""
     if in_bytes == 2:
         return block_q * 128 // FLASH_WG_ROWS
-    return block_q * (8 if head_dim >= 32 else 4)
+    return block_q // FLASH_F32_ROWS * flash_row_threads(head_dim)
 
 
 def flash_max_threads(head_dim: int, in_bytes: int = 2) -> int:
-    """Thread limit of the kernel instantiation for one dtype and head_dim
-    — its ``__launch_bounds__``."""
+    """Thread limit of the kernel instantiations for one dtype and head_dim
+    — their ``__launch_bounds__``."""
     if in_bytes == 2:
         return FLASH_BF16_MAX_BQ * 128 // FLASH_WG_ROWS
-    return 512 if head_dim >= 128 else 1024
+    return FLASH_F32_MAX_THREADS
 
 
-def flash_smem_bytes(block_q: int, block_kv: int, head_dim: int, in_bytes: int = 2) -> int:
+def _flash_f32_tiles(block_q: int, block_kv: int, head_dim: int) -> tuple[int, int, int]:
+    # floats of the d-major Q tile, one ring stage (K d-major, V row-major)
+    # and the key-major P tile
+    q = head_dim * (block_q + _FLASH_PAD)
+    stage = head_dim * (block_kv + _FLASH_PAD) + block_kv * head_dim
+    p = block_kv * (block_q + _FLASH_PAD)
+    return q, stage, p
+
+
+def flash_stages(block_q: int, block_kv: int, head_dim: int, in_bytes: int = 2,
+                 spec: Optional[HopperSpec] = None) -> int:
+    """Depth of the kernel's K/V ring.  bf16: ``FLASH_STAGES``.  f32: as
+    many stages as the opt-in shared memory holds beside the Q and P
+    tiles, at most ``FLASH_F32_MAX_STAGES``; 0 where one does not fit
+    (``f32_stages``)."""
+    if in_bytes == 2:
+        return FLASH_STAGES
+    spec = spec or HopperSpec()
+    q, stage, p = _flash_f32_tiles(block_q, block_kv, head_dim)
+    return max(0, min(FLASH_F32_MAX_STAGES, (spec.smem_per_block - 4 * (q + p)) // (4 * stage)))
+
+
+def flash_smem_bytes(block_q: int, block_kv: int, head_dim: int, in_bytes: int = 2,
+                     spec: Optional[HopperSpec] = None) -> int:
     """Shared memory of one CTA.  bf16: the Q tile and a ring of
     ``FLASH_STAGES`` K and V tiles, all bf16 and unpadded (P stays in
-    registers).  f32: the Q, K and V tiles with padded rows, plus the f32
-    P tile of staged logits.  The accumulator, running max and sum live
-    in registers."""
+    registers).  f32: the d-major Q tile, the key-major P tile and a ring
+    of ``flash_stages`` stages, each a d-major K tile and a row-major V
+    tile (one stage's bytes where none fits); d-major rows are padded by
+    ``_FLASH_PAD`` floats.  The accumulators, running max and sum live in
+    registers."""
     if in_bytes == 2:
         return 2 * head_dim * (block_q + 2 * FLASH_STAGES * block_kv)
-    ld = head_dim + _FLASH_PAD
-    return 4 * (block_q * ld + 2 * block_kv * ld + block_q * (block_kv + _FLASH_PAD))
+    q, stage, p = _flash_f32_tiles(block_q, block_kv, head_dim)
+    stages = max(1, flash_stages(block_q, block_kv, head_dim, in_bytes, spec))
+    return 4 * (q + stages * stage + p)
 
 
 def flash_launch_error(
@@ -465,6 +513,14 @@ def flash_launch_error(
         return ("block_alignment",
                 f"block_q {block_q} is not a multiple of {FLASH_WG_ROWS}, the "
                 f"query rows of one warpgroup (wgmma m64)")
+    if in_bytes == 4 and block_kv not in FLASH_F32_BKV:
+        if block_kv > max(FLASH_F32_BKV):
+            return ("kv_block_over_registers",
+                    f"block_kv {block_kv} exceeds {max(FLASH_F32_BKV)}, the keys "
+                    f"whose logits the f32 kernel holds in registers")
+        return ("block_alignment",
+                f"block_kv {block_kv}: the f32 kernel is instantiated for "
+                f"{list(FLASH_F32_BKV)}")
     threads = flash_threads(block_q, head_dim, in_bytes)
     if threads % spec.warp_size:
         return ("partial_warp",
@@ -478,11 +534,12 @@ def flash_launch_error(
         return ("kv_block_over_registers",
                 f"block_kv {block_kv} exceeds {FLASH_BF16_MAX_BKV}, the keys "
                 f"whose S fragments the kernel holds in registers")
-    smem = flash_smem_bytes(block_q, block_kv, head_dim, in_bytes)
+    smem = flash_smem_bytes(block_q, block_kv, head_dim, in_bytes, spec)
     if smem > spec.smem_per_block:
         return ("smem_overflow",
                 f"Q/K/V{'' if in_bytes == 2 else '/P'} tiles take {smem} B of shared "
-                f"memory, over the {spec.smem_per_block} B budget")
+                f"memory{'' if in_bytes == 2 else ' with one stage'}, over the "
+                f"{spec.smem_per_block} B budget")
     if grid_y > spec.max_grid_y:
         return ("grid_too_large",
                 f"{grid_y} batch x head rows exceed gridDim.y <= {spec.max_grid_y}")

@@ -21,9 +21,14 @@ count), scaled by how full the last wave of CTAs leaves the SMs:
   for each ``block_kv`` holds its own S fragments); one block-wide
   barrier per visit;
 * f32 (the CUDA-core kernel): the same operations at the CUDA-core f32
-  rate at half efficiency (about one shared-memory load per FMA), the
-  exponentials, CTAs per SM from threads and shared memory, and two
-  barriers per visit;
+  rate, scaled by the FMAs' share of a thread's FMAs and shared loads
+  (its register tiles: 4 rows against ``block_kv / flash_row_threads``
+  keys and ``head_dim / flash_row_threads`` columns; a load weighs
+  ``_SIMT_LOAD_WEIGHT`` FMAs) and by how many warps an SM holds to hide
+  their latency (``_SIMT_WARPS``); the exponentials; CTAs per SM from
+  threads, the shared memory of its Q and P tiles and ring of K/V stages
+  (``flash_stages``), and registers; one barrier per visit with two
+  stages, two with one;
 * memory time: Q read and O written once, and a K and a V tile read per
   visit (the kernel streams them), at the card's memory rate.
 
@@ -39,9 +44,12 @@ import math
 import numpy as np
 
 from ..analysis import (
+    FLASH_F32_ROWS,
     HopperSpec,
     ScheduleAnalyzer,
     dtype_in_bytes,
+    flash_row_threads,
+    flash_stages,
     flash_threads,
 )
 from ..flash_space import FlashAttnConfigSpace, FlashScheduleState
@@ -65,6 +73,15 @@ _THREADS_PER_SM = 2048
 _REGS_PER_SM = 65_536
 #: one __syncthreads round trip, seconds (about 40 clocks)
 _BARRIER_S = 2.2e-8
+#: the f32 kernel's rate: the FMAs a shared load weighs, and the warps an
+#: SM needs to hide latency (the rate falls in proportion below them),
+#: fitted to its spun times over the twelve (block_q, block_kv) its rule
+#: launches at yi-6b's geometry in f32 on an H100 (``chip_smoke.py
+#: --flash-f32-only``; PERF.md section 6)
+_SIMT_LOAD_WEIGHT = 8.0
+_SIMT_WARPS = 12
+#: shared memory the card reserves for each resident CTA
+_SMEM_RESERVED = 1024
 
 
 class FlashAnalyticalHopperCost(CostBackend):
@@ -155,7 +172,22 @@ class FlashAnalyticalHopperCost(CostBackend):
             per_sm = min(per_sm, _REGS_PER_SM // (threads * regs))
             rate, barriers = _TC_EFFICIENCY * _BF16_TC_FLOPS, 1
         else:
-            rate, barriers = 0.5 * _F32_FLOPS, 2
+            rt = flash_row_threads(hd)
+            rns, rno = bkv // rt, hd // rt  # keys of S, columns of O a thread owns
+            # the S and O accumulators plus about 48 registers of operands,
+            # softmax state and addresses, under the launch bound's 128
+            regs = min(128, FLASH_F32_ROWS * (rns + rno) + 48)
+            per_sm = min(_THREADS_PER_SM // threads, _SMEM_PER_SM // (smem + _SMEM_RESERVED),
+                         _REGS_PER_SM // (threads * regs), 32)
+            # per visit a thread issues 4 (rns hd + rno bkv) FMAs against one
+            # LDS of Q per d and of P per key, and a run of up to 4 floats
+            # of K per d and of V per key
+            ffma = FLASH_F32_ROWS * (rns * hd + rno * bkv)
+            lds = hd * (1 + -(-rns // 4)) + bkv * (1 + -(-rno // 4))
+            warps = max(1, per_sm) * threads // self.spec.warp_size
+            rate = (_F32_FLOPS * ffma / (ffma + _SIMT_LOAD_WEIGHT * lds)
+                    * min(1.0, warps / _SIMT_WARPS))
+            barriers = 2 if flash_stages(bq, bkv, hd, 4, self.spec) == 1 else 1
         slots = max(1, per_sm) * self.spec.num_sms
         ctas = s.n_q_blocks * heads
         fill = ctas / (math.ceil(ctas / slots) * slots)
@@ -170,11 +202,12 @@ class FlashAnalyticalHopperCost(CostBackend):
         return t_compute, traffic / _HBM_BYTES_S, t_overhead
 
     def measure_fingerprint(self) -> str:
-        # the bf16 model is of the tensor-core kernel: costs of the CUDA-core
-        # model it replaced are not served from a journal
+        # each model names its kernel's design: costs of the models they
+        # replaced (bf16 on CUDA cores, f32 without register tiles and a
+        # K/V ring) are not served from a journal
         from .analytical import noise_part
 
-        model = "|wgmma" if self.in_bytes == 2 else ""
+        model = "|wgmma" if self.in_bytes == 2 else "|ring"
         return (f"r{self.n_repeats}|{self.dtype}{model}" + noise_part(self)
                 + self.space_fingerprint())
 

@@ -168,7 +168,9 @@ def _flash_default_state(space: FlashAttnConfigSpace, dtype: str) -> Optional[Fl
 
     if (space.d_q, space.d_kv) != (2, 2):
         return None
-    blocks = default_blocks(space.seq_q, space.seq_kv, space.head_dim, dtype_in_bytes(dtype))
+    # at the grid of the space's operand: one sequence of its query heads
+    blocks = default_blocks(space.seq_q, space.seq_kv, space.head_dim, dtype_in_bytes(dtype),
+                            grid_y=space.heads)
     return None if blocks is None else state_from_blocks(*blocks, space.seq_q, space.seq_kv)
 
 

@@ -14,9 +14,11 @@
 // (Sq / bq, B * H), heaviest causal q blocks launched first.  (The TPU kernel
 // folds the G query heads of a kv head into one grid cell with a (G, bq, hd)
 // f32 VMEM accumulator; at yi-6b's G = 8, hd = 128 that is 256 KB for
-// bq = 64, over a CTA's 227 KB of shared memory and far over its registers.)
+// bq = 64, over a CTA's 227 KB of shared memory and far over its registers.
+// Here the G heads of a kv head read its K/V blocks through the L2.)
 // block_q and block_kv are runtime arguments of the C interface; head_dim
-// is a template parameter (16, 32, 64, 128), and so is block_kv in bf16.
+// and block_kv are template parameters (the launcher picks the
+// instantiation by block_kv).
 //
 // Bound.  At serving shapes (yi-6b prefill: B = 8, S = 4096, H = 32,
 // hd = 128) attention does 4*B*H*hd*S(S+1)/2 operations on 2*B*S*(H+KV)*hd
@@ -50,12 +52,39 @@
 //   warp, softmax of one warpgroup overlapping the products of the other),
 //   and a swizzled layout for 128-byte rows.
 //
-// float32: flash_fwd_f32, on CUDA cores (a TF32 path would break the f32
-// tolerance of 2e-5).  bq x TPR threads, TPR consecutive threads own one
-// query row.  Per kv block all threads stage the K and V tiles in shared
-// memory, each thread computes bkv / TPR logits of its row into a shared P
-// tile, the row's threads reduce max and sum with shuffles, and each thread
-// accumulates P @ V for hd / TPR columns in registers.
+// float32: flash_fwd_f32<HD, BKV>, on CUDA cores (TF32 keeps about three
+//   digits and breaks the f32 limit of 2e-5).  Bound by operations: at
+//   yi-6b's geometry in f32 (q 1 x 4096 x 32 x 128, k/v 4 heads, causal)
+//   the two products are 1.375e11 operations, 2.06 ms at the FP32 peak of
+//   66.9 TFLOP/s, on 151 MB (0.045 ms at 3.35 TB/s).  So the goal is an FMA
+//   stream that neither waits for its operands nor spends its issue slots on
+//   loads, as in the f32 SIMT GEMM (gemm.cu):
+//   * Both products are register-tiled outer products.  bq / 4 row groups of
+//     RT threads (RT = 16 at head_dim >= 64, else 8; consecutive lanes of one
+//     warp); a thread owns 4 query rows, the same rows in S and in O, so the
+//     running max, sum and rescale stay in the row's group, reduced by
+//     shuffles.  S = Q K^T: per d, one LDS.128 of the thread's 4 rows of Q and
+//     runs of its BKV / RT keys of K, then 4 x BKV / RT FMAs, from Q (loaded
+//     once per CTA) and K sitting d-major in padded slabs.  O += P V: per key,
+//     one LDS.128 of the thread's 4 rows of P (key-major) and runs of its
+//     HD / RT columns of V (row-major, as stored), then 4 x HD / RT FMAs.  Runs
+//     are at most 4 floats, RT * 4 apart, so a quarter warp's 16-byte loads
+//     hit distinct banks or broadcast.  At hd 128, BKV 64 a thread issues 4096
+//     FMAs per kv block against 448 LDS.128.
+//   * A ring of K/V stages filled by cp.async: V by 16-byte copies; K (and Q)
+//     transposed into d-major slabs by 4-byte copies, rows padded to 4 (mod
+//     8) floats, so a warp reads 8 consecutive d of 4 rows (whole 32-byte
+//     sectors) and its stores hit 32 banks.  The copy of kv block ik + 1 is in
+//     flight while block ik is computed; the depth is what the opt-in shared
+//     memory holds beside Q and P, at most 2, and one stage is allowed (its
+//     slot refilled after a barrier, the copy exposed).
+//   * Online softmax in the exp2 domain: scale * log2(e) in one multiply of
+//     the logits, exp2f, the causal mask only on blocks that cross the
+//     diagonal.  P goes to shared memory key-major; each row group's lanes
+//     are in one warp, so a warp barrier orders its writes and reads, and a
+//     kv block costs one block-wide barrier (two with one stage).
+//   Left for later work: folding the G query heads of a kv head into one CTA,
+//   and a 3xTF32 tensor-core path.
 //
 // Launch limits.  __launch_bounds__ caps each instantiation's registers;
 // the Python side (repro_torch/core/analysis.py:flash_launch_error) states
@@ -496,149 +525,280 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restr
 
 // -- float32: CUDA cores -------------------------------------------------------
 
-constexpr int kPad = 4;  // floats of padding per shared-memory row
-__host__ __device__ constexpr int threads_per_row(int hd) { return hd >= 32 ? 8 : 4; }
-__host__ __device__ constexpr int max_threads_f32(int hd) { return hd >= 128 ? 512 : 1024; }
+constexpr int kF32Rows = 4;          // query rows a thread owns (analysis.FLASH_F32_ROWS)
+constexpr int kF32MaxThreads = 512;  // __launch_bounds__ (analysis.FLASH_F32_MAX_THREADS)
+constexpr int kF32MaxStages = 2;     // K/V ring depth at most (analysis.FLASH_F32_MAX_STAGES)
+constexpr int kPad = 4;              // floats of padding of a d-major row (analysis._FLASH_PAD)
 
-size_t smem_bytes_f32(int bq, int bkv, int hd) {
-  const size_t ld = hd + kPad;
-  return sizeof(float) * (bq * ld + 2 * bkv * ld + bq * static_cast<size_t>(bkv + kPad));
+// threads that share a query row (analysis.flash_row_threads)
+__host__ __device__ constexpr int f32_row_threads(int hd) { return hd >= 64 ? 16 : 8; }
+
+// floats of the d-major Q tile, of one ring stage (K d-major, then V
+// row-major) and of the key-major P tile
+size_t f32_q_floats(int bq, int hd) { return static_cast<size_t>(hd) * (bq + kPad); }
+size_t f32_stage_floats(int bkv, int hd) {
+  return static_cast<size_t>(hd) * (bkv + kPad) + static_cast<size_t>(bkv) * hd;
+}
+size_t f32_p_floats(int bq, int bkv) { return static_cast<size_t>(bkv) * (bq + kPad); }
+
+// the ring's depth: as many stages as the opt-in shared memory holds beside
+// Q and P, at most kF32MaxStages; 0 where one does not fit
+// (analysis.flash_stages)
+int f32_stages(int bq, int bkv, int hd, int smem_optin) {
+  const long long fixed = sizeof(float) * (f32_q_floats(bq, hd) + f32_p_floats(bq, bkv));
+  const long long stage = sizeof(float) * f32_stage_floats(bkv, hd);
+  const long long fit = fixed > smem_optin ? 0 : (smem_optin - fixed) / stage;
+  return static_cast<int>(fit < kF32MaxStages ? fit : kF32MaxStages);
 }
 
+size_t f32_smem_bytes(int bq, int bkv, int hd, int stages) {
+  return sizeof(float) *
+         (f32_q_floats(bq, hd) + stages * f32_stage_floats(bkv, hd) + f32_p_floats(bq, bkv));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(smem)), "l"(gmem));
+}
+
+// W consecutive floats, one load or store of 32 W bits (p is 4 W-byte aligned);
+// gemm.cu has the same (each source builds alone, and a planted-fault
+// variant of it builds from a copy in another directory)
+template <int W> struct Run;
+template <> struct Run<1> {
+  static __device__ __forceinline__ void load(float* r, const float* p) { r[0] = *p; }
+  static __device__ __forceinline__ void store(float* p, const float* r) { *p = r[0]; }
+};
+template <> struct Run<2> {
+  static __device__ __forceinline__ void load(float* r, const float* p) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    r[0] = v.x, r[1] = v.y;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* r) {
+    *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+  }
+};
+template <> struct Run<4> {
+  static __device__ __forceinline__ void load(float* r, const float* p) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* r) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  }
+};
+
+// Stage `rows` rows of HD floats (source rows `stride` floats apart) d-major
+// into dst[d][r] (rows `ld` floats apart, ld = 4 (mod 8)) by 4-byte cp.async:
+// copy e takes d = 8 (e / 8 / rows) + e % 8 of row e / 8 % rows, so a warp
+// reads 8 consecutive d of 4 rows (whole 32-byte sectors) and its 32 stores
+// hit 32 distinct banks.
 template <int HD>
-__global__ void __launch_bounds__(max_threads_f32(HD))
+__device__ __forceinline__ void load_dmajor(float* dst, const float* src, int rows, int ld,
+                                            int64_t stride, int tid, int nthreads) {
+  for (int e = tid; e < rows * HD; e += nthreads) {
+    const int t = e / 8, r = t % rows, d = 8 * (t / rows) + e % 8;
+    cp_async4(dst + d * ld + r, src + r * stride + d);
+  }
+}
+
+// Stage BKV rows of HD floats row-major into dst[r][d] by 16-byte cp.async.
+template <int HD, int BKV>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int64_t stride, int tid,
+                                          int nthreads) {
+  constexpr int NC = HD / 4;
+  for (int e = tid; e < BKV * NC; e += nthreads) {
+    const int r = e / NC, c = e % NC;
+    cp_async16(dst + r * HD + 4 * c, src + r * stride + 4 * c);
+  }
+}
+
+// One CTA of bq query rows against kv blocks of BKV keys: bq / kF32Rows row
+// groups of RT threads, RT consecutive lanes per group.  A thread owns
+// kF32Rows rows in S and the same rows in O: the row's max and sum stay in
+// its group, reduced by shuffles.
+template <int HD, int BKV>
+__global__ void __launch_bounds__(kF32MaxThreads)
 flash_fwd_f32(const float* __restrict__ Q, const float* __restrict__ K, const float* __restrict__ V,
-              float* __restrict__ O, int Sq, int Sk, int H, int KVH, int bq, int bkv, int causal,
-              float scale) {
-  constexpr int TPR = threads_per_row(HD);
-  constexpr int CPT = HD / TPR;  // accumulator columns per thread
-  constexpr int C4 = CPT / 4;    // ... in float4 chunks
-  constexpr int LD = HD + kPad;  // row stride of the Q, K and V tiles
+              float* __restrict__ O, int Sq, int Sk, int H, int KVH, int bq, int stages, int causal,
+              float scale_log2) {
+  constexpr int RM = kF32Rows;
+  constexpr int RT = f32_row_threads(HD);
+  constexpr int RNS = BKV / RT, WS = RNS < 4 ? RNS : 4;  // keys of S a thread owns, run width
+  constexpr int RNO = HD / RT, WO = RNO < 4 ? RNO : 4;   // columns of O, run width
+  constexpr int LDK = BKV + kPad;                        // row stride of the d-major K tile
+  static_assert(RM == 4 && RNS >= 1 && RNO >= 1 && BKV % RT == 0 && HD % RT == 0, "tile");
+  static_assert(kF32MaxStages == 2, "one copy group in flight: cp.async.wait_group 0");
   extern __shared__ __align__(16) float smem[];
-  const int ldp = bkv + kPad;  // row stride of the P tile
-  float* Qs = smem;            // [bq][LD], pre-scaled
-  float* Ks = Qs + bq * LD;    // [bkv][LD]
-  float* Vs = Ks + bkv * LD;   // [bkv][LD]
-  float* Ps = Vs + bkv * LD;   // [bq][ldp]: logits, then probabilities
+  const int ldq = bq + kPad;  // row stride of the d-major Q tile and the key-major P tile
+  float* Qs = smem;                     // [HD][ldq]
+  float* Ps = Qs + HD * ldq;            // [BKV][ldq]
+  float* ring = Ps + BKV * ldq;         // [stages][K: HD][LDK | V: BKV][HD]
+  constexpr int kStage = HD * LDK + BKV * HD;
 
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int row = tid / TPR, g = tid % TPR;
+  const int rg = tid / RT, c = tid % RT;
+  const int r0 = rg * RM;                     // the thread's first row in the q block
   const int iq = gridDim.x - 1 - blockIdx.x;  // heaviest causal blocks first
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int kvh = h / (H / KVH);
   const int q0 = iq * bq;
-  const int64_t q_stride = static_cast<int64_t>(H) * HD;     // between sequence rows
+  const int64_t q_stride = static_cast<int64_t>(H) * HD;  // between sequence rows
   const int64_t kv_stride = static_cast<int64_t>(KVH) * HD;
   const float* Qb = Q + (static_cast<int64_t>(b) * Sq + q0) * q_stride + static_cast<int64_t>(h) * HD;
   const float* Kb = K + static_cast<int64_t>(b) * Sk * kv_stride + static_cast<int64_t>(kvh) * HD;
   const float* Vb = V + static_cast<int64_t>(b) * Sk * kv_stride + static_cast<int64_t>(kvh) * HD;
   float* Ob = O + (static_cast<int64_t>(b) * Sq + q0) * q_stride + static_cast<int64_t>(h) * HD;
 
-  for (int e = tid; e < bq * HD; e += nthreads) {
-    const int r = e / HD, d = e % HD;
-    Qs[r * LD + d] = Qb[r * q_stride + d] * scale;
+  const int n_kv = Sk / BKV;
+  const int n_visit = causal ? min(n_kv, ((iq + 1) * bq + BKV - 1) / BKV) : n_kv;
+
+  auto load = [&](int st, int ik) {
+    float* ks = ring + st * kStage;
+    const int64_t off = static_cast<int64_t>(ik) * BKV * kv_stride;
+    load_dmajor<HD>(ks, Kb + off, BKV, LDK, kv_stride, tid, nthreads);
+    load_rows<HD, BKV>(ks + HD * LDK, Vb + off, kv_stride, tid, nthreads);
+  };
+
+  // Q joins the first copy group; then kv blocks 0 .. stages - 2, one group each
+  load_dmajor<HD>(Qs, Qb, bq, ldq, q_stride, tid, nthreads);
+  for (int st = 0; st < stages - 1; ++st) {
+    if (st < n_visit) load(st, st);
+    cp_async_commit();
   }
 
-  float acc[CPT];
+  float o[RM][RNO];
 #pragma unroll
-  for (int c = 0; c < CPT; ++c) acc[c] = 0.0f;
-  float m_run = -1e30f, l_run = 0.0f;
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RNO; ++j) o[i][j] = 0.0f;
+  float m_run[RM], l_run[RM];  // l: this thread's share of the row sum
+#pragma unroll
+  for (int i = 0; i < RM; ++i) m_run[i] = -1e30f, l_run[i] = 0.0f;
 
-  const int n_kv = Sk / bkv;
-  const int last = causal ? min(n_kv, ((iq + 1) * bq + bkv - 1) / bkv) : n_kv;
-  const int nk = bkv / TPR;  // logits per thread per kv block
-  const int q_pos = q0 + row;
-  const float* qrow = Qs + row * LD;
-  float* prow = Ps + row * ldp;
+  // the thread's keys in S: RNS / WS runs of WS, RT * WS apart; its columns
+  // of O likewise (a quarter warp's 16-byte loads hit distinct banks)
+  const int key0 = c * WS, col0 = c * WO;
 
-  for (int ik = 0; ik < last; ++ik) {
-    const int k0 = ik * bkv;
-    __syncthreads();  // the Q tile is stored; the last block's K/V/P reads are done
-    for (int e = tid; e < bkv * HD; e += nthreads) {
-      const int r = e / HD, d = e % HD;
-      const int64_t off = static_cast<int64_t>(k0 + r) * kv_stride + d;
-      Ks[r * LD + d] = Kb[off];
-      Vs[r * LD + d] = Vb[off];
+  for (int ik = 0; ik < n_visit; ++ik) {
+    // one stage: the slot is refilled once every thread is done with block ik - 1
+    if (stages == 1) {
+      if (ik > 0) __syncthreads();
+      load(0, ik);
+      cp_async_commit();
     }
+    // block ik has landed (and, at ik = 0, Q); every thread is done with
+    // block ik - 1, whose stage the next copy overwrites
+    cp_async_wait<0>();
     __syncthreads();
+    if (stages > 1) {
+      const int nxt = ik + stages - 1;
+      if (nxt < n_visit) load(nxt % stages, nxt);
+      cp_async_commit();
+    }
+    const int cur = ik % stages;
+    const float* ks = ring + cur * kStage;
+    const float* vs = ks + HD * LDK;
+    const int k0 = ik * BKV;
 
-    // logits of this thread's keys, four at a time
-    float bmax = -1e30f;
-    for (int i0 = 0; i0 < nk; i0 += 4) {
-      float sc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    // 1. S = Q K^T: per d, the thread's RM rows of Q and RNS keys of K,
+    //    then RM x RNS FMAs
+    float s[RM][RNS];
 #pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 qv = *reinterpret_cast<const float4*>(qrow + d);
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if (i0 + u < nk) {
-            const float4 kv =
-                *reinterpret_cast<const float4*>(Ks + (g + TPR * (i0 + u)) * LD + d);
-            sc[u] = fmaf(qv.x, kv.x, sc[u]);
-            sc[u] = fmaf(qv.y, kv.y, sc[u]);
-            sc[u] = fmaf(qv.z, kv.z, sc[u]);
-            sc[u] = fmaf(qv.w, kv.w, sc[u]);
-          }
-        }
-      }
+      for (int u = 0; u < RNS; ++u) s[i][u] = 0.0f;
+    {
+      const float* qp = Qs + r0;
+      const float* kp = ks + key0;
+#pragma unroll 8
+      for (int d = 0; d < HD; ++d) {
+        float a[RM], kk[RNS];
+        Run<RM>::load(a, qp + d * ldq);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (i0 + u < nk) {
-          const int j = g + TPR * (i0 + u);
-          const float x = (causal && q_pos < k0 + j) ? -1e30f : sc[u];
-          prow[j] = x;
-          bmax = fmaxf(bmax, x);
-        }
+        for (int r = 0; r < RNS / WS; ++r) Run<WS>::load(kk + r * WS, kp + d * LDK + r * RT * WS);
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int u = 0; u < RNS; ++u) s[i][u] = fmaf(a[i], kk[u], s[i][u]);
       }
     }
 
-    // online softmax over the row's TPR threads
+    // 2. online softmax in the exp2 domain: scale * log2(e) in one multiply,
+    //    the causal mask only on blocks that cross the diagonal
+    const bool diagonal = causal && k0 + BKV - 1 > q0;
+    float m_new[RM];
 #pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1)
-      bmax = fmaxf(bmax, __shfl_xor_sync(0xffffffffu, bmax, off));
-    const float m_new = fmaxf(m_run, bmax);
-    const float corr = expf(m_run - m_new);
-    float bsum = 0.0f;
-    for (int i = 0; i < nk; ++i) {
-      const int j = g + TPR * i;
-      const float p = expf(prow[j] - m_new);
-      prow[j] = p;
-      bsum += p;
+    for (int i = 0; i < RM; ++i) {
+      m_new[i] = m_run[i];
+#pragma unroll
+      for (int u = 0; u < RNS; ++u) {
+        const int key = k0 + key0 + (u / WS) * RT * WS + u % WS;
+        float x = s[i][u] * scale_log2;
+        if (diagonal && q0 + r0 + i < key) x = -1e30f;
+        s[i][u] = x;
+        m_new[i] = fmaxf(m_new[i], x);
+      }
+#pragma unroll
+      for (int off = RT / 2; off > 0; off >>= 1)
+        m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], off));
     }
 #pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1)
-      bsum += __shfl_xor_sync(0xffffffffu, bsum, off);
-    l_run = l_run * corr + bsum;
-    m_run = m_new;
+    for (int i = 0; i < RM; ++i) {
+      const float corr = exp2f(m_run[i] - m_new[i]);
+      m_run[i] = m_new[i];
+      l_run[i] *= corr;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[c] *= corr;
-    __syncwarp();  // the row's whole P slice is in shared memory
+      for (int u = 0; u < RNS; ++u) {
+        const float p = exp2f(s[i][u] - m_new[i]);
+        s[i][u] = p;
+        l_run[i] += p;
+      }
+#pragma unroll
+      for (int j = 0; j < RNO; ++j) o[i][j] *= corr;  // rescale the row's accumulator
+    }
 
-    // acc += P @ V on this thread's columns 4g + 4*TPR*t + (0..3)
-    for (int j = 0; j < bkv; j += 4) {
-      const float4 p4 = *reinterpret_cast<const float4*>(prow + j);
-      const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+    // 3. P to shared memory, key-major: the row group's lanes exchange their
+    //    keys within the warp, so a warp barrier suffices
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vrow = Vs + (j + u) * LD + 4 * g;
+    for (int u = 0; u < RNS; ++u) {
+      const float pc[RM] = {s[0][u], s[1][u], s[2][u], s[3][u]};
+      Run<RM>::store(Ps + (key0 + (u / WS) * RT * WS + u % WS) * ldq + r0, pc);
+    }
+    __syncwarp();
+
+    // 4. O += P V: per key, the thread's RM rows of P and RNO columns of V
+    {
+      const float* pp = Ps + r0;
+      const float* vp = vs + col0;
+#pragma unroll 8
+      for (int j = 0; j < BKV; ++j) {
+        float a[RM], vv[RNO];
+        Run<RM>::load(a, pp + j * ldq);
 #pragma unroll
-        for (int t = 0; t < C4; ++t) {
-          const float4 v4 = *reinterpret_cast<const float4*>(vrow + 4 * TPR * t);
-          acc[4 * t + 0] = fmaf(pj[u], v4.x, acc[4 * t + 0]);
-          acc[4 * t + 1] = fmaf(pj[u], v4.y, acc[4 * t + 1]);
-          acc[4 * t + 2] = fmaf(pj[u], v4.z, acc[4 * t + 2]);
-          acc[4 * t + 3] = fmaf(pj[u], v4.w, acc[4 * t + 3]);
-        }
+        for (int r = 0; r < RNO / WO; ++r) Run<WO>::load(vv + r * WO, vp + j * HD + r * RT * WO);
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int t = 0; t < RNO; ++t) o[i][t] = fmaf(a[i], vv[t], o[i][t]);
       }
     }
   }
+  cp_async_wait<0>();  // no copy outlives the block (the last groups are empty)
 
-  const float denom = fmaxf(l_run, 1e-30f);
-  float* orow = Ob + row * q_stride + 4 * g;
+  // 5. the row's sum over its group; O = acc / max(l, 1e-30)
 #pragma unroll
-  for (int t = 0; t < C4; ++t)
+  for (int i = 0; i < RM; ++i) {
 #pragma unroll
-    for (int u = 0; u < 4; ++u) orow[4 * TPR * t + u] = acc[4 * t + u] / denom;
+    for (int off = RT / 2; off > 0; off >>= 1)
+      l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], off);
+    const float denom = fmaxf(l_run[i], 1e-30f);
+    float out[RNO];
+#pragma unroll
+    for (int t = 0; t < RNO; ++t) out[t] = o[i][t] / denom;
+    float* orow = Ob + static_cast<int64_t>(r0 + i) * q_stride + col0;
+#pragma unroll
+    for (int r = 0; r < RNO / WO; ++r) Run<WO>::store(orow + r * RT * WO, out + r * WO);
+  }
 }
 
 // -- launch ----------------------------------------------------------------------
@@ -695,22 +855,53 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   return cudaErrorInvalidValue;
 }
 
-template <int HD>
+// the opt-in shared-memory limit of the current device (read once)
+int smem_optin() {
+  static int optin = -1;
+  if (optin < 0) {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+      return 0;
+    optin = v;
+  }
+  return optin;
+}
+
+template <int HD, int BKV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                       int Sk, int H, int KVH, int bq, int bkv, int causal, float scale,
+                       int Sk, int H, int KVH, int bq, int causal, float scale,
                        cudaStream_t stream) {
-  auto kernel = flash_fwd_f32<HD>;
+  auto kernel = flash_fwd_f32<HD, BKV>;
   static bool opted_in = false;  // one opt-in per instantiation
   if (!opted_in) {
     const cudaError_t err = opt_in_smem(kernel);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
+  const int stages = f32_stages(bq, BKV, HD, smem_optin());
+  if (stages < 1 || bq % kF32Rows) return cudaErrorInvalidValue;
   const dim3 grid(Sq / bq, B * H);
-  kernel<<<grid, bq * threads_per_row(HD), smem_bytes_f32(bq, bkv, HD), stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Sq, Sk, H, KVH, bq, bkv, causal, scale);
+  kernel<<<grid, (bq / kF32Rows) * f32_row_threads(HD), f32_smem_bytes(bq, BKV, HD, stages),
+           stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KVH, bq,
+                     stages, causal, scale * 1.4426950408889634f);
   return cudaGetLastError();
+}
+
+// the f32 block_kv instantiations (analysis.FLASH_F32_BKV)
+#define F32_BKV(X) X(16) X(32) X(64)
+
+// block_kv picks the instantiation
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                       int Sk, int H, int KVH, int bq, int bkv, int causal, float scale,
+                       cudaStream_t stream) {
+#define LAUNCH_BKV(BKV) \
+  case BKV: return launch_f32<HD, BKV>(q, k, v, o, B, Sq, Sk, H, KVH, bq, causal, scale, stream);
+  switch (bkv) { F32_BKV(LAUNCH_BKV) }
+#undef LAUNCH_BKV
+  return cudaErrorInvalidValue;
 }
 
 template <typename Kernel>
@@ -718,6 +909,20 @@ int max_threads_of(Kernel kernel) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   return err == cudaSuccess ? attr.maxThreadsPerBlock : -static_cast<int>(err);
+}
+
+// the least limit over a head_dim's f32 block_kv instantiations
+template <int HD>
+int max_threads_f32() {
+  int least = kF32MaxThreads;
+#define MAXT_BKV(BKV)                                               \
+  {                                                                 \
+    const int t = max_threads_of(flash_fwd_f32<HD, BKV>);          \
+    least = t < least ? t : least;                                  \
+  }
+  F32_BKV(MAXT_BKV)
+#undef MAXT_BKV
+  return least;
 }
 
 // the least limit over a head_dim's block_kv instantiations
@@ -762,10 +967,10 @@ int repro_flash(int dtype, int head_dim, const void* q, const void* k, const voi
 }
 
 // The launch limit the compiled instantiations report
-// (cudaFuncAttributes::maxThreadsPerBlock; for bf16 the least over the
+// (cudaFuncAttributes::maxThreadsPerBlock, the least over a head_dim's
 // block_kv instantiations), or -1 / -cudaError_t.
 int repro_flash_max_threads(int dtype, int head_dim) {
-#define MAXT_F32(HD) return max_threads_of(flash_fwd_f32<HD>)
+#define MAXT_F32(HD) return max_threads_f32<HD>()
 #define MAXT_BF16(HD) return max_threads_bf16<HD>()
   if (dtype == 0) {
     switch (head_dim) { ALL_HEAD_DIMS(MAXT_F32) }
@@ -773,6 +978,16 @@ int repro_flash_max_threads(int dtype, int head_dim) {
     switch (head_dim) { ALL_HEAD_DIMS(MAXT_BF16) }
   }
   return -1;
+}
+
+// The ring the float32 kernel launches (block_q, block_kv, head_dim) with
+// on the current device: its stages (0 where one does not fit beside Q and
+// P), and in *smem_bytes its shared memory (analysis.flash_stages /
+// flash_smem_bytes).
+int repro_flash_f32_ring(int bq, int bkv, int hd, int* smem_bytes) {
+  const int stages = f32_stages(bq, bkv, hd, smem_optin());
+  *smem_bytes = stages > 0 ? static_cast<int>(f32_smem_bytes(bq, bkv, hd, stages)) : 0;
+  return stages;
 }
 
 }  // extern "C"

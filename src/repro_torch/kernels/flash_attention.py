@@ -34,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.analysis import flash_launch_error
+from repro_torch.core.analysis import HopperSpec, flash_launch_error
 from repro_torch.core.flash_space import FlashScheduleState
 from repro_torch.utils.op_costs import kernel_ran, uncounted
 
@@ -51,6 +51,7 @@ __all__ = [
     "bind",
     "launch_with",
     "kernel_max_threads",
+    "kernel_f32_ring",
     "LAUNCHES",
     "DTYPE_LAUNCHES",
 ]
@@ -67,10 +68,13 @@ DTYPE_LAUNCHES: collections.Counter = collections.Counter()
 
 #: heuristic blocks by input width, most preferred first.  bf16: two
 #: warpgroups on 128-key blocks (256 threads, 160 KB of shared memory at
-#: hd 128), then smaller; f32: 64 x 64 (512 threads at hd 128, about 116 KB)
+#: hd 128), then smaller; f32: 128 x 64 (512 threads at hd 128, one ring
+#: stage in 165 KB), then 64 x 64 (two stages in 183 KB), then the fastest
+#: pair of 32 and of 16 rows, down to 16 x 16, which every sequence that
+#: is a multiple of 16 takes (``chip_smoke.py --flash-f32-only``'s sweeps)
 _HEURISTIC_BLOCKS = {
     2: ((128, 128), (128, 64), (64, 64), (64, 32), (64, 16)),
-    4: tuple((bq, bkv) for bq in (64, 32, 16) for bkv in (64, 32, 16)),
+    4: ((128, 64), (64, 64), (32, 32), (16, 16)),
 }
 
 
@@ -80,13 +84,21 @@ def default_blocks(seq_q: int, seq_kv: int, head_dim: int, in_bytes: int = 2,
     no tuning record exists, or None when no block the kernel launches
     (at ``grid_y`` = batch x query heads) divides the sequences (then
     dispatch runs plain attention).  Takes the first of
-    ``_HEURISTIC_BLOCKS`` that divides and launches.  (The JAX package's
-    TPU default, 256 x 512, needs more than a CTA's 227 KB at hd 128.)"""
-    for bq, bkv in _HEURISTIC_BLOCKS.get(in_bytes, ()):
-        if (seq_q % bq == 0 and seq_kv % bkv == 0
-                and flash_launch_error(bq, bkv, head_dim, in_bytes, grid_y=grid_y) is None):
-            return bq, bkv
-    return None
+    ``_HEURISTIC_BLOCKS`` that divides and launches; in f32, where that
+    pair's grid is under one wave of the card's SMs and the next pair
+    has shorter CTAs, the next (a CUDA-core CTA of 128 rows takes twice
+    as long as one of 64, so half the grid in one wave is slower).  (The
+    JAX package's TPU default, 256 x 512, needs more than a CTA's 227 KB
+    at hd 128.)"""
+    pairs = [(bq, bkv) for bq, bkv in _HEURISTIC_BLOCKS.get(in_bytes, ())
+             if seq_q % bq == 0 and seq_kv % bkv == 0
+             and flash_launch_error(bq, bkv, head_dim, in_bytes, grid_y=grid_y) is None]
+    if not pairs:
+        return None
+    if (in_bytes == 4 and len(pairs) > 1 and pairs[1][0] < pairs[0][0]
+            and seq_q // pairs[0][0] * grid_y < HopperSpec().num_sms):
+        return pairs[1]
+    return pairs[0]
 
 
 def state_from_blocks(block_q: int, block_kv: int, seq_q: int,
@@ -176,6 +188,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_flash.restype = ctypes.c_int
     lib.repro_flash_max_threads.argtypes = [ctypes.c_int] * 2
     lib.repro_flash_max_threads.restype = ctypes.c_int
+    lib.repro_flash_f32_ring.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.repro_flash_f32_ring.restype = ctypes.c_int
     return lib
 
 
@@ -184,6 +198,17 @@ def kernel_max_threads(dtype: torch.dtype, head_dim: int) -> int:
     (must equal ``analysis.flash_max_threads``)."""
     lib, _ = build_kernel()
     return lib.repro_flash_max_threads(_DTYPE_CODE[dtype], head_dim)
+
+
+def kernel_f32_ring(block_q: int, block_kv: int, head_dim: int) -> tuple[int, int]:
+    """``(stages, shared-memory bytes)`` of the K/V ring the compiled
+    float32 kernel launches these blocks with on this card (must equal
+    ``analysis.flash_stages`` and ``flash_smem_bytes``; 0 stages where one
+    does not fit)."""
+    lib, _ = build_kernel()
+    smem = ctypes.c_int(0)
+    stages = lib.repro_flash_f32_ring(block_q, block_kv, head_dim, ctypes.byref(smem))
+    return stages, smem.value
 
 
 # -- the wrapper ---------------------------------------------------------------

@@ -16,6 +16,8 @@ from repro_torch.core.analysis import (
     GEMM_BW_BN,
     GEMM_WG_INSTANCES,
     flash_max_threads,
+    flash_smem_bytes,
+    flash_stages,
     gemm_bf16_max_threads,
     gemm_smem_bytes,
     gemm_stages,
@@ -111,13 +113,16 @@ def test_gemm_refuses_unaligned_bf16_operands_on_card():
     assert sum(gemm.LAUNCHES.values()) == before
 
 
-#: (G, causal, (block_q, block_kv)) per dtype: the bf16 kernel takes whole
-#: 64-row warpgroups and up to 128 keys a block, the f32 one blocks of 16
+#: (G, causal, (block_q, block_kv), seq) per dtype: the bf16 kernel takes
+#: whole 64-row warpgroups and up to 128 keys a block, the f32 one block_q
+#: in multiples of 16 and block_kv 16, 32 or 64 (two ring stages, or one at
+#: 128 x 64 and hd 128); the f32 case at S = 4096 runs at hd 128 only
 FLASH_CASES = {
-    torch.bfloat16: ((1, True, (64, 16)), (4, True, (128, 32)), (8, False, (64, 128)),
-                     (8, True, (128, 128))),
-    torch.float32: ((1, True, (16, 16)), (4, True, (64, 32)), (8, False, (32, 64)),
-                    (8, True, (64, 64))),
+    torch.bfloat16: ((1, True, (64, 16), 256), (4, True, (128, 32), 256),
+                     (8, False, (64, 128), 256), (8, True, (128, 128), 256)),
+    torch.float32: ((1, True, (16, 16), 256), (4, True, (64, 32), 256),
+                    (8, False, (32, 64), 256), (8, True, (64, 64), 256),
+                    (4, True, (128, 64), 256), (8, True, (64, 64), 4096)),
 }
 
 
@@ -129,15 +134,17 @@ FLASH_CASES = {
 @pytest.mark.parametrize("hd", FLASH_HEAD_DIMS)
 def test_flash_kernel_matches_plain_on_card(dtype, tol, hd):
     gen = _card()
-    for g, causal, (bq, bkv) in FLASH_CASES[dtype]:
-        q = torch.randn(2, 256, 2 * g, hd, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(2, 256, 2, hd, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(2, 256, 2, hd, generator=gen, device="cuda").to(dtype)
-        before = fa.LAUNCHES[(256, 256, hd)]
+    for g, causal, (bq, bkv), seq in FLASH_CASES[dtype]:
+        if seq > 256 and hd != 128:
+            continue
+        q = torch.randn(2, seq, 2 * g, hd, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(2, seq, 2, hd, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(2, seq, 2, hd, generator=gen, device="cuda").to(dtype)
+        before = fa.LAUNCHES[(seq, seq, hd)]
         before_dtype = fa.DTYPE_LAUNCHES[str(dtype).removeprefix("torch.")]
         out = fa.flash_attention(q, k, v, bq, bkv, causal)
         torch.cuda.synchronize()
-        assert fa.LAUNCHES[(256, 256, hd)] == before + 1
+        assert fa.LAUNCHES[(seq, seq, hd)] == before + 1
         assert fa.DTYPE_LAUNCHES[str(dtype).removeprefix("torch.")] == before_dtype + 1
         torch.testing.assert_close(out.float(),
                                    fa.flash_attention_plain(q, k, v, bq, bkv, causal).float(),
@@ -150,6 +157,13 @@ def test_flash_launch_limits_match_the_analyzer():
     for dtype in (torch.float32, torch.bfloat16):
         for hd in FLASH_HEAD_DIMS:
             assert fa.kernel_max_threads(dtype, hd) == flash_max_threads(hd, dtype.itemsize)
+    # the f32 K/V ring: two stages, one (128 x 64 at hd 128), and none
+    for bq, bkv, hd in ((64, 64, 128), (128, 32, 128), (128, 64, 128), (256, 64, 32),
+                        (16, 16, 16), (512, 64, 128)):
+        stages = flash_stages(bq, bkv, hd, 4)
+        assert fa.kernel_f32_ring(bq, bkv, hd) == (
+            stages, flash_smem_bytes(bq, bkv, hd, 4) if stages else 0)
+    assert {flash_stages(128, 64, 128, 4), flash_stages(512, 64, 128, 4)} == {0, 1}
 
 
 @pytest.mark.gpu

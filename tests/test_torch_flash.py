@@ -28,12 +28,15 @@ from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro.launch.tune import flash_workloads_for_arch as ref_flash_workloads
 from repro_torch.core import Budget, TrialJournal, TuningRecords, TuningSession, Workload
 from repro_torch.core.analysis import (
+    FLASH_F32_BKV,
     FLASH_HEAD_DIMS,
     FLASH_STAGES,
+    HopperSpec,
     ScheduleAnalyzer,
     flash_launch_error,
     flash_max_threads,
     flash_smem_bytes,
+    flash_stages,
     flash_threads,
     should_prune,
 )
@@ -186,13 +189,19 @@ LAUNCH_EDGES = {
     ],
     "float32": [
         ((64, 64, 128), None),
-        ((48, 64, 128), None),  # a multiple of 16
+        ((48, 64, 128), None),  # block_q: any multiple of 16
+        ((16, 16, 16), None),  # one warp: 4 row groups of 8 lanes
         ((64, 64, 96), "head_dim"),
         ((8, 64, 128), "block_below_minimum"),
         ((40, 64, 128), "block_alignment"),
-        ((128, 32, 128), "threads_over_limit"),  # 1024 > 512
-        ((128, 32, 64), None),  # 1024 threads at hd 64
-        ((64, 256, 128), "smem_overflow"),
+        ((64, 48, 128), "block_alignment"),  # no block_kv 48 instantiation
+        ((64, 128, 128), "kv_block_over_registers"),  # block_kv 64 is the largest
+        ((128, 64, 128), None),  # 512 threads (16 a row group), one ring stage
+        ((144, 16, 128), "threads_over_limit"),  # 576 > 512
+        ((128, 32, 64), None),  # 512 threads at hd 64
+        ((144, 32, 64), "threads_over_limit"),
+        ((256, 64, 32), None),  # 512 threads (8 a row group) at hd 32
+        ((272, 16, 32), "threads_over_limit"),  # 544 > 512
         ((64, 64, 128, 70_000), "grid_too_large"),
     ],
 }
@@ -212,9 +221,27 @@ def test_launch_rule_edges(dtype):
         assert flash_smem_bytes(128, 128, 128) == 2 * 128 * (128 + 2 * FLASH_STAGES * 128)
         assert flash_smem_bytes(128, 128, 128) <= 232_448
     else:
-        assert flash_threads(64, 128, 4) == 512
-        assert flash_max_threads(128, 4) == 512 and flash_max_threads(16, 4) == 1024
-        assert flash_smem_bytes(64, 128, 128, 4) <= 232_448 < flash_smem_bytes(64, 256, 128, 4)
+        # 16 lanes per 4 query rows at hd >= 64, 8 below; __launch_bounds__(512)
+        assert flash_threads(64, 128, 4) == flash_threads(64, 64, 4) == 256
+        assert flash_threads(64, 32, 4) == flash_threads(16, 16, 4) * 4 == 128
+        assert all(flash_max_threads(hd, 4) == 512 for hd in FLASH_HEAD_DIMS)
+        # d-major Q, key-major P and a ring of (d-major K, row-major V) stages,
+        # d-major rows padded by 4 floats; as deep as fits beside Q and P, <= 2
+        q, stage, p = 128 * 68, 128 * 68 + 64 * 128, 64 * 68
+        assert flash_stages(64, 64, 128, 4) == 2
+        assert flash_smem_bytes(64, 64, 128, 4) == 4 * (q + 2 * stage + p) <= 232_448
+        q, p = 128 * 132, 64 * 132
+        assert flash_stages(128, 64, 128, 4) == 1  # two stages would take 236 544 B
+        assert flash_smem_bytes(128, 64, 128, 4) == 4 * (q + stage + p)
+        assert 4 * (q + 2 * stage + p) > 232_448
+        assert flash_stages(128, 32, 128, 4) == 2
+        # a card with less shared memory: one stage, then none
+        small = HopperSpec(smem_per_block=120_000)
+        assert flash_stages(64, 64, 128, 4, small) == 1
+        assert flash_launch_error(64, 64, 128, 4, small) is None
+        assert flash_stages(128, 64, 128, 4, small) == 0
+        assert flash_launch_error(128, 64, 128, 4, small)[0] == "smem_overflow"
+        assert flash_smem_bytes(128, 64, 128, 4, small) == 4 * (q + stage + p)
 
 
 def test_analyzer_flash_verdicts():
@@ -257,11 +284,51 @@ def test_default_blocks_fit_hopper_where_the_tpu_default_does_not(dtype):
         assert got == want, ((sq, skv, hd), got)
         if got is not None:
             assert flash_launch_error(*got, hd, in_bytes) is None
+    if dtype == "float32":
+        # 128-row CTAs where their grid fills the card's 132 SMs (yi-6b's 32
+        # heads), 64-row ones where it would not (the toy row's 2 x 16 heads)
+        assert default_blocks(4096, 4096, 128, 4, grid_y=32) == (128, 64)
+        assert default_blocks(256, 256, 128, 4, grid_y=32) == (64, 64)
+        assert default_blocks(4096, 4096, 128, 4, grid_y=4) == (64, 64)  # 128 CTAs
+        assert default_blocks(4096, 4096, 128, 4, grid_y=5) == (128, 64)  # 160
     st = state_from_blocks(64, 32, 4096, 4096)
     assert (st.block_q, st.block_kv, st.dims()) == (64, 32, (4096, 4096))
     space = get_op("flash").make_space((4096, 4096, 128))
     assert get_op("flash").default_state(space, dtype) == state_from_blocks(
         *default_blocks(4096, 4096, 128, in_bytes), 4096, 4096)
+
+
+#: (seq, head_dim, G, batch x query heads) at which the tests and the card
+#: phases dispatch the f32 kernel through ``ops.flash_blocks``: the reduced
+#: configs (head_dim 16, 4 query heads on 2 kv heads) past their 64-token
+#: threshold, the toy and the real row of ``chip_smoke.py``, and the
+#: served attention geometries of yi-6b, qwen3-moe and whisper in f32
+F32_DISPATCHED = [
+    (80, 16, 2, 4), (96, 16, 2, 8), (128, 16, 2, 16), (256, 16, 2, 8),
+    (256, 128, 8, 32), (4096, 128, 8, 32), (4096, 128, 8, 256), (32768, 128, 8, 32),
+    (4096, 128, 16, 64), (128, 64, 1, 48), (3520, 128, 7, 56),
+]
+
+
+def test_f32_dispatch_finds_a_launchable_pair_wherever_it_did():
+    """The f32 rule changed, the sequences the kernel takes did not: a
+    sequence that is a multiple of 16 gets launchable heuristic blocks at
+    every head_dim (the parent's list ended in 16 x 16, and so does this
+    one), any other runs plain attention; and at each dispatched shape
+    the blocks ``ops.flash_blocks`` returns launch at its grid."""
+    from repro_torch.kernels import ops
+
+    for seq in range(16, 8192 + 1, 16):
+        for hd in FLASH_HEAD_DIMS:
+            got = default_blocks(seq, seq, hd, 4, grid_y=32)
+            assert got is not None and flash_launch_error(*got, hd, 4, grid_y=32) is None
+            assert got[1] in FLASH_F32_BKV and seq % got[0] == seq % got[1] == 0
+    for seq in (48, 100, 4095, 4104):
+        assert (default_blocks(seq, seq, 16, 4) is None) == (seq % 16 != 0)
+    for seq, hd, g, grid_y in F32_DISPATCHED:
+        blocks, src = ops.flash_blocks(seq, seq, hd, torch.float32, grid_y=grid_y)
+        assert src == "heuristic" and flash_launch_error(*blocks, hd, 4, grid_y=grid_y) is None
+        assert default_blocks(seq, seq, hd, 2 * 2, grid_y=grid_y) == blocks
 
 
 # -- the search space ----------------------------------------------------------

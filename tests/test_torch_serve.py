@@ -101,7 +101,7 @@ def test_flash_dispatch_checks_the_served_grid(clean_dispatch):
     assert ops.flash_schedule(128, 128, 16, "float32", grid_y=8 * 32) == (32, 64)
     assert ops.flash_schedule(128, 128, 16, "float32", grid_y=70_000) is None
     assert ops.dispatch_stats()["flash"]["static_reject"] == 1
-    assert default_blocks(128, 128, 16, 4, grid_y=8 * 32) == (64, 64)
+    assert default_blocks(128, 128, 16, 4, grid_y=8 * 32) == (128, 64)
     assert default_blocks(128, 128, 16, 4, grid_y=70_000) is None
 
 
