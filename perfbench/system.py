@@ -1,0 +1,155 @@
+"""The system under test: the port's serving engine, built from a
+configuration's file, and the tuning of the GEMM shapes it serves.
+
+This module is the benchmark's only door into the program
+(``repro_torch``); the plain reference never passes through it.  What the
+benchmark takes from the program: the engine, its ``stats`` and counters
+(``kernels.ops.dispatch_stats``, ``launch_counts``), and the kernel names
+its trace shows.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import torch
+
+__all__ = ["arch_config", "build_kernels", "make_engine", "release_engine", "served_gemm_dims",
+           "tune_records", "load_records", "dispatch_stats", "reset_dispatch_stats",
+           "use_kernels_on_card", "free_cuda_state"]
+
+
+def arch_config(config: dict):
+    """The port's ``ArchConfig`` for a configuration file: the published
+    keys mapped onto the port's fields, plus ``serving`` (what the engine
+    adds: MoE capacity)."""
+    from repro_torch.configs.base import ArchConfig
+
+    if config.get("hidden_act", "silu") != "silu":
+        raise ValueError(f"{config['name']}: only SwiGLU (silu) decoders are mapped")
+    d, h = config["hidden_size"], config["num_attention_heads"]
+    moe = config.get("num_experts", 0) > 0
+    fields = dict(
+        name=config["name"], family="moe" if moe else "dense",
+        n_layers=config["num_hidden_layers"], d_model=d, n_heads=h,
+        n_kv_heads=config["num_key_value_heads"], head_dim=config.get("head_dim") or d // h,
+        d_ff=config["moe_intermediate_size"] if moe else config["intermediate_size"],
+        vocab_size=config["vocab_size"], norm="rmsnorm", norm_eps=config["rms_norm_eps"],
+        mlp_kind="swiglu", qkv_bias=bool(config.get("attention_bias")),
+        rope_theta=float(config["rope_theta"]),
+        tie_embeddings=bool(config.get("tie_word_embeddings")),
+        param_dtype=config["torch_dtype"], compute_dtype=config["torch_dtype"],
+    )
+    if moe:
+        fields.update(n_experts=config["num_experts"],
+                      experts_per_token=config["num_experts_per_tok"],
+                      router_norm_topk=bool(config.get("norm_topk_prob")),
+                      moe_capacity_factor=float(config["serving"]["capacity_factor"]))
+    return ArchConfig(**fields)
+
+
+def use_kernels_on_card() -> None:
+    """Dispatch under the records timed on the card."""
+    from repro_torch.kernels import ops
+
+    ops.set_kernel_policy(ops.KernelPolicy(cost_backend="hopper_timed"))
+
+
+def build_kernels() -> None:
+    """Build (or load from the checkout's build cache) both kernels."""
+    from repro_torch.kernels import flash_attention, gemm
+
+    gemm.build_kernel()
+    flash_attention.build_kernel()
+
+
+def make_engine(cfg, params: dict, batch: int, bucket: int, gen: int, device):
+    """The engine with the cell's one prompt bucket and one gen bucket,
+    its decode graph captured."""
+    from repro_torch.launch.serve import ServeEngine
+
+    return ServeEngine(cfg, params, max_batch=batch, max_len=bucket + gen,
+                       prompt_buckets=[bucket], gen_buckets=[gen], device=device)
+
+
+def release_engine(engine) -> None:
+    """Drop the engine's decode graphs and hand their memory pool back.
+
+    The engine has no public way to do this, and needs one twice: a graph
+    pool it keeps would hold the card's memory while the reference runs,
+    and the engine cannot re-capture its graph after a records change (the
+    new capture goes into the pool of the graph it drops and fails), so a
+    new engine is built under new records instead.  This reaches into the
+    engine's private ``_programs``; a public release on the engine should
+    replace it."""
+    engine._programs.clear()
+    free_cuda_state()
+
+
+def served_gemm_dims() -> list[tuple[int, int, int]]:
+    """Every ``(M, K, N)`` the GEMM kernel has launched in this process."""
+    from repro_torch.kernels.ops import launch_counts
+
+    return sorted(d for (kind, d), n in launch_counts().items() if kind == "gemm" and n)
+
+
+def load_records(path: str) -> int:
+    """Serve the records at ``path``; returns how many there are."""
+    from repro_torch.core.records import TuningRecords, set_global_records
+
+    rec = TuningRecords(path)
+    set_global_records(rec)
+    return len(rec)
+
+
+def tune_records(dims: list, path: str, trials: int, device) -> dict:
+    """G-BFS on each ``(M, K, N)`` in bf16, timed on the card (the tune
+    command's default cost), from the kernel's heuristic state, ``trials``
+    trials each.  The records are written beside ``path`` and published
+    to ``path`` whole, so a run that dies here leaves no partial store.
+    Returns per dims the heuristic's and the best's time in seconds."""
+    from repro_torch.core import Budget, HopperTimedCost, TrialJournal, TuningRecords
+    from repro_torch.core import TuningSession, Workload
+    from repro_torch.kernels.gemm import default_config, state_from_config
+
+    tmp = path + ".partial"
+    if os.path.exists(tmp):
+        os.unlink(tmp)
+    records = TuningRecords(tmp)
+    out = {}
+    with TrialJournal(path + ".journal.jsonl") as journal:
+        session = TuningSession(
+            records, journal=journal, verbose=False, device=device,
+            cost_factory=lambda space, dtype: HopperTimedCost(space, dtype=dtype, device=device))
+        for m, k, n in dims:
+            wl = Workload("gemm", (m, k, n), dtype="bfloat16", label=f"{m}x{k}x{n}")
+            s0 = state_from_config(default_config(m, k, n), m, k, n)
+            t0 = time.perf_counter()
+            res = session.tune_workload(wl, "g-bfs", Budget(max_trials=trials),
+                                        tuner_kwargs={"s0": s0})
+            out[(m, k, n)] = (res.trials[0].cost, res.best_cost, res.n_trials,
+                              time.perf_counter() - t0)
+    if len(records) != len(dims):
+        raise RuntimeError(f"tuning wrote {len(records)} records for {len(dims)} shapes")
+    os.replace(tmp, path)
+    return out
+
+
+def dispatch_stats() -> dict:
+    from repro_torch.kernels.ops import dispatch_stats as stats
+
+    return stats()
+
+
+def reset_dispatch_stats() -> None:
+    from repro_torch.kernels.ops import reset_dispatch_stats as reset
+
+    reset()
+
+
+def free_cuda_state() -> None:
+    """Hand the caching allocator's free blocks back to the card."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
