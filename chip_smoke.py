@@ -426,9 +426,10 @@ GRAD_LAYERS, GRAD_SEQ = 2, 256
 GRAD_REL_LIMIT = 0.05
 #: (e): the reduced yi-6b trained 3 steps straight, and 2 + resume + 1
 RESUME_BATCH, RESUME_SEQ = 4, 128
-#: prefixes of the port's ``record_function`` ranges, which a trace also
-#: shows as device-side annotations (not kernels)
-RANGES = ("train.", "remat.", "attn.")
+#: prefixes of the port's spans (``repro_torch/utils/spans.py``), which a
+#: trace also shows as device-side annotations (not kernels)
+RANGES = ("train.", "remat.", "attn.", "serve.", "model.", "block.", "moe.", "engine.",
+          "kernels.")
 #: phase 15: yi-6b probed at published widths and 1 and 2 of its 32 layers
 #: on the reference's train_4k, prefill_32k and decode_32k, each batch cut
 #: to fit one card: (shape, tokens a sequence, batch, kind)
@@ -1913,7 +1914,7 @@ def profile_generate(label: str, fn):
               if ev.name in ("serve.prefill", "serve.decode")
               and ev.device_type == torch.autograd.DeviceType.CPU}
     kernels = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA
-               and not ev.name.startswith("serve.")]
+               and not ev.name.startswith(RANGES)]
     print(f"[profile] {label}: one generate traced, wall_ms={wall_ms:.2f}", flush=True)
     splits = {}
     for name in ("prefill", "decode"):

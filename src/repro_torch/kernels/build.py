@@ -17,6 +17,8 @@ import shutil
 import subprocess
 import tempfile
 
+from repro_torch.utils.spans import span
+
 __all__ = ["CSRC_DIR", "nvcc_path", "source_digest", "build_library"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -48,7 +50,12 @@ def build_library(source: str, build_dir: str = _BUILD_DIR) -> tuple[ctypes.CDLL
     """Compile ``csrc/<source>`` (or ``source``, where it is an absolute
     path) once per source hash into ``build_dir`` and load it.  Returns
     the library and ptxas' resource report.  A failed build raises
-    ``RuntimeError``."""
+    ``RuntimeError``.  Timed as the span ``kernels.load``."""
+    with span("kernels.load", os.path.basename(source), timed=True):
+        return _build_library(source, build_dir)
+
+
+def _build_library(source: str, build_dir: str) -> tuple[ctypes.CDLL, str]:
     path = os.path.join(CSRC_DIR, source)
     digest = source_digest(path)
     os.makedirs(build_dir, exist_ok=True)

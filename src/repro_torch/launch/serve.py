@@ -51,6 +51,12 @@ decode loop replayed from one CUDA graph per gen-length bucket.
   recorded, and what the replays launched (each graph's record once per
   replay), so the launches a run made are the counters', less
   ``captured``, plus ``replayed``.
+* **Spans** (``utils/spans.py``) — construction is timed as
+  ``engine.build`` and ``engine.capture`` (``prewarm_s``); each
+  ``generate`` as ``serve.generate`` over ``serve.request``,
+  ``serve.program``, ``serve.prefill`` and ``serve.decode``, each carrying
+  the engine's call index, and ``stats``' per-call seconds are those
+  spans' own.  The prefill and decode spans end in a host sync.
 * **Eager reference** — ``eager_reference`` gives the greedy tokens of
   the same requests from the same prefill inputs by the eager loop
   through the ``Model`` API on a fresh cache, with none of the engine's
@@ -75,7 +81,6 @@ import collections
 import dataclasses
 import hashlib
 import json
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -85,6 +90,7 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core.records import global_records
 from repro_torch.kernels.ops import kernel_policy, launch_counts
 from repro_torch.models.api import Model
+from repro_torch.utils.spans import span
 
 __all__ = ["ServeEngine"]
 
@@ -118,48 +124,50 @@ class ServeEngine:
         prewarm: Optional[bool] = None,
         device="cuda",
     ):
-        self.cfg = cfg
-        self.model = Model(cfg, device=str(device))
-        self.device = torch.device(device)
-        self.params = params
-        self.max_batch = max_batch
-        self.max_len = max_len
-        self.pad_prompts = cfg.family in _PADDABLE
-        self.prompt_buckets = sorted(prompt_buckets) if prompt_buckets else None
-        self.gen_buckets = sorted(gen_buckets) if gen_buckets else None
-        if self.prompt_buckets:
-            need = self.prompt_buckets[-1] + (self.gen_buckets[-1] if self.gen_buckets else 0)
-            if need > max_len:
-                raise ValueError(
-                    f"largest prompt bucket + largest gen bucket = {need} exceeds "
-                    f"max_len={max_len}; the KV cache cannot hold a full-bucket request")
-        # the state every decode program reads and writes, made once: a
-        # captured graph holds these addresses, and prefill writes into them
-        with torch.inference_mode():
-            self._cache = self.model.init_cache(max_batch, max_len)
-            if self.pad_prompts:
-                self._cache["valid_len"] = torch.zeros(max_batch, dtype=torch.long,
-                                                       device=self.device)
-                self._cache["prefill_len"] = torch.zeros((), dtype=torch.long,
-                                                         device=self.device)
-            self._logits = torch.zeros((max_batch, 1, cfg.padded_vocab), dtype=torch.float32,
-                                       device=self.device)
-        #: (fingerprint, gen bucket) -> (CUDA graph, or None on the CPU; token
-        #: buffer; the launches the graph recorded)
-        self._programs: dict = {}
-        self._pool = None  # one memory pool for every graph (they never run at once)
-        self.captures = 0
-        self.replays = 0
-        self.prewarm_s = 0.0
-        self.launches = {part: collections.Counter()
-                         for part in ("warmup", "captured", "replayed")}
-        self.stats = {
-            "prefill_s": [],        # per generate() call
-            "decode_s": [],         # per generate() call
-            "prefill_buckets": {},  # bucket -> call count
-            "bucket_misses": 0,     # prompts no configured bucket could hold
-        }
-        self.last_timing: dict = {}
+        with span("engine.build", timed=True):
+            self.cfg = cfg
+            self.model = Model(cfg, device=str(device))
+            self.device = torch.device(device)
+            self.params = params
+            self.max_batch = max_batch
+            self.max_len = max_len
+            self.pad_prompts = cfg.family in _PADDABLE
+            self.prompt_buckets = sorted(prompt_buckets) if prompt_buckets else None
+            self.gen_buckets = sorted(gen_buckets) if gen_buckets else None
+            if self.prompt_buckets:
+                need = self.prompt_buckets[-1] + (self.gen_buckets[-1] if self.gen_buckets
+                                                  else 0)
+                if need > max_len:
+                    raise ValueError(
+                        f"largest prompt bucket + largest gen bucket = {need} exceeds "
+                        f"max_len={max_len}; the KV cache cannot hold a full-bucket request")
+            # the state every decode program reads and writes, made once: a
+            # captured graph holds these addresses, and prefill writes into them
+            with torch.inference_mode():
+                self._cache = self.model.init_cache(max_batch, max_len)
+                if self.pad_prompts:
+                    self._cache["valid_len"] = torch.zeros(max_batch, dtype=torch.long,
+                                                           device=self.device)
+                    self._cache["prefill_len"] = torch.zeros((), dtype=torch.long,
+                                                             device=self.device)
+                self._logits = torch.zeros((max_batch, 1, cfg.padded_vocab),
+                                           dtype=torch.float32, device=self.device)
+            #: (fingerprint, gen bucket) -> (CUDA graph, or None on the CPU; token
+            #: buffer; the launches the graph recorded)
+            self._programs: dict = {}
+            self._pool = None  # one memory pool for every graph (never run at once)
+            self.captures = 0
+            self.replays = 0
+            self.prewarm_s = 0.0
+            self.launches = {part: collections.Counter()
+                             for part in ("warmup", "captured", "replayed")}
+            self.stats = {
+                "prefill_s": [],        # per generate() call
+                "decode_s": [],         # per generate() call
+                "prefill_buckets": {},  # bucket -> call count
+                "bucket_misses": 0,     # prompts no configured bucket could hold
+            }
+            self.last_timing: dict = {}
         if prewarm is None:
             prewarm = bool(self.prompt_buckets or self.gen_buckets)
         if prewarm:
@@ -245,11 +253,12 @@ class ServeEngine:
     # -- warm path -----------------------------------------------------------------
     def prewarm(self) -> None:
         """Build (on the card, capture) every configured gen bucket's
-        decode program now.  Prefill runs eagerly and has no program."""
-        t0 = time.perf_counter()
-        for g in self.gen_buckets or ():
-            self._decode_program(g)
-        self.prewarm_s = time.perf_counter() - t0
+        decode program now (the span ``engine.capture``, whose seconds are
+        ``prewarm_s``).  Prefill runs eagerly and has no program."""
+        with span("engine.capture", timed=True) as capture:
+            for g in self.gen_buckets or ():
+                self._decode_program(g)
+        self.prewarm_s = capture.seconds
 
     def cache_report(self) -> dict:
         return {
@@ -348,27 +357,28 @@ class ServeEngine:
         ``frontend_embeds`` (B, F, d), for a VLM: precomputed patch
         embeddings prepended to each prompt (the JAX package's engine
         serves text only, as this one does without them)."""
-        req = self._request(prompts, gen_tokens, prompt_lens, frontend_embeds)
-        bucket, g, b = req["bucket"], req["g"], req["b"]
-        self.stats["bucket_misses"] += req["missed"]
-        # before prefill: a capture overwrites the state
-        graph, tokens, recorded = self._decode_program(g)
+        call = len(self.stats["prefill_s"])  # the batch's identifier in a trace
+        with span("serve.generate", call, timed=True):
+            with span("serve.request", call, timed=True):
+                req = self._request(prompts, gen_tokens, prompt_lens, frontend_embeds)
+            bucket, g, b = req["bucket"], req["g"], req["b"]
+            self.stats["bucket_misses"] += req["missed"]
+            # before prefill: a capture overwrites the state
+            with span("serve.program", call, timed=True):
+                graph, tokens, recorded = self._decode_program(g)
 
-        with torch.inference_mode(), torch.profiler.record_function("serve.prefill"):
-            t0 = time.perf_counter()
-            logits, _ = self._prefill(req, cache=self._cache)
-            self._logits.copy_(logits)
-            self._sync()
-            prefill_s = time.perf_counter() - t0
+            with torch.inference_mode(), span("serve.prefill", call, timed=True) as prefill:
+                logits, _ = self._prefill(req, cache=self._cache)
+                self._logits.copy_(logits)
+                self._sync()
 
-        with torch.inference_mode(), torch.profiler.record_function("serve.decode"):
-            t0 = time.perf_counter()
-            if graph is not None:
-                graph.replay()
-            else:
-                self._decode_loop(g, tokens)
-            out = tokens.cpu().numpy()  # the one host transfer
-            decode_s = time.perf_counter() - t0
+            with torch.inference_mode(), span("serve.decode", call, timed=True) as decode:
+                if graph is not None:
+                    graph.replay()
+                else:
+                    self._decode_loop(g, tokens)
+                out = tokens.cpu().numpy()  # the one host transfer
+        prefill_s, decode_s = prefill.seconds, decode.seconds
         self.replays += 1
         self.launches["replayed"].update(recorded)
 

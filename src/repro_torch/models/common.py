@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import gemm
 from repro_torch.utils.op_costs import counted_as
+from repro_torch.utils.spans import span
 
 __all__ = [
     "dense",
@@ -138,7 +139,7 @@ def attention_dispatch(q, k, v, softcap: float = 0.0,
     records = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     if records and s > chunk_threshold:
         note_dispatch("flash", "plain")
-        with torch.profiler.record_function("attn.chunked"):
+        with span("attn.chunked"):
             return chunked_causal_attention(q, k, v, softcap=softcap)
     if softcap == 0.0 and s > chunk_threshold:
         blocks, source = flash_blocks(s, sk, hd, q.dtype, grid_y=b * h)

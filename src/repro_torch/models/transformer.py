@@ -41,6 +41,7 @@ from repro_torch.dist.api import constrain, logical
 from repro_torch.kernels.gemm import launch_role
 from repro_torch.kernels.ops import KeptStore, closing_product, gemm, kept_mm, kept_products
 from repro_torch.models import common as cm
+from repro_torch.utils.spans import span
 from repro_torch.utils.tree import tree_from_numpy
 
 __all__ = [
@@ -234,7 +235,7 @@ def _checkpointed(fn, keep_products: bool = False):
         def body(*a):
             role = "recompute" if calls else "forward"
             calls.append(role)
-            with launch_role(role), torch.profiler.record_function(f"remat.{role}"):
+            with launch_role(role), span(f"remat.{role}"):
                 return fn(*a)
 
         # the blocks draw no random numbers: no RNG state to stash and
@@ -388,39 +389,51 @@ def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor):
     t = b * s
     e, k = cfg.n_experts, cfg.experts_per_token
     xf = x.reshape(t, d)
-    top_e, top_w, aux_total = _moe_route(cfg, p, xf)
-    cap = max(1, int(k * t * cfg.moe_capacity_factor / e))
-    buf_tok, buf_valid, inv = _sorted_capacity_buffers(t, e, cap, k, top_e)
-    xe = constrain(xf[buf_tok] * buf_valid[..., None].to(xf.dtype),
-                   logical("expert", "expert_cap", None))
-    ye = _expert_ffn(cfg, p, xe)
-    # combine as a gather: inv[t, j] is the slot of (token t, choice j)
-    gathered = ye.reshape(e * cap, d)[inv.clamp(min=0)]  # (t, k, d)
-    gathered = gathered * (inv >= 0)[..., None].to(ye.dtype) * top_w.to(ye.dtype)[..., None]
-    return gathered.sum(dim=1).reshape(b, s, d), aux_total
+    with span("moe.route"):
+        top_e, top_w, aux_total = _moe_route(cfg, p, xf)
+    with span("moe.dispatch"):
+        cap = max(1, int(k * t * cfg.moe_capacity_factor / e))
+        buf_tok, buf_valid, inv = _sorted_capacity_buffers(t, e, cap, k, top_e)
+        xe = constrain(xf[buf_tok] * buf_valid[..., None].to(xf.dtype),
+                       logical("expert", "expert_cap", None))
+    with span("moe.experts"):
+        ye = _expert_ffn(cfg, p, xe)
+    with span("moe.combine"):
+        # combine as a gather: inv[t, j] is the slot of (token t, choice j)
+        gathered = ye.reshape(e * cap, d)[inv.clamp(min=0)]  # (t, k, d)
+        gathered = gathered * (inv >= 0)[..., None].to(ye.dtype) * top_w.to(ye.dtype)[..., None]
+        return gathered.sum(dim=1).reshape(b, s, d), aux_total
 
 
 def block_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                 moe: bool, causal: bool = True, kv_cache: Optional[dict] = None,
                 cache_len=None, cross_kv: Optional[dict] = None,
-                enc_out: Optional[torch.Tensor] = None, valid_len=None, prefix_len=None):
-    """One pre-norm block.  Returns ``(x, new_kv, aux)``."""
-    h = cm.norm_apply(p["ln1"], x, cfg.norm, cfg.norm_eps)
-    a, new_kv = attn_apply(cfg, p["attn"], h, positions, causal=causal, kv_cache=kv_cache,
-                           cache_len=cache_len, valid_len=valid_len, prefix_len=prefix_len)
-    x = x + a
-    if "cross" in p:
-        h = cm.norm_apply(p["ln_cross"], x, cfg.norm, cfg.norm_eps)
-        c, _ = attn_apply(cfg, p["cross"], h, positions, cross=True, kv_cache=cross_kv,
-                          cache_len=cache_len, xkv=enc_out)
-        x = x + c
-    h = cm.norm_apply(p["ln2"], x, cfg.norm, cfg.norm_eps)
+                enc_out: Optional[torch.Tensor] = None, valid_len=None, prefix_len=None,
+                index: Optional[int] = None):
+    """One pre-norm block.  Returns ``(x, new_kv, aux)``.  Its spans carry
+    ``index``: each pre-norm is ``block.norm``, and each sub-layer with its
+    residual add ``block.attn`` and ``block.mlp`` or ``block.moe``, so that
+    a MoE block's ``moe.*`` spans cover its ``block.moe`` but for the add."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if moe:
-        m, aux = moe_apply(cfg, p["mlp"], h)
-    else:
-        m = mlp_apply(cfg, p["mlp"], h)
-    return x + m, new_kv, aux
+    with span("block.norm", index):
+        h = cm.norm_apply(p["ln1"], x, cfg.norm, cfg.norm_eps)
+    with span("block.attn", index):
+        a, new_kv = attn_apply(cfg, p["attn"], h, positions, causal=causal, kv_cache=kv_cache,
+                               cache_len=cache_len, valid_len=valid_len, prefix_len=prefix_len)
+        x = x + a
+        if "cross" in p:
+            h = cm.norm_apply(p["ln_cross"], x, cfg.norm, cfg.norm_eps)
+            c, _ = attn_apply(cfg, p["cross"], h, positions, cross=True, kv_cache=cross_kv,
+                              cache_len=cache_len, xkv=enc_out)
+            x = x + c
+    with span("block.norm", index):
+        h = cm.norm_apply(p["ln2"], x, cfg.norm, cfg.norm_eps)
+    with span("block.moe" if moe else "block.mlp", index):
+        if moe:
+            m, aux = moe_apply(cfg, p["mlp"], h)
+        else:
+            m = mlp_apply(cfg, p["mlp"], h)
+        return x + m, new_kv, aux
 
 
 def _run_blocks(cfg: ArchConfig, layers: dict, n: int, x: torch.Tensor,
@@ -429,11 +442,11 @@ def _run_blocks(cfg: ArchConfig, layers: dict, n: int, x: torch.Tensor,
     """The stacked blocks in turn, each under :func:`_remat`; ``on_kv(i,
     kv)`` receives each layer's K/V (prefill writes them into the cache).
     Returns ``(x, aux)``."""
-    body = _remat(cfg, lambda p, x: block_apply(cfg, p, x, positions, moe=moe, causal=causal,
-                                                 enc_out=enc_out))
+    body = _remat(cfg, lambda p, x, i: block_apply(cfg, p, x, positions, moe=moe, causal=causal,
+                                                    enc_out=enc_out, index=i))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(unbind_layers(layers, n)):
-        x, kv, a = body(p, x)
+        x, kv, a = body(p, x, i)
         aux = aux + a
         if on_kv is not None:
             on_kv(i, kv)
@@ -627,8 +640,10 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int,
     decoding come from each sequence's own last real position, not the
     bucket's final column.  ``cache``, optional: an :func:`init_cache`
     of at least the prompt's batch and length to write into (the engine's
-    own, whose addresses its decode graphs hold); a new one otherwise."""
-    x, positions = _embed_prompt(cfg, params, batch)
+    own, whose addresses its decode graphs hold); a new one otherwise.
+    Spans: ``model.embed``, the blocks', ``model.head``."""
+    with span("model.embed"):
+        x, positions = _embed_prompt(cfg, params, batch)
     b, s = x.shape[:2]
     if cache is None:
         cache = init_cache(cfg, b, max_len, device=x.device)
@@ -640,10 +655,6 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int,
 
     x, _ = _run_blocks(cfg, params["layers"], cfg.n_layers, x, positions,
                        moe=cfg.family == "moe", enc_out=enc_out, on_kv=write_kv)
-    if last_idx is None:
-        x_last = x[:, -1:, :]
-    else:
-        x_last = x[torch.arange(b, device=x.device), last_idx.long()][:, None, :]
     cache["len"].fill_(s)
     if cfg.family == "encdec":
         # the cross K/V of every layer, from the encoder's output, once
@@ -653,7 +664,12 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int,
             cp = layer(params["layers"]["cross"], i)
             cache["cross_k"][i, :b] = cm.dense(cp["wk"], enc_out).reshape(b, es, kvh, hd)
             cache["cross_v"][i, :b] = cm.dense(cp["wv"], enc_out).reshape(b, es, kvh, hd)
-    return lm_logits(cfg, params, x_last), cache
+    with span("model.head"):
+        if last_idx is None:
+            x_last = x[:, -1:, :]
+        else:
+            x_last = x[torch.arange(b, device=x.device), last_idx.long()][:, None, :]
+        return lm_logits(cfg, params, x_last), cache
 
 
 def decode_positions(cache: dict, b: int, device) -> torch.Tensor:
@@ -688,6 +704,6 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor
         cross_kv = {"k": cache["cross_k"][i], "v": cache["cross_v"][i]} if has_cross else None
         x, _, _ = block_apply(cfg, layer(params["layers"], i), x, positions, moe=moe,
                               kv_cache=kv, cache_len=pos, cross_kv=cross_kv,
-                              valid_len=valid_len, prefix_len=prefix_len)
+                              valid_len=valid_len, prefix_len=prefix_len, index=i)
     cache["len"].add_(1)
     return lm_logits(cfg, params, x), cache

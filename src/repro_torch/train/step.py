@@ -5,7 +5,7 @@
 leaf order), optional microbatched accumulation in f32 over dim 0 (the
 reference's ``lax.scan`` is a loop), the global-norm clip, and the
 optimizer's update, which writes the new params and state in place.
-Each part runs under a ``record_function`` range (``train.grads``,
+Each part runs under a span (``utils/spans.py``: ``train.grads``,
 ``train.clip``, ``train.update``) that a profiler trace shows.
 """
 
@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.models.api import Model
 from repro_torch.optim import clip_by_global_norm
+from repro_torch.utils.spans import span
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["value_and_grad", "make_train_step", "make_prefill_step", "make_decode_step"]
@@ -40,7 +41,7 @@ def value_and_grad(model: Model, params: dict, batch: dict):
 
 def make_train_step(model: Model, optimizer, grad_accum: int = 1, clip_norm: float = 1.0):
     def train_step(params, opt_state, batch):
-        with torch.profiler.record_function("train.grads"):
+        with span("train.grads"):
             if grad_accum <= 1:
                 grads, metrics = value_and_grad(model, params, batch)
             else:
@@ -58,9 +59,9 @@ def make_train_step(model: Model, optimizer, grad_accum: int = 1, clip_norm: flo
                 grads = tree_map(lambda g: g / grad_accum, grads)
                 metrics = {k: torch.stack([m[k] for m in ms]).to(torch.float32).mean(dim=0)
                            for k in ms[0]}
-        with torch.profiler.record_function("train.clip"):
+        with span("train.clip"):
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
-        with torch.profiler.record_function("train.update"):
+        with span("train.update"):
             params, opt_state = optimizer.update(grads, opt_state, params)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm

@@ -24,6 +24,7 @@ from repro_torch.data.pipeline import DataPipeline
 from repro_torch.models.api import Model
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.train.step import make_train_step
+from repro_torch.utils.spans import span
 
 __all__ = ["Trainer"]
 
@@ -113,7 +114,7 @@ class Trainer:
                 batch = self._to_device(next(it))
                 self._sync()
                 t0 = time.monotonic()
-                with torch.profiler.record_function("train.step"):
+                with span("train.step"):
                     self.params, self.opt_state, metrics = self.train_step_fn(
                         self.params, self.opt_state, batch)
                     self._sync()

@@ -282,6 +282,53 @@ def test_graphed_decode_equals_the_eager_loop_on_card(name):
     assert launched["replayed"] == {key: 2 * n for key, n in launched["captured"].items()}
 
 
+@pytest.mark.gpu
+def test_spans_on_card_time_set_up_and_put_replayed_kernels_under_decode():
+    """``kernels.load`` and ``engine.capture`` are timed on the card; a
+    ``generate`` under the profiler gives the untraced call's tokens; the
+    benchmark's span reader (``perfbench/spans.py``) puts every kernel of
+    the traced call under the engine's spans, each kernel of the decode
+    graph's replay under ``serve.decode``, and the MoE's passes under
+    ``block.moe``."""
+    _card()
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from perfbench.spans import OUTSIDE, attribute, kineto_ops
+    from perfbench.trace import TRACED_RANGE
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.build import build_library
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models.api import Model
+    from repro_torch.utils.spans import reset_span_totals, span_totals
+
+    reset_span_totals()
+    build_library("gemm.cu")
+    cfg = get_arch("qwen3-moe-235b-a22b").reduced()
+    params = Model(cfg, device="cuda").init_params(seed=0)
+    engine = ServeEngine(cfg, params, max_batch=8, max_len=144, prompt_buckets=[128],
+                         gen_buckets=[8], device="cuda")
+    totals = span_totals()
+    assert totals["kernels.load"] > 0 and engine.prewarm_s == totals["engine.capture"] > 0
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 128))
+    plain = engine.generate(prompts, 8)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(TRACED_RANGE):
+            traced = engine.generate(prompts, 8)
+    np.testing.assert_array_equal(traced, plain)
+    ops = kineto_ops(prof)
+    by = attribute(ops).by_span
+    assert OUTSIDE not in by, by
+    graph = {o.corr for o in ops if o.kind == "launch" and "GraphLaunch" in o.name}
+    replayed = sum(o.dur_ns for o in ops if o.kind == "device" and o.corr in graph) / 1e9
+    assert graph and replayed > 0
+    assert by["serve.decode"] >= replayed
+    parts = ("serve.request", "serve.program", "serve.prefill", "serve.decode")
+    assert by["serve.generate"] == pytest.approx(sum(by.get(p, 0.0) for p in parts))
+    moe = sum(by[f"moe.{p}"] for p in ("route", "dispatch", "experts", "combine"))
+    assert 0.9 * by["block.moe"] <= moe <= by["block.moe"] * (1 + 1e-9)
+
+
 #: forward products of yi-6b's training step at 2 x 4096 tokens (the head's
 #: per 512-position loss chunk): their backward runs dA at (M, N, K) and dB
 #: at (K, M, N), with K = 8192 tokens in dB
