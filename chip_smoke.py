@@ -26,7 +26,9 @@ Phases (each prints its wall time):
      ``cuobjdump -sass`` of the built library (fails on a count of 0), and
      print ptxas' registers, spills and injected ``warpgroup.arrive``s for
      them (the GEMM's ``wgmma`` instantiations must have neither spills
-     nor injected arrives; phase 9 prints the served flash instantiation's);
+     nor injected arrives, TMA loads, ``UTMALDG``, in each, and no ptxas
+     warning of a serialized ``wgmma`` pipeline or an ignored
+     ``setmaxnreg``; phase 9 prints the served flash instantiation's);
      a ``[sass]`` line for each of the 16 f32 SIMT instantiations
      (FFMA, LDS.128, LDGSTS.128 and LDG.E.128 counts, registers, spills),
      failing on a spill, on no 16-byte cp.async, or on no LDS.128 where
@@ -42,7 +44,8 @@ Phases (each prints its wall time):
      ``gemm_smem_bytes``, the f32 SIMT kernel under several configs and
      every register tile under one stage and under a ring of 4 over 4 or
      more slabs (``kernels.gemm.simt_ring_configs``), every bf16
-     ``wgmma`` instantiation with one and two warpgroups, the bf16
+     ``wgmma`` instantiation with one and two consumer warpgroups
+     (``kernels.gemm.wgmma_configs``), the bf16
      bandwidth kernel at M = 8 and 16, and the autograd backward; then see
      the limits refuse the three planted GEMM faults (the f32 one at
      1024^3);
@@ -55,8 +58,10 @@ Phases (each prints its wall time):
   6. hold the GEMM kernel against the plain version at full width and time
      the kernel, the plain version and ``torch.matmul``: each tuned shape
      under its record, and the shapes yi-6b's serve runs (prefill at
-     M = 32768, decode at M = 8) under the config dispatch gives them; see
-     the bf16 limit refuse both planted faults at full width;
+     M = 32768, decode at M = 8) and the benchmark's prefill products
+     (qwen2-72b's four, K up to 29568, and qwen3-moe's q and o) under the
+     config dispatch gives them; see the bf16 limit refuse both planted
+     faults at full width;
   7. check the flash kernel: each instantiation's launch limit equals the
      analyzer's, the f32 K/V ring (stages and shared-memory bytes the
      kernel launches a block pair with) equals ``analysis.flash_stages``
@@ -316,8 +321,10 @@ GEMM_CU = os.path.join(SRC, "repro_torch", "kernels", "csrc", "gemm.cu")
 #: planted faults the GEMM limits must refuse, each in the kernel it
 #: breaks: one line of the source, and what a variant built beside it has
 GEMM_FAULTS = {
-    # the wgmma kernel's warpgroups read the ring slot after slab i's
-    "wrong_ring_slot": ("const int slot = i % stages;", "const int slot = (i + 1) % stages;"),
+    # the wgmma kernel's consumers read the ring slot after slab i's (they
+    # still wait on slab i's barrier and release its stage)
+    "wrong_ring_slot": ("const uint32_t stage = ring_addr + slot * slab_bytes;",
+                        "const uint32_t stage = ring_addr + (slot + 1) % stages * slab_bytes;"),
     # the f32 SIMT kernel multiplies the ring slot after slab i's
     "simt_wrong_slot": ("const int cur = i % stages;", "const int cur = (i + 1) % stages;"),
     # the bandwidth kernel's reduction leaves out the last warp's partial sums
@@ -334,6 +341,12 @@ DECODE_TRIALS = 60
 SERVED_SHAPES = ((32768, 4096, 4096), (32768, 4096, 512), (32768, 4096, 11008),
                  (32768, 11008, 4096), (8, 4096, 4096), (8, 4096, 512), (8, 4096, 11008),
                  (8, 11008, 4096), (8, 4096, 65536))
+#: the prefill products (8 x 4096 tokens) the benchmark's cells run on the
+#: wgmma kernel: qwen2-72b's q and o, k and v, gate and up, down (K up to
+#: 29568), and qwen3-moe's q and o; phase 6 holds the kernel at each, under
+#: the config dispatch gives it, as it holds yi-6b's
+BENCH_PREFILL_SHAPES = ((32768, 8192, 8192), (32768, 8192, 1024), (32768, 8192, 29568),
+                        (32768, 29568, 8192), (32768, 4096, 8192), (32768, 8192, 4096))
 # kernel and plain version round P and the output to bf16 at the same
 # places, from f32 values that differ only in the order of f32 sums, so
 # outputs differ by about a rounding step (2^-7 relative, 0.0039 below 1);
@@ -506,21 +519,14 @@ def timed_ms(fn, repeats: int, flush: torch.Tensor, spin: bool = False) -> float
 
 def gemm_tol(k: int) -> dict:
     """The GEMM kernel's limit against its plain version (or an f32
-    ``torch.matmul``) for a K-deep product: TOL, with the bf16 atol grown
-    in proportion to K above 4096, and with K^1.5 above 11008.  wgmma
-    adds each k16 step to its accumulator with less than f32's precision,
-    an error that grows with the number of steps and the accumulator's
-    size: about as K^1.5 (on an H100, random normal operands, the atol
-    needed against an f32 matmul was 5.8e-4 at K = 4096, 1.5e-3 at 8192,
-    2.3e-3 at 11008 and 3.8e-2 at 65536: phase 14's ``[train-gemm]``
-    lines).  The linear part is the limit fitted up to K = 11008, the
-    forward's deepest product; the K^1.5 part covers the backward's dA of
-    the lm head (K = the padded vocabulary, 65536 for yi-6b).  The
-    ``[time]`` and ``[train-gemm]`` lines print the atol each full-width
-    check needs."""
-    rtol, atol = TOL[torch.bfloat16]
-    scale = max(1.0, k / 4096) * max(1.0, k / 11008) ** 0.5
-    return {**TOL, torch.bfloat16: (rtol, atol * scale)}
+    ``torch.matmul``) for a K-deep product: TOL, with the bf16 limit
+    ``kernels.gemm.bf16_gemm_tol(k)`` (its atol grows with K, as
+    ``wgmma``'s accumulation error does; phase 14's ``[train-gemm]`` lines
+    gave the readings it was fitted to).  The ``[time]`` and
+    ``[train-gemm]`` lines print the atol each full-width check needs."""
+    from repro_torch.kernels.gemm import bf16_gemm_tol
+
+    return {**TOL, torch.bfloat16: bf16_gemm_tol(k)}
 
 
 def atol_needed(got: torch.Tensor, ref: torch.Tensor, rtol: float) -> float:
@@ -609,27 +615,49 @@ def _spills(lines: list) -> int:
     return sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", " ".join(lines)))
 
 
+def ptxas_warnings(ptxas_log: str, pattern: re.Pattern, needle: str) -> collections.Counter:
+    """ptxas' lines that hold ``needle`` (any case), per kernel whose name
+    ``pattern`` matches: the kernel the line names, else the entry
+    function being compiled."""
+    counts, key = collections.Counter(), None
+    for line in ptxas_log.splitlines():
+        m = pattern.search(line)
+        if "entry function" in line:
+            key = tuple(map(int, m.groups())) if m else None
+        elif needle in line.lower() and (m or key):
+            counts[tuple(map(int, m.groups())) if m else key] += 1
+    return counts
+
+
 def gemm_tensor_core_report(lib, ptxas_log: str) -> None:
-    """HGMMA count, registers, spills and injected arrives of every bf16
-    ``wgmma`` instantiation of the GEMM (slab depth, m64 instructions per
-    warpgroup, instruction N) and the HMMA count, registers and spills of
-    every bandwidth-kernel instantiation (columns); exits on a count of
-    0, a missing instantiation, a spill or an injected arrive in a
-    ``wgmma`` instantiation."""
+    """HGMMA and TMA-load (``UTMALDG``) counts, registers, spills,
+    injected arrives and ptxas' warnings of a serialized ``wgmma``
+    pipeline or an ignored ``setmaxnreg`` for every bf16 ``wgmma``
+    instantiation of the GEMM (slab depth, m64 instructions per
+    warpgroup, instruction N), and the HMMA count, registers and spills
+    of every bandwidth-kernel instantiation (columns); exits on a count
+    of 0, a missing instantiation, or a spill, an injected arrive or
+    either warning in a ``wgmma`` instantiation."""
     from repro_torch.core.analysis import GEMM_BW_BN, GEMM_WG_INSTANCES
 
     wg = re.compile(r"gemm_tiled_wgmmaILi(\d+)ELi(\d+)ELi(\d+)E")
     st = re.compile(r"gemm_tiled_streamILi(\d+)E")
-    wg_counts, st_counts = sass_counts(lib, wg), sass_counts(lib, st)
+    wg_counts = sass_counts(lib, wg, r"\b(HGMMA|UTMALDG)\.")
+    st_counts = sass_counts(lib, st)
     wg_ptxas, wg_arrives = ptxas_report(ptxas_log, wg)
+    serialized = ptxas_warnings(ptxas_log, wg, "serialized")
+    setmaxnreg = ptxas_warnings(ptxas_log, wg, "setmaxnreg")
     st_ptxas, _ = ptxas_report(ptxas_log, st)
     for bk in sorted({k[0] for k in wg_counts}):
         keys = sorted(k for k in wg_counts if k[0] == bk)
         print(f"[sass] gemm_tiled_wgmma<{bk}, MT, SN>: HGMMA "
               + " ".join(f"{k[1]}x{k[2]}:{wg_counts[k]['HGMMA']}" for k in keys)
+              + "; UTMALDG " + " ".join(f"{k[1]}x{k[2]}:{wg_counts[k]['UTMALDG']}" for k in keys)
               + "; registers " + " ".join(f"{k[1]}x{k[2]}:{_regs(wg_ptxas[k])}" for k in keys)
               + f"; spill stores {sum(_spills(wg_ptxas[k]) for k in keys)} B; "
-              f"warpgroup.arrive injected {sum(wg_arrives[k] for k in keys)}", flush=True)
+              f"warpgroup.arrive injected {sum(wg_arrives[k] for k in keys)}; "
+              f"wgmma serialized {sum(serialized[k] for k in keys)}; "
+              f"setmaxnreg ignored {sum(setmaxnreg[k] for k in keys)}", flush=True)
     keys = sorted(st_counts)
     print("[sass] gemm_tiled_stream<BN>: HMMA "
           + " ".join(f"{k[0]}:{st_counts[k]['HMMA']}" for k in keys)
@@ -641,11 +669,15 @@ def gemm_tensor_core_report(lib, ptxas_log: str) -> None:
     if set(st_counts) != {(bn,) for bn in GEMM_BW_BN} or not all(
             c["HMMA"] for c in st_counts.values()):
         raise SystemExit(f"bf16 GEMM bandwidth instantiations without HMMA: {st_counts}")
-    bad = {k: (_spills(wg_ptxas[k]), wg_arrives[k]) for k in want_wg
-           if _spills(wg_ptxas[k]) or wg_arrives[k]}
+    if not all(wg_counts[k]["UTMALDG"] for k in want_wg):
+        raise SystemExit(f"bf16 GEMM wgmma instantiations without TMA loads: {wg_counts}")
+    bad = {k: (_spills(wg_ptxas[k]), wg_arrives[k], serialized[k], setmaxnreg[k])
+           for k in want_wg
+           if _spills(wg_ptxas[k]) or wg_arrives[k] or serialized[k] or setmaxnreg[k]}
     if bad:
-        raise SystemExit(f"wgmma GEMM instantiations with spills or injected arrives "
-                         f"(spill bytes, arrives): {bad}")
+        raise SystemExit(f"wgmma GEMM instantiations with spills, injected arrives, a "
+                         f"serialized wgmma pipeline or an ignored setmaxnreg (spill bytes, "
+                         f"arrives, serialized, setmaxnreg): {bad}")
 
 
 #: the SIMT kernel's opcodes the ``[sass]`` lines count: its FMAs, its
@@ -806,7 +838,7 @@ def main() -> None:
     from repro_torch.kernels.gemm import (
         LAUNCHES, KernelConfig, build_kernel, default_config, gemm_plain,
         gemm_tiled, kernel_config_from_state, kernel_f32_ring, kernel_max_threads,
-        kernel_max_threads_bf16, simt_ring_configs, state_from_config,
+        kernel_max_threads_bf16, simt_ring_configs, state_from_config, wgmma_configs,
     )
     from repro_torch.launch.serve import ServeEngine
     from repro_torch.launch.tune import flash_workloads_for_arch, workloads_for_arch
@@ -920,17 +952,14 @@ def main() -> None:
         KernelConfig(32, 8, 10, 32, 10, 1, 2),
         KernelConfig(32, 12, 10, 16, 10, 2, 1),
     ] + ring_configs
-    # every wgmma instantiation with one warpgroup and with two (along m and
-    # along n); the bandwidth kernel at 8 and 16 rows, every column count
-    wgmma_configs = [KernelConfig(bm, bk, bn, sm, sn) for bk, sm, sn in GEMM_WG_INSTANCES
-                     for bm, bn in ((sm, sn), (2 * sm, sn), (sm, 2 * sn))]
+    # the bandwidth kernel at 8 and 16 rows, every column count
     stream_configs = [KernelConfig(bm, bk, bn, bm, bn) for bm in (8, 16) for bn in GEMM_BW_BN
                       for bk in (16, 48, 256, 512)]
     small = {
         torch.float32: (((1024, 1024, 1024), (512, 256, 768), (256, 1024, 128), (64, 96, 1010),
                          SIMT_RING_DIMS), simt_configs),
         torch.bfloat16: (((256, 512, 512), (128, 1024, 256), (64, 512, 512), (8, 4096, 1024),
-                          (16, 1024, 512), (8, 11008, 256)), wgmma_configs + stream_configs),
+                          (16, 1024, 512), (8, 11008, 256)), wgmma_configs() + stream_configs),
     }
     n_checked, worst = collections.Counter(), collections.defaultdict(float)
     simt_rings = collections.defaultdict(set)  # (reg_m, reg_n) -> one stage / a ring checked
@@ -1071,11 +1100,12 @@ def main() -> None:
                 for label, (dims, _) in tuned.items()]
         set_global_records(TuningRecords(records_path))  # the configs the serve takes
         tuned_dims = {dims for dims, _ in tuned.values()}
-        for dims in SERVED_SHAPES:
+        for dims in SERVED_SHAPES + BENCH_PREFILL_SHAPES:
             if dims not in tuned_dims:
                 cfg, src = ops.kernel_config(*dims, torch.bfloat16)
-                rows.append((f"served {'prefill' if dims[0] > 8 else 'decode'} {src} "
-                             f"{'x'.join(map(str, dims))}", dims, cfg))
+                what = ("bench prefill" if dims in BENCH_PREFILL_SHAPES
+                        else "served prefill" if dims[0] > 8 else "served decode")
+                rows.append((f"{what} {src} {'x'.join(map(str, dims))}", dims, cfg))
         set_global_records(TuningRecords())
         full_width_faults = {(32768, 4096, 4096): "wrong_ring_slot", DECODE_TUNED: "split_k_drop"}
         kernels, gemm_rows = [], {}

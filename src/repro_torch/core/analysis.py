@@ -24,10 +24,11 @@ Verdict lattice (``AnalysisResult.verdict``):
     at ``block_m >= 64`` (the ``wgmma`` kernel): a register tile other
     than 1x1 (``register_tile``), a warpgroup tile or slab depth with no
     instantiation (``wgmma_shape``), accumulators over the register cliff
-    (``accumulator_cliff``), more than two warpgroups, or a ring of fewer
-    than two stages (``ring_too_shallow``).  bfloat16 below 64 rows
-    (the bandwidth kernel): rows, columns, warp split or slab depth it
-    does not take (``stream_tile``) or a ring of fewer than two stages.
+    (``accumulator_cliff``), more than two consumer warpgroups (beside the
+    producer), or a ring of fewer than two stages (``ring_too_shallow``).
+    bfloat16 below 64 rows (the bandwidth kernel): rows, columns, warp
+    split or slab depth it does not take (``stream_tile``) or a ring of
+    fewer than two stages.
     Every kernel: a CTA grid taller than CUDA's ``gridDim.y`` limit;
   * *flash launch* (:func:`flash_launch_error`): a dtype or head_dim the
     kernel has no instantiation for, a block below 16 or not a multiple
@@ -73,6 +74,7 @@ __all__ = [
     "simt_lda",
     "GEMM_SIMT_MAX_STAGES",
     "gemm_bf16_max_threads",
+    "gemm_wgmma_threads",
     "GEMM_WG_INSTANCES",
     "GEMM_BW_BN",
     "max_threads_for_reg_tile",
@@ -167,14 +169,18 @@ def simt_lda(block_m: int) -> int:
 #: threads of one warpgroup, and the M of one ``wgmma`` instruction
 GEMM_WG_THREADS = 128
 GEMM_WG_ROWS = 64
-#: the most consumer warpgroups a CTA has (``kMaxWarpgroups``; every
-#: instantiation's ``__launch_bounds__`` allows 256 threads)
+#: the most consumer warpgroups a CTA has (``kMaxWarpgroups``); beside
+#: them the CTA runs one producer warpgroup, which issues the TMA loads, so
+#: every instantiation's ``__launch_bounds__`` allows (2 + 1) x 128 threads
 GEMM_WG_MAX = 2
 #: the ring: stages = min(GEMM_WG_MAX_STAGES, (opt-in shared memory - 1 KB
-#: of alignment slack) // slab bytes), refused below GEMM_WG_MIN_STAGES
-#: (one slab multiplied while the next is copied)
-GEMM_WG_MAX_STAGES = 4
+#: of alignment slack - the barriers) // slab bytes), refused below
+#: GEMM_WG_MIN_STAGES (one slab multiplied while the next is loaded)
+GEMM_WG_MAX_STAGES = 8
 GEMM_WG_MIN_STAGES = 2
+#: a full and an empty mbarrier (8 bytes each) for each of the most stages
+#: (``kBarrierBytes``), after the ring
+GEMM_WG_BARRIER_BYTES = 2 * GEMM_WG_MAX_STAGES * 8
 #: the register cliff: f32 accumulators per thread, sub_m * sub_n / 128
 GEMM_ACC_REGS_MAX = 128
 #: the wgmma instantiations (``WG_INSTANCES``): (slab depth bk, warpgroup
@@ -221,8 +227,9 @@ def gemm_stages(block_m: int, block_k: int, block_n: int, in_bytes: int = 2,
     """Depth of a kernel's ring of K slabs, derived from shared memory as
     the launcher derives it.  SIMT (float32): ``min(4, opt-in shared
     memory // ((simt_lda(bm) + bn) * bk * 4))``, 0 where one slab does
-    not fit.  ``wgmma``: ``min(4, (opt-in shared memory - 1 KB of
-    alignment slack) // ((bm + bn) * bk * 2))``.  The bandwidth kernel:
+    not fit.  ``wgmma``: ``min(8, (opt-in shared memory - 1 KB of
+    alignment slack - 128 B of barriers) // ((bm + bn) * bk * 2))``.  The
+    bandwidth kernel:
     ``min(8, 96 KB // stage bytes)``."""
     kind = gemm_kernel_kind(block_m, in_bytes)
     spec = spec or HopperSpec()
@@ -231,7 +238,8 @@ def gemm_stages(block_m: int, block_k: int, block_n: int, in_bytes: int = 2,
         return min(GEMM_SIMT_MAX_STAGES, spec.smem_per_block // slab)
     if kind == "wgmma":
         slab = (block_m + block_n) * block_k * 2
-        return min(GEMM_WG_MAX_STAGES, (spec.smem_per_block - GEMM_ALIGN_SLACK) // slab)
+        return min(GEMM_WG_MAX_STAGES,
+                   (spec.smem_per_block - GEMM_ALIGN_SLACK - GEMM_WG_BARRIER_BYTES) // slab)
     stage = 2 * _stream_stage_elems(block_m, block_k, block_n)
     return min(GEMM_BW_MAX_STAGES, GEMM_BW_RING_BYTES // stage)
 
@@ -241,25 +249,34 @@ def gemm_smem_bytes(block_m: int, block_k: int, block_n: int,
     """Shared memory of one CTA.  SIMT (float32): the ring of
     ``gemm_stages`` slabs, each an A slab transposed with rows padded to
     ``simt_lda`` and a B slab (one slab's bytes where it does not fit
-    once).  ``wgmma``: the ring of ``gemm_stages`` slabs and 1 KB of
-    alignment slack.  Bandwidth kernel: its ring of padded slabs plus the
+    once).  ``wgmma``: the ring of ``gemm_stages`` slabs, 1 KB of
+    alignment slack and the ring's barriers.  Bandwidth kernel: its ring of padded slabs plus the
     f32 partial sums of its warps.  Accumulators live in registers."""
     kind = gemm_kernel_kind(block_m, in_bytes)
     stages = gemm_stages(block_m, block_k, block_n, in_bytes, spec)
     if kind == "simt":
         return max(stages, 1) * (simt_lda(block_m) + block_n) * block_k * in_bytes
     if kind == "wgmma":
-        return stages * (block_m + block_n) * block_k * 2 + GEMM_ALIGN_SLACK
+        return (stages * (block_m + block_n) * block_k * 2 + GEMM_ALIGN_SLACK
+                + GEMM_WG_BARRIER_BYTES)
     return (stages * 2 * _stream_stage_elems(block_m, block_k, block_n)
             + 4 * GEMM_BW_WARPS * block_m * block_n)
 
 
 def gemm_bf16_max_threads(block_m: int) -> int:
     """Thread limit of the bf16 instantiations that run a tile of
-    ``block_m`` rows — their ``__launch_bounds__``."""
+    ``block_m`` rows — their ``__launch_bounds__`` (``wgmma``: the most
+    consumer warpgroups and the producer)."""
     if block_m >= GEMM_WG_ROWS:
-        return GEMM_WG_MAX * GEMM_WG_THREADS
+        return (GEMM_WG_MAX + 1) * GEMM_WG_THREADS
     return 32 * GEMM_BW_WARPS
+
+
+def gemm_wgmma_threads(block_m: int, block_n: int, sub_m: int, sub_n: int) -> int:
+    """Threads of a ``wgmma`` CTA: its ``(block_m / sub_m) x (block_n /
+    sub_n)`` consumer warpgroups and the producer warpgroup
+    (``wgmma_threads`` in ``gemm.cu``)."""
+    return ((block_m // sub_m) * (block_n // sub_n) + 1) * GEMM_WG_THREADS
 
 
 def gemm_launch_error(
@@ -360,9 +377,11 @@ def _bf16_launch_error(block_m, block_k, block_n, sub_m, sub_n, reg_m, reg_n,
                     f"sub_m in (64, 128), sub_n in (64, 128, 256)")
         wgs = (block_m // sub_m) * (block_n // sub_n)
         if wgs > GEMM_WG_MAX:
+            threads = gemm_wgmma_threads(block_m, block_n, sub_m, sub_n)
             return ("threads_over_limit",
-                    f"{wgs} warpgroups ({wgs * GEMM_WG_THREADS} threads) per CTA "
-                    f"exceed {GEMM_WG_MAX}, the kernel's __launch_bounds__")
+                    f"{wgs} consumer warpgroups and the producer ({threads} threads) "
+                    f"per CTA exceed {gemm_bf16_max_threads(block_m)}, the kernel's "
+                    f"__launch_bounds__")
         stages = gemm_stages(block_m, block_k, block_n, 2, spec)
         floor = GEMM_WG_MIN_STAGES
     if stages < floor:

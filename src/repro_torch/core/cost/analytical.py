@@ -16,15 +16,17 @@ kernel cannot launch cost ``inf`` (the shared rule of
   time, every CTA reading its A and B strips once (A is read ``n0``
   times over, B ``m0`` times) and writing its C tile once, at the
   card's memory rate.
-* bfloat16, ``bm >= 64`` (the ``wgmma`` kernel): ``2*M*K*N`` operations
-  at the dense bf16 tensor-core rate times ``_WGMMA_EFFICIENCY`` times
-  ``bk / (bk + 16)`` (each slab's products drain before a block-wide
-  barrier), over the
-  waves of CTAs the SMs hold at once (CTAs per SM from threads, the
-  shared memory of the ring and registers: the accumulators plus about
-  40); against the operand strips every CTA copies (``M*K*n0 +
-  K*N*m0``, served by the L2 at ``_L2_BYTES_S``) and the unique bytes
-  (``M*K + K*N + M*N``) at the card's memory rate.
+* bfloat16, ``bm >= 64`` (the ``wgmma`` kernel: a producer warpgroup's
+  TMA loads into a ring of up to 8 stages, its consumer warpgroups
+  keeping one ``wgmma`` group in flight): ``2*M*K*N`` operations at the
+  dense bf16 tensor-core rate times ``_WGMMA_EFFICIENCY``, and times
+  ``_WGMMA_TWO_STAGES`` where the ring holds only two slabs, over the
+  waves of CTAs the SMs hold at once (CTAs per SM from the threads of
+  the consumers and the producer, the ring's shared memory and the
+  registers the launch gives every thread: one CTA an SM); against the
+  operand strips every CTA loads (``M*K*n0 + K*N*m0``, served by the L2
+  at ``_L2_BYTES_S``) and the unique bytes (``M*K + K*N + M*N``) at the
+  card's memory rate.
 * bfloat16, ``bm < 64`` (the bandwidth kernel): B's bytes once per CTA
   row, A's per CTA and C's once, at the memory rate the SMs that hold
   CTAs can draw: each at most ``_SM_BYTES_S``, and no more than the
@@ -42,13 +44,12 @@ import dataclasses
 import math
 
 from ..analysis import (
-    GEMM_ACC_REGS_MAX,
     HopperSpec,
     ScheduleAnalyzer,
     dtype_in_bytes,
-    GEMM_WG_THREADS,
     gemm_kernel_kind,
     gemm_stages,
+    gemm_wgmma_threads,
 )
 from ..space import State
 from .base import CostBackend, lognormal_noise, space_from_spec, space_spec
@@ -63,16 +64,27 @@ _HBM_BYTES_S = 3.35e12
 _SMEM_PER_SM = 233_472
 _THREADS_PER_SM = 2048
 _REGS_PER_SM = 65_536
-#: share of the tensor-core rate the wgmma kernel's products reach between
-#: its barriers: an estimate for a kernel whose warpgroups also issue its
-#: copies (no producer warp, no TMA)
-_WGMMA_EFFICIENCY = 0.7
-#: the rate at which the kernel's cp.async operand copies reach the SMs
-#: from the L2: an estimate, near what its measured times imply for
-#: 128 x 256 tiles, whose copies and not their products bound it
-_L2_BYTES_S = 4e12
-#: registers a wgmma thread holds beside its accumulators (an estimate)
-_WGMMA_OTHER_REGS = 40
+#: share of the tensor-core rate the wgmma kernel's consumers reach when
+#: the ring is at least three slabs deep: an estimate, above the best
+#: served tiles' 62.7-74.6 % of the bound, which the L2 term below holds
+#: them to, and near ``torch.matmul``'s 72-82 % at the same shapes (H100
+#: probes, PERF.md)
+_WGMMA_EFFICIENCY = 0.8
+#: what a ring of two slabs keeps of that: the producer can only load the
+#: next slab while one is multiplied (probes at 128 x 256: 128-deep slabs,
+#: two stages, 48.7-51.8 % of the bound against 67.5-75.8 % at 64-deep
+#: ones, four stages)
+_WGMMA_TWO_STAGES = 0.63
+#: the rate at which the L2 serves the kernel's TMA operand loads: fitted
+#: to the H100 probes of qwen2-72b's and qwen3-moe's prefill products at
+#: 128 x 256 x 64 tiles (0.745-22.787 ms, each within 2 % of its strips at
+#: this rate)
+_L2_BYTES_S = 8.5e12
+#: registers every thread of a wgmma CTA gets at launch: ptxas' count for
+#: each instantiation under ``__launch_bounds__`` of 384 threads (65536 /
+#: 384, rounded down to 8); ``setmaxnreg`` only moves them between the
+#: warpgroups afterwards
+_WGMMA_LAUNCH_REGS = 168
 #: the bandwidth kernel: the most one SM draws from memory, and the
 #: latency its ring's bytes in flight have to cover (estimates)
 _SM_BYTES_S = 60e9
@@ -164,13 +176,13 @@ class AnalyticalHopperCost(CostBackend):
     def _wgmma_terms(self, s: State) -> tuple[float, float, float]:
         m, k, n = self.space.dims
         m0, _, n0 = s.grid
-        bk = s.block_k
-        threads = GEMM_WG_THREADS * (s.block_m // s.sub_m) * (s.block_n // s.sub_n)
-        regs = min(s.sub_m * s.sub_n // 128, GEMM_ACC_REGS_MAX) + _WGMMA_OTHER_REGS
+        threads = gemm_wgmma_threads(s.block_m, s.block_n, s.sub_m, s.sub_n)
         smem = self.space.working_set_bytes(s, 2)
         per_sm = max(1, min(_THREADS_PER_SM // threads, _SMEM_PER_SM // smem,
-                            _REGS_PER_SM // (threads * regs)))
-        rate = _BF16_TC_FLOPS * _WGMMA_EFFICIENCY * bk / (bk + 16)
+                            _REGS_PER_SM // (threads * _WGMMA_LAUNCH_REGS)))
+        rate = _BF16_TC_FLOPS * _WGMMA_EFFICIENCY
+        if gemm_stages(s.block_m, s.block_k, s.block_n, 2, self.spec) == 2:
+            rate *= _WGMMA_TWO_STAGES
         t_compute = 2.0 * m * k * n / (rate * self._fill(m0 * n0, per_sm))
         t_l2 = (m * k * n0 + k * n * m0) * 2 / _L2_BYTES_S
         t_hbm = (m * k + k * n + m * n) * 2 / _HBM_BYTES_S
@@ -193,9 +205,10 @@ class AnalyticalHopperCost(CostBackend):
 
     def measure_fingerprint(self) -> str:
         # each dtype's model names the kernel it models, so costs of the
-        # models it replaced (bf16 on SIMT, f32 without the ring and its
-        # 128-bit loads) are not served from a journal
-        model = "|wgmma" if self.in_bytes == 2 else "|ring"
+        # models it replaced (bf16 on SIMT, then on cp.async copies; f32
+        # without the ring and its 128-bit loads) are not served from a
+        # journal
+        model = "|wgmma-tma" if self.in_bytes == 2 else "|ring"
         return (f"r{self.n_repeats}|{self.dtype}{model}" + noise_part(self)
                 + self.space_fingerprint())
 

@@ -46,42 +46,64 @@
 //   Bound.  At the served and tuned shapes (M >= 8192, K, N >= 512) a GEMM
 //   does 2MKN operations on (MK + KN + MN) elements, hundreds per byte, far
 //   above the H100's ~295 bf16 ops/byte ridge: it is bound by operations,
-//   which only wgmma delivers at the card's rate.
+//   which only wgmma delivers at the card's rate, and only while the tensor
+//   cores are never left without a slab.
 //     m0 x n0          CTA grid
 //     bm x bn          CTA tile, bk the slab depth (BK: 64 or 128)
 //     m1 x n1          consumer warpgroups of the CTA (1 or 2 in all)
-//     sub_m x sub_n    a warpgroup's tile: sub_m = 64 * MT rows (MT m64
+//     sub_m x sub_n    a consumer's tile: sub_m = 64 * MT rows (MT m64
 //                      instructions), sub_n = SN, the instruction's N
 //                      (64, 128 or 256); m3 = n3 = 1 (a wgmma fragment is
 //                      fixed by the instruction)
-//   * A ring of `stages` bf16 slabs (A bm x BK, then B BK x bn), filled by
-//     16-byte cp.async copies of all threads: slab i + S - 1 is copied while
-//     slab i is multiplied.  stages = min(4, (opt-in shared memory - 1 KB
-//     of alignment slack) / slab bytes), at least 2 (analysis.gemm_stages).
+//   * Warp-specialised: the consumer warpgroups and one producer warpgroup
+//     (threads (m1 n1 + 1) x 128).  One thread of the producer issues the
+//     TMA loads (cp.async.bulk.tensor.2d) of each slab, A's bm x BK and
+//     B's BK x bn, as 64-element-wide boxes; the hardware computes every
+//     address, so the consumers spend no issue slot or register on a copy.
+//     The producer gives its registers up (setmaxnreg.dec to 40) and the
+//     consumers take them (setmaxnreg.inc to 232), in one if/else over the
+//     warpgroup index, as ptxas requires.
+//   * A ring of `stages` slabs (A, then B) and two mbarriers a stage: the
+//     TMA completes the stage's `full` barrier with the slab's bytes
+//     (expect_tx), and each consumer warpgroup arrives once on its `empty`
+//     barrier when its wgmmas have read the slab; phase bits alternate on
+//     each pass around the ring.  The main loops hold no __syncthreads.
+//     stages = min(8, (opt-in shared memory - 1 KB of alignment slack -
+//     128 B of barriers) / slab bytes), at least 2 (analysis.gemm_stages):
+//     4 of 128 x 256 x 64, 2 of the 96 KB slabs of 128 x 256 x 128.
 //   * Both slabs sit in wgmma's 128-byte swizzled layout: 64-element atoms
 //     of 128-byte rows (A: bm rows of 64 k; B: BK rows of 64 n), each
 //     row's eight 16-byte chunks permuted by chunk ^ (row % 8), atoms
-//     1024-byte aligned.  Eight consecutive threads copy one contiguous
-//     128-byte row segment, and a warp's four rows land on 32 distinct
-//     banks.  (In the no-swizzle core-matrix layout a quarter warp takes
-//     16 bytes from each of 8 rows, and the copies alone set the kernel's
-//     time; here they still bound it, less tightly.)  A is a K-major
-//     operand (stride 1024 B
+//     1024-byte aligned, which is what a box lands as under
+//     CU_TENSOR_MAP_SWIZZLE_128B.  A is a K-major operand (stride 1024 B
 //     between 8-row groups, 32 B start offset per k16 step inside an
 //     atom); B, row-major (K, N), is an MN-major operand read with the
 //     transpose flag (leading offset BK * 128 B between 64-column atoms,
 //     stride 1024 B between 8-row k groups).
-//   * Per slab each warpgroup issues MT x BK/16 wgmma m64 n(SN) k16 from
-//     shared memory into f32 accumulators (MT * SN / 2 registers a thread,
-//     at most 128), commits them as one group and waits for it before the
-//     next slab's barrier.  (Keeping a group in flight across the loop's
-//     back-edge makes ptxas serialize every wgmma: the accumulators'
-//     loop-carried copies count as writes inside the pipeline stage.)
+//   * Per slab each consumer waits on the slab's `full` barrier, issues
+//     MT x BK/16 wgmma m64 n(SN) k16 from shared memory into f32
+//     accumulators (MT * SN / 2 registers a thread, at most 128) and
+//     commits them as one group; then wgmma.wait_group 1 retires the slab
+//     before's group while this one runs, and only then does the consumer
+//     release the slab before's stage.  One group stays in flight across
+//     slabs, so the tensor cores do not drain at each slab's end.  The
+//     accumulators are fenced (an empty asm that pins them) after each
+//     wait, as CUTLASS's mainloop does, and the loop is not unrolled, so
+//     no instruction but a wgmma defines them while a group is in flight
+//     (ptxas otherwise serializes every wgmma).
 //   * CTAs walk the C tiles in groups of 8 tile rows, column by column,
 //     so the CTAs in flight share A strips and B slabs in the L2.
 //   * The epilogue rounds the fragments to bf16 and stores them directly.
-//   Left for later work: TMA with a producer warp, clusters with multicast,
-//   a persistent grid and a staged epilogue.
+//   * The launcher encodes A's and B's tensor maps at each launch
+//     (libcuda's cuTensorMapEncodeTiled, looked up through the runtime,
+//     so nothing links libcuda) and passes them as __grid_constant__
+//     parameters.
+//   Tried on the card and not kept (PERF.md section 6): a persistent grid
+//   walking the same raster (one CTA an SM, the ring running on across
+//   tiles), 8-22 % slower at the served shapes' best tiles; 2 x 1
+//   clusters multicasting B's slab to both CTAs, 2.1-2.4 times as long
+//   as written.  A staged epilogue was not tried: the direct stores are
+//   one pass over C a tile, against 64-462 slabs of operands.
 //
 // bfloat16, bm < 64: gemm_tiled_stream<BN>, for decode's skinny products.
 //   Bound.  At M = 8 a product reads K * N * 2 bytes of weights for 16 K N
@@ -106,6 +128,7 @@
 // limit, and refuses every configuration outside them before it reaches
 // this file.
 
+#include <cuda.h>  // CUtensorMap and its encoder's types (no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -347,11 +370,6 @@ gemm_tiled(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C,
 
 // -- bfloat16: shared helpers ------------------------------------------------------
 
-// cp.async writes through the generic proxy; wgmma reads through the async one
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -374,21 +392,83 @@ __device__ __forceinline__ uint64_t make_desc_sw128(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
 }
 
+// mbarriers in shared memory (addresses from smem_u32)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// arrive, and expect `bytes` more of the TMA's transactions in this phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// wait until the phase of parity `parity` has completed (a barrier in its
+// first phase counts the phase before it, of parity 1, as completed)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (c0 innermost, c1) of a tensor map into shared memory,
+// completing `bar`'s transactions with its bytes
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 // -- bfloat16, bm >= 64: tensor cores (wgmma) ---------------------------------------
 
 constexpr int kWgThreads = 128;     // one warpgroup
 constexpr int kWgRows = 64;         // the M of wgmma
-constexpr int kMaxWarpgroups = 2;   // analysis.GEMM_WG_MAX
-constexpr int kWgMaxStages = 4;     // analysis.GEMM_WG_MAX_STAGES
+constexpr int kMaxWarpgroups = 2;   // consumer warpgroups: analysis.GEMM_WG_MAX
+// the CTA's thread limit: the consumers and the producer warpgroup
+constexpr int kWgCtaThreads = (kMaxWarpgroups + 1) * kWgThreads;
+constexpr int kWgMaxStages = 8;     // analysis.GEMM_WG_MAX_STAGES
 constexpr int kWgMinStages = 2;     // analysis.GEMM_WG_MIN_STAGES
 constexpr int kGroupRows = 8;       // tile rows per raster group
 constexpr int kAtom = 64;           // elements of one 128-byte swizzled row
 constexpr int kAlignSlack = 1024;   // analysis.GEMM_ALIGN_SLACK: atoms are 1024-byte aligned
+// a full and an empty mbarrier for each stage (analysis.GEMM_WG_BARRIER_BYTES)
+constexpr int kBarrierBytes = 2 * kWgMaxStages * 8;
+// registers a thread after setmaxnreg: the launch gives 168 (65536 / 384);
+// the producer keeps 40, the consumers take 232 (128 x 40 + 256 x 232 fit)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+int wgmma_slab_bytes(int bm, int bk, int bn) {
+  return (bm + bn) * bk * static_cast<int>(sizeof(bf16));
+}
 
 int wgmma_stages(int bm, int bk, int bn, int smem_optin) {
-  const int slab = (bm + bn) * bk * static_cast<int>(sizeof(bf16));
-  const int fit = (smem_optin - kAlignSlack) / slab;
+  const int fit = (smem_optin - kAlignSlack - kBarrierBytes) / wgmma_slab_bytes(bm, bk, bn);
   return fit < kWgMaxStages ? fit : kWgMaxStages;
+}
+
+size_t wgmma_smem_bytes(int bm, int bk, int bn, int stages) {
+  return static_cast<size_t>(stages) * wgmma_slab_bytes(bm, bk, bn) + kAlignSlack + kBarrierBytes;
 }
 
 #define R8(b)                                                                        \
@@ -458,120 +538,129 @@ __device__ __forceinline__ void wgmma_kn<256>(float (&d)[128], uint64_t da, uint
 }
 #undef R8
 
-// Copy a rows x (64 * atoms) bf16 block of a row-major matrix (rows `ld`
-// elements apart) into the 128-byte swizzled layout: atom a (columns 64a ..
-// 64a + 63) holds `rows` rows of 128 bytes, and the 16-byte chunk c of row r
-// sits at chunk c ^ (r % 8) of its row.  Copy e fills row e / 8 of its atom,
-// chunk e % 8: eight threads copy one contiguous 128-byte row segment.
-__device__ __forceinline__ void load_sw128(bf16* dst, const bf16* src, int rows, int atoms,
-                                           int64_t ld, int tid, int nthreads) {
-  const int units = rows * atoms * 8;
-  for (int e = tid; e < units; e += nthreads) {
-    const int c = e & 7, row = e >> 3;           // row over the atoms, atom-major
-    const int a = row / rows, r = row - a * rows;
-    cp_async16(dst + (a * rows + r) * kAtom + ((c ^ (r & 7)) << 3),
-               src + r * ld + a * kAtom + 8 * c);
-  }
-}
-
-// One CTA: a bm x bn tile of C by (bm / (64 MT)) x (bn / SN) warpgroups.
+// One CTA: a bm x bn tile of C by (bm / (64 MT)) x (bn / SN) consumer
+// warpgroups and one producer warpgroup (the last).
 template <int BK, int MT, int SN>
-__global__ void __launch_bounds__(kMaxWarpgroups * kWgThreads)
-gemm_tiled_wgmma(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restrict__ C,
-                 int K, int N, int bm, int bn, int stages) {
+__global__ void __launch_bounds__(kWgCtaThreads, 1)
+gemm_tiled_wgmma(const __grid_constant__ CUtensorMap a_map,
+                 const __grid_constant__ CUtensorMap b_map, bf16* __restrict__ C, int K, int N,
+                 int bm, int bn, int stages) {
   static_assert(MT * SN / 2 <= 128, "accumulators over the register cliff");
   static_assert(BK % kAtom == 0 && SN % kAtom == 0, "whole 128-byte swizzle atoms");
   constexpr int WG_M = kWgRows * MT;  // a warpgroup's rows (sub_m)
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  // [stages][A: BK/64 atoms of bm rows | B: bn/64 atoms of BK rows], 1024-aligned
-  bf16* ring = reinterpret_cast<bf16*>(
+  // [stages][A: BK/64 atoms of bm rows | B: bn/64 atoms of BK rows], 1024-aligned,
+  // then the full and the empty barriers
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + kAlignSlack - 1) & ~uintptr_t(kAlignSlack - 1));
-  const int slab = (bm + bn) * BK;
+  const int slab_bytes = (bm + bn) * BK * static_cast<int>(sizeof(bf16));
+  const uint32_t ring_addr = smem_u32(ring);
+  const uint32_t full = ring_addr + stages * slab_bytes, empty = full + 8 * kWgMaxStages;
 
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int wg = tid / kWgThreads, warp = (tid % kWgThreads) / 32, lane = tid % 32;
-  const int wgs_n = bn / SN;
-  const int wm = (wg / wgs_n) * WG_M, wn = (wg % wgs_n) * SN;  // the warpgroup's tile
+  const int tid = threadIdx.x;
+  const int consumers = blockDim.x / kWgThreads - 1;
+  const int wg = tid / kWgThreads;
   // grouped raster: kGroupRows tile rows at a time, column by column
   const int grid_n = gridDim.x, lin = blockIdx.y * grid_n + blockIdx.x;
   const int first = (lin / (kGroupRows * grid_n)) * kGroupRows;
   const int rows = min(static_cast<int>(gridDim.y) - first, kGroupRows);
   const int in_group = lin % (kGroupRows * grid_n);
-  const int64_t tile_m = static_cast<int64_t>(first + in_group % rows) * bm;
-  const int64_t tile_n = static_cast<int64_t>(in_group / rows) * bn;
-  const bf16* Ab = A + tile_m * K;
-  const bf16* Bb = B + tile_n;
+  const int tile_m = (first + in_group % rows) * bm;
+  const int tile_n = (in_group / rows) * bn;
   const int n_k = K / BK;
 
-  auto load = [&](int st, int kt) {
-    bf16* As = ring + st * slab;
-    const int64_t k0 = static_cast<int64_t>(kt) * BK;
-    load_sw128(As, Ab + k0, bm, BK / kAtom, K, tid, nthreads);
-    load_sw128(As + bm * BK, Bb + k0 * N, BK, bn / kAtom, N, tid, nthreads);
-  };
-
-  // prologue: slabs 0 .. stages - 2, one group each
-  for (int st = 0; st < stages - 1; ++st) {
-    if (st < n_k) load(st, st);
-    cp_async_commit();
-  }
-
-  float acc[MT][SN / 2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int i = 0; i < SN / 2; ++i) acc[mt][i] = 0.0f;
-
-  for (int i = 0; i < n_k; ++i) {
-    // slab i has landed; every warpgroup is done with slab i - 1, whose
-    // stage the next copy overwrites
-    cp_async_wait_upto(stages - 2);
-    fence_proxy_async();
-    __syncthreads();
-    {
-      const int nxt = i + stages - 1;
-      if (nxt < n_k) load(nxt % stages, nxt);
-      cp_async_commit();
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, consumers);
     }
-    const int slot = i % stages;
-    // A: the warpgroup's rows of each atom; B: its first 64-column atom
-    const uint32_t a_addr = smem_u32(ring + slot * slab) + wm * 128;
-    const uint32_t b_addr = smem_u32(ring + slot * slab + bm * BK) + (wn / kAtom) * BK * 128;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == consumers) {
+    // the producer: one thread keeps every free stage's TMA loads in flight
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == consumers * kWgThreads) {
+      for (int i = 0; i < n_k; ++i) {
+        const int slot = i % stages;
+        // the consumers have released slab i - stages (the first pass
+        // waits on the phase before the first, which counts as completed)
+        mbar_wait(empty + 8 * slot, ((i / stages) & 1) ^ 1);
+        const uint32_t bar = full + 8 * slot;
+        mbar_arrive_expect_tx(bar, slab_bytes);
+        const uint32_t as = ring_addr + slot * slab_bytes, bs = as + 2 * bm * BK;
+        const int k0 = i * BK;
+#pragma unroll
+        for (int a = 0; a < BK / kAtom; ++a)
+          tma_load_2d(as + a * bm * 128, &a_map, k0 + a * kAtom, tile_m, bar);
+        for (int a = 0; a < bn / kAtom; ++a)
+          tma_load_2d(bs + a * BK * 128, &b_map, tile_n + a * kAtom, k0, bar);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (tid % kWgThreads) / 32, lane = tid % 32;
+    const int wgs_n = bn / SN;
+    const int wm = (wg / wgs_n) * WG_M, wn = (wg % wgs_n) * SN;  // the warpgroup's tile
+    const bool leader = tid % kWgThreads == 0;  // arrives for the warpgroup
+
+    float acc[MT][SN / 2];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < SN / 2; ++j) fence_operand(acc[mt][j]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
+      for (int i = 0; i < SN / 2; ++i) acc[mt][i] = 0.0f;
+
+#pragma unroll 1
+    for (int i = 0; i < n_k; ++i) {
+      const int slot = i % stages;
+      mbar_wait(full + 8 * slot, (i / stages) & 1);  // slab i has landed
+      const uint32_t stage = ring_addr + slot * slab_bytes;
+      // A: the warpgroup's rows of each atom; B: its first 64-column atom
+      const uint32_t a_addr = stage + wm * 128;
+      const uint32_t b_addr = stage + 2 * bm * BK + (wn / kAtom) * BK * 128;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
-        wgmma_kn<SN>(acc[mt],
-                     make_desc_sw128(a_addr + (kk / 4) * bm * 128 + mt * kWgRows * 128 +
-                                         (kk % 4) * 32, 16, 1024),
-                     make_desc_sw128(b_addr + kk * 16 * 128, BK * 128, 1024));
-    wgmma_commit();
+#pragma unroll
+        for (int j = 0; j < SN / 2; ++j) fence_operand(acc[mt][j]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          wgmma_kn<SN>(acc[mt],
+                       make_desc_sw128(a_addr + (kk / 4) * bm * 128 + mt * kWgRows * 128 +
+                                           (kk % 4) * 32, 16, 1024),
+                       make_desc_sw128(b_addr + kk * 16 * 128, BK * 128, 1024));
+      wgmma_commit();
+      // slab i - 1's group has retired (slab i's runs on): its stage is free
+      wgmma_wait<1>();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < SN / 2; ++j) fence_operand(acc[mt][j]);
+      if (i > 0 && leader) mbar_arrive(empty + 8 * (slot == 0 ? stages - 1 : slot - 1));
+    }
     wgmma_wait<0>();
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int j = 0; j < SN / 2; ++j) fence_operand(acc[mt][j]);
-  }
-  cp_async_wait<0>();  // no copy outlives the block (the last groups are empty)
 
-  // the fragment of m64nSN: warp w holds rows 16w .. 16w + 15; acc[4j + 2h + e]
-  // is row 16w + lane / 4 + 8h, column 8j + 2 (lane % 4) + e
-  const int col = 2 * (lane % 4);
+    // the fragment of m64nSN: warp w holds rows 16w .. 16w + 15; acc[4j + 2h + e]
+    // is row 16w + lane / 4 + 8h, column 8j + 2 (lane % 4) + e
+    const int col = 2 * (lane % 4);
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+    for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int64_t row = tile_m + wm + mt * kWgRows + warp * 16 + lane / 4 + 8 * h;
-      bf16* crow = C + row * N + tile_n + wn + col;
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row = tile_m + wm + mt * kWgRows + warp * 16 + lane / 4 + 8 * h;
+        bf16* crow = C + row * N + tile_n + wn + col;
 #pragma unroll
-      for (int j = 0; j < SN / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(crow + 8 * j) =
-            __floats2bfloat162_rn(acc[mt][4 * j + 2 * h], acc[mt][4 * j + 2 * h + 1]);
+        for (int j = 0; j < SN / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(crow + 8 * j) =
+              __floats2bfloat162_rn(acc[mt][4 * j + 2 * h], acc[mt][4 * j + 2 * h + 1]);
+      }
     }
   }
 }
@@ -757,6 +846,49 @@ cudaError_t launch(const void* a, const void* b, void* c, int M, int K, int N, i
   return cudaGetLastError();
 }
 
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (nothing
+// links libcuda); null where it is not found
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled load_encode_tiled() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+  const cudaError_t err =
+      cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+             ? reinterpret_cast<EncodeTiled>(fn)
+             : nullptr;
+}
+
+// The tensor map of a row-major rows x cols bf16 matrix read in boxes of
+// box_rows x 64 columns, each landing in the 128-byte swizzled layout.
+bool encode_sw128(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  static const EncodeTiled encode = load_encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
+  const cuuint32_t box[2] = {kAtom, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// consumer warpgroups of a wgmma tile, and the CTA's threads with the producer
+int wgmma_consumers(int bm, int bn, int sub_m, int sub_n) { return (bm / sub_m) * (bn / sub_n); }
+int wgmma_threads(int bm, int bn, int sub_m, int sub_n) {
+  return (wgmma_consumers(bm, bn, sub_m, sub_n) + 1) * kWgThreads;
+}
+
 template <int BK, int MT, int SN>
 cudaError_t launch_wgmma(const void* a, const void* b, void* c, int M, int K, int N, int bm,
                          int bn, cudaStream_t stream) {
@@ -769,14 +901,15 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* c, int M, int K, in
   }
   const int wg_m = kWgRows * MT;
   if (bm % wg_m || bn % SN) return cudaErrorInvalidValue;
-  const int warpgroups = (bm / wg_m) * (bn / SN);
   const int stages = wgmma_stages(bm, BK, bn, smem_optin());
-  if (warpgroups > kMaxWarpgroups || stages < kWgMinStages) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(stages) * (bm + bn) * BK * sizeof(bf16) + kAlignSlack;
+  if (wgmma_consumers(bm, bn, wg_m, SN) > kMaxWarpgroups || stages < kWgMinStages)
+    return cudaErrorInvalidValue;
+  CUtensorMap a_map, b_map;
+  if (!encode_sw128(&a_map, a, M, K, bm) || !encode_sw128(&b_map, b, K, N, BK))
+    return cudaErrorInvalidValue;
   const dim3 grid(N / bn, M / bm);
-  kernel<<<grid, warpgroups * kWgThreads, smem, stream>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<bf16*>(c), K, N, bm,
-      bn, stages);
+  kernel<<<grid, wgmma_threads(bm, bn, wg_m, SN), wgmma_smem_bytes(bm, BK, bn, stages), stream>>>(
+      a_map, b_map, static_cast<bf16*>(c), K, N, bm, bn, stages);
   return cudaGetLastError();
 }
 
@@ -872,6 +1005,19 @@ int repro_gemm_max_threads(int dtype, int reg_m, int reg_n) {
 int repro_gemm_f32_ring(int bm, int bk, int bn, int* smem_bytes) {
   const int stages = simt_stages(bm, bk, bn, smem_optin());
   *smem_bytes = stages * simt_slab_bytes(bm, bk, bn);
+  return stages;
+}
+
+// The ring the bfloat16 wgmma kernel launches a bm x bk x bn tile of
+// sub_m x sub_n consumer warpgroups with on the current device: its stages
+// (below 2 where the kernel refuses the tile), in *threads the CTA's
+// threads (the consumers and the producer) and in *smem_bytes its shared
+// memory (analysis.gemm_stages, gemm_wgmma_threads, gemm_smem_bytes).
+int repro_gemm_wgmma_ring(int bm, int bk, int bn, int sub_m, int sub_n, int* threads,
+                          int* smem_bytes) {
+  const int stages = wgmma_stages(bm, bk, bn, smem_optin());
+  *threads = wgmma_threads(bm, bn, sub_m, sub_n);
+  *smem_bytes = static_cast<int>(wgmma_smem_bytes(bm, bk, bn, stages));
   return stages;
 }
 

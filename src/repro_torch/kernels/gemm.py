@@ -34,8 +34,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.analysis import (GEMM_BW_BN, HopperSpec, gemm_launch_error, gemm_stages,
-                                        max_threads_for_reg_tile)
+from repro_torch.core.analysis import (GEMM_BW_BN, GEMM_WG_INSTANCES, HopperSpec,
+                                        gemm_launch_error, gemm_stages, max_threads_for_reg_tile)
 from repro_torch.core.config_space import TilingState
 from repro_torch.utils.op_costs import kernel_ran, uncounted
 
@@ -55,7 +55,11 @@ __all__ = [
     "kernel_max_threads",
     "kernel_max_threads_bf16",
     "kernel_f32_ring",
+    "kernel_wgmma_ring",
     "simt_ring_configs",
+    "wgmma_configs",
+    "BF16_TOL",
+    "bf16_gemm_tol",
     "LAUNCHES",
     "ROLE_LAUNCHES",
     "launch_role",
@@ -150,14 +154,16 @@ def state_from_config(cfg: KernelConfig, m: int, k: int, n: int) -> TilingState:
 
 
 #: bf16 tensor-core tiles the heuristic tries, best first: (block_m,
-#: block_n, sub_m, sub_n).  128 x 256 by two 64 x 256 warpgroups copies
+#: block_n, sub_m, sub_n).  128 x 256 by two 64 x 256 warpgroups loads
 #: the fewest operand bytes per operation of the tiles under the register
-#: cliff, and 128-deep slabs the fewest barriers per operation
+#: cliff; 64-deep slabs give its ring 4 stages where 128-deep ones fit 2
+#: (on an H100, 128 x 64 x 256 ran qwen2-72b's products at 67.5-75.8 %
+#: of their bound, 128 x 128 x 256 at 48.7-51.8 %)
 _WGMMA_TILES = (
     (128, 256, 64, 256), (128, 128, 64, 128), (64, 256, 64, 256), (64, 128, 64, 128),
     (128, 64, 64, 64), (64, 64, 64, 64),
 )
-_WGMMA_BK = (128, 64)
+_WGMMA_BK = (64, 128)
 #: bf16 bandwidth-kernel tiles: rows and slab depths, best first; columns
 #: per CTA from :func:`_stream_widths`
 _STREAM_ROWS = (16, 8)
@@ -187,7 +193,7 @@ def _first_valid(cands, m, k, n, in_bytes) -> Optional[KernelConfig]:
 def default_config(m: int, k: int, n: int, in_bytes: int = 2) -> Optional[KernelConfig]:
     """Heuristic config when no tuning record exists, or None when the
     kernel takes no config for these dims (then dispatch uses
-    ``torch.matmul``).  bfloat16: a ``wgmma`` tile (128 x 256 x 128 first)
+    ``torch.matmul``).  bfloat16: a ``wgmma`` tile (128 x 64 x 256 first)
     when M allows 64-row blocks, else the bandwidth kernel (16 or 8 rows,
     the widest columns that leave about one CTA per SM, 256-deep slabs
     first).  float32: the classic SIMT shape,
@@ -264,6 +270,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_gemm_bf16_max_threads.restype = ctypes.c_int
     lib.repro_gemm_f32_ring.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.repro_gemm_f32_ring.restype = ctypes.c_int
+    lib.repro_gemm_wgmma_ring.argtypes = (
+        [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.repro_gemm_wgmma_ring.restype = ctypes.c_int
     return lib
 
 
@@ -294,6 +303,20 @@ def kernel_f32_ring(block_m: int, block_k: int, block_n: int) -> tuple[int, int]
     return stages, smem.value
 
 
+def kernel_wgmma_ring(config: KernelConfig) -> tuple[int, int, int]:
+    """``(stages, threads, shared-memory bytes)`` the compiled bf16
+    ``wgmma`` kernel launches ``config``'s tile with on this card: its
+    ring, and its consumer warpgroups and producer (must equal
+    ``analysis.gemm_stages``, ``gemm_wgmma_threads`` and
+    ``gemm_smem_bytes``)."""
+    c = config.resolved()
+    lib, _ = build_kernel()
+    threads, smem = ctypes.c_int(0), ctypes.c_int(0)
+    stages = lib.repro_gemm_wgmma_ring(c.block_m, c.block_k, c.block_n, c.sub_m, c.sub_n,
+                                       ctypes.byref(threads), ctypes.byref(smem))
+    return stages, threads.value, smem.value
+
+
 # -- the wrapper ---------------------------------------------------------------
 
 
@@ -313,6 +336,37 @@ def simt_ring_configs() -> list[KernelConfig]:
                         if gemm_stages(bm, bk, bn, 4) == 1)
             out += [KernelConfig(bm, bk, bn, 4 * rm, 8 * rn, rm, rn) for bk in (8, deep)]
     return out
+
+
+def wgmma_configs() -> list[KernelConfig]:
+    """Every bf16 ``wgmma`` instantiation (``GEMM_WG_INSTANCES``) with one
+    consumer warpgroup and with two, along m and along n: the configs on
+    which the kernel is held against :func:`gemm_plain` and its ring
+    against the analyzer."""
+    return [KernelConfig(bm, bk, bn, sm, sn) for bk, sm, sn in GEMM_WG_INSTANCES
+            for bm, bn in ((sm, sn), (2 * sm, sn), (sm, 2 * sn))]
+
+
+#: the bf16 kernels' limit against the plain version, (rtol, atol), up to
+#: K = 4096
+BF16_TOL = (1.6e-2, 2e-3)
+
+
+def bf16_gemm_tol(k: int) -> tuple[float, float]:
+    """The bf16 kernels' limit against their plain version (or an f32
+    ``torch.matmul``) for a K-deep product: ``BF16_TOL`` with the atol
+    grown in proportion to K above 4096, and with K^1.5 above 11008.
+    ``wgmma`` adds each k16 step to its accumulator with less than f32's
+    precision, an error that grows with the number of steps and the
+    accumulator's size: about as K^1.5 (on an H100, random normal
+    operands, the atol needed against an f32 matmul was 5.8e-4 at K =
+    4096, 1.5e-3 at 8192, 2.3e-3 at 11008 and 3.8e-2 at 65536).  The
+    linear part is the limit fitted up to K = 11008, yi-6b's deepest
+    forward product; the K^1.5 part covers deeper ones (qwen2-72b's down
+    product at 29568, the backward's dA of an lm head at the padded
+    vocabulary)."""
+    rtol, atol = BF16_TOL
+    return rtol, atol * max(1.0, k / 4096) * max(1.0, k / 11008) ** 0.5
 
 
 def gemm_tiled(a: torch.Tensor, b: torch.Tensor, config: KernelConfig) -> torch.Tensor:

@@ -21,6 +21,7 @@ from repro_torch.core.analysis import (
     gemm_bf16_max_threads,
     gemm_smem_bytes,
     gemm_stages,
+    gemm_wgmma_threads,
     max_threads_for_reg_tile,
 )
 from repro_torch.kernels import flash_attention as fa
@@ -100,6 +101,81 @@ def test_f32_ring_matches_the_analyzer():
         stages = gemm_stages(*tile, 4)
         assert gemm.kernel_f32_ring(*tile) == (stages, gemm_smem_bytes(*tile, 4) if stages else 0)
     assert {gemm_stages(*t, 4) for t in tiles} == {0, 1, 2, 3, 4}
+
+
+WGMMA_CONFIGS = gemm.wgmma_configs()
+#: the benchmark's prefill products (8 x 4096 tokens): qwen2-72b's q and o,
+#: k and v, the FFN's gate and up, its down; qwen3-moe's q and o
+WGMMA_SERVED = [(32768, 8192, 8192), (32768, 8192, 1024), (32768, 8192, 29568),
+                (32768, 29568, 8192), (32768, 4096, 8192), (32768, 8192, 4096)]
+
+
+@pytest.mark.gpu
+def test_wgmma_ring_matches_the_analyzer():
+    """The ring and threads the wgmma kernel launches each tile with
+    (``repro_gemm_wgmma_ring``) equal ``analysis.gemm_stages``,
+    ``gemm_wgmma_threads`` and ``gemm_smem_bytes``: the consumers and the
+    producer, up to 8 stages."""
+    _card()
+    for cfg in WGMMA_CONFIGS:
+        bm, bk, bn, sm, sn = cfg.block_m, cfg.block_k, cfg.block_n, cfg.sub_m, cfg.sub_n
+        assert gemm.kernel_wgmma_ring(cfg) == (
+            gemm_stages(bm, bk, bn), gemm_wgmma_threads(bm, bn, sm, sn),
+            gemm_smem_bytes(bm, bk, bn))
+    assert {gemm.kernel_wgmma_ring(c)[1] for c in WGMMA_CONFIGS} == {256, 384}
+    assert max(gemm.kernel_wgmma_ring(c)[0] for c in WGMMA_CONFIGS) == 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", WGMMA_SERVED + ["short"], ids=str)
+def test_every_wgmma_instantiation_matches_plain_on_card(dims):
+    """Every instantiation, with one and two consumer warpgroups, against
+    the plain version: at the served shapes (each tile that divides
+    them), and on short products of one slab and of fewer slabs than the
+    ring's stages (the producer never waits on a stage, and the
+    consumers' last release comes before the ring is full)."""
+    gen = _card()
+
+    def launchable(cfgs, mkn):
+        out = []
+        for cfg in cfgs:
+            try:
+                cfg.validate(*mkn, 2)
+            except ValueError:  # e.g. a 64 x 128 x 512 tile: one stage fits
+                continue
+            out.append(cfg)
+        return out
+
+    cases = []
+    if dims == "short":
+        for cfg in WGMMA_CONFIGS:
+            stages = gemm_stages(cfg.block_m, cfg.block_k, cfg.block_n)
+            for n_k in sorted({1, 2, stages - 1}):
+                mkn = (2 * cfg.block_m, n_k * cfg.block_k, 2 * cfg.block_n)
+                if launchable([cfg], mkn):
+                    cases.append((mkn, [cfg]))
+        n_ks = {(k // c[0].block_k, gemm_stages(c[0].block_m, c[0].block_k, c[0].block_n))
+                for (_, k, _), c in cases}
+        assert len({c[0] for _, c in cases}) >= 25
+        assert any(n == 1 for n, _ in n_ks) and any(1 < n < s for n, s in n_ks)
+    else:
+        cfgs = launchable(WGMMA_CONFIGS, dims)
+        assert len(cfgs) >= 10
+        cases.append((dims, cfgs))
+    for (m, k, n), cfgs in cases:
+        a = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        b = torch.randn(k, n, generator=gen, device="cuda").to(torch.bfloat16)
+        rtol, atol = gemm.bf16_gemm_tol(k)
+        for bk in sorted({c.block_k for c in cfgs}):
+            ref = gemm.gemm_plain(a, b, gemm.KernelConfig(64, bk, 64)).float()
+            for cfg in (c for c in cfgs if c.block_k == bk):
+                before = gemm.LAUNCHES[(m, k, n)]
+                out = gemm.gemm_tiled(a, b, cfg)
+                torch.cuda.synchronize()
+                assert gemm.LAUNCHES[(m, k, n)] == before + 1
+                torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol,
+                                           msg=lambda s, cfg=cfg: f"{cfg} {(m, k, n)}: {s}")
+            del ref
 
 
 @pytest.mark.gpu

@@ -119,8 +119,8 @@ def test_noise_draw_is_the_reference_draw(space, states):
     plain = AnalyticalHopperCost(space)
     noisy = AnalyticalHopperCost(space, n_repeats=3, noise_sigma=0.05, seed=7)
     assert AnalyticalHopperCost(space, noise_sigma=0.0, seed=9).measure_fingerprint() \
-        == plain.measure_fingerprint() == "r1|bfloat16|wgmma"
-    assert noisy.measure_fingerprint() == "r3|bfloat16|wgmma|noise0.05|seed7"
+        == plain.measure_fingerprint() == "r1|bfloat16|wgmma-tma"
+    assert noisy.measure_fingerprint() == "r3|bfloat16|wgmma-tma|noise0.05|seed7"
     for s in states:
         for r in range(3):
             assert lognormal_noise(7, s.key(), r, 0.05) == ref._noise_factor(s, r)
@@ -139,7 +139,7 @@ def test_cli_noise_defaults_to_the_reference_and_touches_only_the_model(tmp_path
     tune_cli.main(["--arch", "yi-6b", "--device", "cpu", "--cost", "analytical",
                    "--max-trials", "10", "--records", rec])
     keys = {json.loads(line)["w"] for line in open(rec + ".journal.jsonl")}
-    assert all(k.endswith("?r1|bfloat16|wgmma|noise0.05|seed0") for k in keys)
+    assert all(k.endswith("?r1|bfloat16|wgmma-tma|noise0.05|seed0") for k in keys)
 
 
 def test_sleeping_backend_spec_round_trip(space, states):

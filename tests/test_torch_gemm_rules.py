@@ -5,6 +5,7 @@ package's Pallas GEMM (interpret mode) under configs the bf16 rule
 admits.  bf16 takes the tensor-core (``wgmma``) kernel at ``block_m >=
 64`` and the bandwidth kernel below; float32 keeps the SIMT kernel."""
 
+import collections
 import hashlib
 import math
 import random
@@ -27,6 +28,7 @@ from repro_torch.core.analysis import (
     gemm_launch_error,
     gemm_smem_bytes,
     gemm_stages,
+    gemm_wgmma_threads,
     should_prune,
     simt_lda,
 )
@@ -35,10 +37,12 @@ from repro_torch.core.cost.analytical import AnalyticalHopperCost
 from repro_torch.kernels import ops
 from repro_torch.kernels.gemm import (
     KernelConfig,
+    bf16_gemm_tol,
     default_config,
     gemm_tiled,
     kernel_config_from_state,
     state_from_config,
+    wgmma_configs,
 )
 
 #: (block_m, block_k, block_n, sub_m, sub_n, reg_m, reg_n) -> the bf16
@@ -104,18 +108,19 @@ def test_bf16_rule_grid_limit_and_float32_keeps_the_simt_rule():
 
 
 def test_derived_stages_follow_shared_memory():
-    # wgmma: min(4, (opt-in shared memory - 1 KB of alignment) // slab bytes)
+    # wgmma: min(8, (opt-in shared memory - 1 KB of alignment - 128 B of
+    # barriers) // slab bytes)
     assert gemm_stages(128, 64, 256) == 4  # 48 KB slabs
     assert gemm_stages(128, 128, 256) == 2  # 96 KB
     assert gemm_stages(64, 128, 512) == 1  # 144 KB
-    assert gemm_stages(128, 64, 128) == 4  # 32 KB
-    assert gemm_stages(64, 64, 64) == 4
+    assert gemm_stages(128, 64, 128) == 7  # 32 KB
+    assert gemm_stages(64, 64, 64) == 8
     assert gemm_stages(128, 128, 128) == 3  # 64 KB
     small = HopperSpec(smem_per_block=100_000)
     assert gemm_stages(128, 64, 256, spec=small) == 2
     assert gemm_launch_error(128, 128, 256, 64, 256, 1, 1, 2, small)[0] == "ring_too_shallow"
-    assert gemm_smem_bytes(128, 64, 256) == 4 * (128 + 256) * 64 * 2 + 1024
-    assert gemm_smem_bytes(128, 64, 256, spec=small) == 2 * 384 * 64 * 2 + 1024
+    assert gemm_smem_bytes(128, 64, 256) == 4 * (128 + 256) * 64 * 2 + 1024 + 128
+    assert gemm_smem_bytes(128, 64, 256, spec=small) == 2 * 384 * 64 * 2 + 1024 + 128
     # the bandwidth kernel: min(8, 96 KB // padded stage bytes), plus the
     # f32 partial sums of its 4 warps
     stage = 2 * (8 * (256 + 8) + 256 * (16 + 8))
@@ -129,7 +134,82 @@ def test_derived_stages_follow_shared_memory():
     space = GemmConfigSpace(8192, 4096, 4096)
     st = state_from_config(KernelConfig(128, 64, 128, 64, 128), 8192, 4096, 4096)
     assert space.working_set_bytes(st, 2) == gemm_smem_bytes(128, 64, 128)
-    assert space.working_set_bytes(st, 2) == 4 * 256 * 64 * 2 + 1024
+    assert space.working_set_bytes(st, 2) == 7 * 256 * 64 * 2 + 1024 + 128
+
+
+#: the wgmma ring at the card's budget: (block_m, block_k, block_n) ->
+#: stages, each beside a limit of the rule
+WGMMA_RINGS = [
+    ((64, 64, 64), 8),  # 14 slabs fit: the cap of 8 stages
+    ((128, 64, 128), 7),  # 7 fit: under the cap, more than the old cap of 4
+    ((128, 128, 128), 3),
+    ((128, 64, 256), 4),  # the heuristic tile: shared memory, not the cap
+    ((128, 128, 256), 2),  # 96 KB slabs: three would take 288 KB
+    ((64, 128, 512), 1),  # one 144 KB slab: under the floor of 2
+]
+
+
+@pytest.mark.parametrize("tile,stages", WGMMA_RINGS, ids=str)
+def test_wgmma_ring_rule(tile, stages):
+    """Stages are what fits the opt-in shared memory less the alignment
+    slack and the ring's 2 x 8 barriers, up to 8; the kernel refuses a
+    ring of fewer than 2."""
+    spec = HopperSpec()
+    slab = (tile[0] + tile[2]) * tile[1] * 2
+    assert gemm_stages(*tile) == stages
+    assert stages == min(8, (spec.smem_per_block - 1024 - 2 * 8 * 8) // slab)
+    assert gemm_smem_bytes(*tile) == stages * slab + 1024 + 128 <= spec.smem_per_block
+    sub_n = min(tile[2], 256)
+    err = gemm_launch_error(tile[0], tile[1], tile[2], 64, sub_n, 1, 1, 2)
+    assert (err and err[0]) == (None if stages >= 2 else "ring_too_shallow")
+
+
+@pytest.mark.parametrize("tile", [(128, 64, 256), (128, 128, 256), (128, 128, 128)], ids=str)
+def test_wgmma_ring_counts_its_barriers(tile):
+    """On each side of the budget that holds two stages: the barriers'
+    128 bytes count, so a budget of two slabs and the alignment slack
+    alone is one stage, refused."""
+    slab = (tile[0] + tile[2]) * tile[1] * 2
+    sub = (64, min(tile[2], 256))
+    fits = HopperSpec(smem_per_block=2 * slab + 1024 + 128)
+    short = HopperSpec(smem_per_block=2 * slab + 1024 + 127)
+    assert gemm_stages(*tile, spec=fits) == 2 and gemm_stages(*tile, spec=short) == 1
+    assert gemm_smem_bytes(*tile, spec=fits) == fits.smem_per_block
+    assert gemm_launch_error(tile[0], tile[1], tile[2], *sub, 1, 1, 2, fits) is None
+    assert gemm_launch_error(tile[0], tile[1], tile[2], *sub, 1, 1, 2,
+                             short)[0] == "ring_too_shallow"
+    # the cap: a budget of nine slabs still gives 8 stages
+    roomy = HopperSpec(smem_per_block=9 * slab + 1024 + 128)
+    assert gemm_stages(*tile, spec=roomy) == 8
+
+
+def test_wgmma_stages_outgrow_the_old_cap_of_four():
+    """Loads that take no thread's registers leave the ring to shared
+    memory: tiles whose slabs fit five or more times run that many stages
+    (to 8), where a cap of 4 held them; 96 KB slabs fit twice only."""
+    assert [gemm_stages(*t) for t in ((64, 64, 64), (64, 64, 128), (128, 64, 128),
+                                      (64, 64, 256), (128, 64, 256))] == [8, 8, 7, 5, 4]
+    assert gemm_stages(128, 128, 64) == 4 and gemm_stages(64, 128, 128) == 4
+    assert gemm_stages(128, 128, 256) == 2 and gemm_stages(256, 128, 128) == 2
+
+
+@pytest.mark.parametrize("tile,consumers", [
+    ((64, 64, 64, 64, 64), 1), ((128, 64, 256, 64, 256), 2), ((256, 64, 128, 128, 128), 2),
+    ((128, 64, 128, 64, 128), 2), ((192, 64, 64, 64, 64), 3), ((128, 64, 256, 64, 128), 4),
+], ids=str)
+def test_producer_counts_in_the_thread_limit(tile, consumers):
+    """A wgmma CTA runs its consumer warpgroups and one producer: 256 or
+    384 threads, under the 384 of every instantiation's launch bounds;
+    three consumers (512 threads with the producer) are refused."""
+    bm, bk, bn, sm, sn = tile
+    threads = gemm_wgmma_threads(bm, bn, sm, sn)
+    assert threads == (consumers + 1) * 128
+    assert gemm_bf16_max_threads(bm) == 384
+    err = gemm_launch_error(bm, bk, bn, sm, sn, 1, 1, 2)
+    if consumers <= 2:
+        assert err is None and threads <= 384
+    else:
+        assert err[0] == "threads_over_limit" and f"({threads} threads)" in err[1]
 
 
 #: (block_m, block_k, block_n) -> (stages, shared-memory bytes) of the
@@ -183,7 +263,7 @@ def test_bf16_instantiations_and_their_limits():
     assert all(bk % 64 == 0 and sn % 64 == 0 for bk, _, sn in GEMM_WG_INSTANCES)
     assert (64, 64, 256) in GEMM_WG_INSTANCES and (64, 128, 256) not in GEMM_WG_INSTANCES
     assert GEMM_BW_BN == (8, 16, 32, 64)
-    assert gemm_bf16_max_threads(64) == gemm_bf16_max_threads(128) == 256
+    assert gemm_bf16_max_threads(64) == gemm_bf16_max_threads(128) == 384
     assert gemm_bf16_max_threads(8) == gemm_bf16_max_threads(16) == 128
 
 
@@ -226,7 +306,7 @@ DECODE = [(8, 4096, 4096), (8, 4096, 512), (8, 4096, 11008), (8, 11008, 4096),
 def test_default_config_is_a_wgmma_tile_at_prefill_shapes(dims):
     cfg = default_config(*dims)
     assert gemm_kernel_kind(cfg.block_m) == "wgmma"
-    assert (cfg.block_m, cfg.block_k, cfg.block_n, cfg.sub_m, cfg.sub_n) == (128, 128, 256, 64, 256)
+    assert (cfg.block_m, cfg.block_k, cfg.block_n, cfg.sub_m, cfg.sub_n) == (128, 64, 256, 64, 256)
     cfg.validate(*dims, 2)
     assert kernel_config_from_state(state_from_config(cfg, *dims)) == cfg
 
@@ -299,8 +379,8 @@ def test_analytical_tensor_cores_beat_simt_at_the_same_cta_tile():
     simt = TilingState((64, 4, 4, 8), (64, 64), (32, 2, 8, 8))  # 128x64x128, 8x8 per thread
     assert (wg.block_m, wg.block_k, wg.block_n) == (simt.block_m, simt.block_k, simt.block_n)
     # the SIMT model reaches 94 % of the f32 rate with 128-bit operand loads
-    # (8x8: 64 FMAs a k step per 4 loads); wgmma's copies hold it to a
-    # quarter of the bf16 rate
+    # (8x8: 64 FMAs a k step per 4 loads); a 128 x 128 wgmma tile's TMA
+    # operand loads from the L2 hold it to about half the bf16 rate
     assert 4 * bf16.cost(wg) < f32.cost(simt) < math.inf
     # above the tensor-core bound, within a few times of it
     bound = 2 * 8192 * 4096 * 4096 / 989e12
@@ -311,9 +391,75 @@ def test_analytical_tensor_cores_beat_simt_at_the_same_cta_tile():
     read = 4096 * 11008 * 2 / 3.35e12
     assert read < dec.cost(state_from_config(default_config(*d), *d)) < 2 * read
     assert bf16.measure_fingerprint() != f32.measure_fingerprint().replace("float32", "bfloat16")
-    # the f32 model of the ring kernel: costs of the single-slab model it
-    # replaced are not served from a journal
+    # the f32 model of the ring kernel and the bf16 model of the TMA
+    # pipeline: costs of the models they replaced (the single-slab SIMT
+    # kernel, the cp.async wgmma kernel) are not served from a journal
     assert f32.measure_fingerprint().startswith("r1|float32|ring")
+    assert bf16.measure_fingerprint().startswith("r1|bfloat16|wgmma-tma")
+
+
+#: the H100 probes the wgmma model is fitted to: (M, K, N) -> ms of the
+#: best tile, 128 x 256 x 64 (qwen2-72b's q/o, k/v and down, qwen3-moe's q)
+WGMMA_PROBES = {(32768, 8192, 8192): 5.985, (32768, 8192, 1024): 0.745,
+                (32768, 29568, 8192): 22.787, (32768, 4096, 8192): 3.056}
+
+
+@pytest.mark.parametrize("dims", list(WGMMA_PROBES), ids=str)
+def test_analytical_wgmma_model_follows_the_card(dims):
+    """The model of the TMA pipeline: the probed tile within 5 % of its
+    time on the card; 64-deep slabs (4 stages) ahead of 128-deep ones (2
+    stages), as on the card; 64 x 64 tiles behind, their operand strips
+    from the L2 four times as many bytes a flop; one CTA an SM at any
+    tile, from the registers the launch gives each thread."""
+    space = GemmConfigSpace(*dims)
+    cost = AnalyticalHopperCost(space, dtype="bfloat16")
+
+    def at(bm, bk, bn, sm, sn):
+        return cost.cost(state_from_config(KernelConfig(bm, bk, bn, sm, sn), *dims))
+
+    best = at(128, 64, 256, 64, 256)
+    assert abs(best - WGMMA_PROBES[dims] * 1e-3) < 0.05 * WGMMA_PROBES[dims] * 1e-3
+    assert gemm_stages(128, 64, 256) == 4 and gemm_stages(128, 128, 256) == 2
+    assert 1.3 * best < at(128, 128, 256, 64, 256)
+    assert 2 * best < at(64, 64, 64, 64, 64)
+    bound = 2 * dims[0] * dims[1] * dims[2] / 989e12
+    assert bound / 0.8 <= best
+    # one consumer warpgroup and the producer: 256 threads of 168 registers
+    # leave no room for a second CTA, though the ring would
+    small = state_from_config(KernelConfig(64, 64, 64, 64, 64), *dims)
+    ctas = (dims[0] // 64) * (dims[2] // 64)
+    waves = -(-ctas // 132)
+    assert cost.compute_time(small) == pytest.approx(
+        bound / 0.8 * waves * 132 / ctas, rel=1e-9)
+
+
+def test_wgmma_configs_cover_every_instantiation_with_one_and_two_consumers():
+    cfgs = wgmma_configs()
+    assert len(cfgs) == 3 * len(GEMM_WG_INSTANCES)
+    assert {(c.block_k, c.sub_m, c.sub_n) for c in cfgs} == set(GEMM_WG_INSTANCES)
+    consumers = collections.Counter(
+        gemm_wgmma_threads(c.block_m, c.block_n, c.sub_m, c.sub_n) // 128 - 1 for c in cfgs)
+    assert consumers == {1: len(GEMM_WG_INSTANCES), 2: 2 * len(GEMM_WG_INSTANCES)}
+    refused = {}
+    for c in cfgs:
+        assert gemm_kernel_kind(c.block_m) == "wgmma"
+        try:
+            c.validate(4 * c.block_m, 4 * c.block_k, 4 * c.block_n, 2)
+        except ValueError as e:
+            refused[(c.block_m, c.block_k, c.block_n)] = str(e).split(":")[0]
+    # one 128-deep slab of a 64 x 512 tile is 144 KB: one stage, which the
+    # kernel refuses
+    assert refused == {(64, 128, 512): "ring_too_shallow"}
+
+
+@pytest.mark.parametrize("k,atol", [(64, 2e-3), (4096, 2e-3), (8192, 4e-3),
+                                    (11008, 2e-3 * 11008 / 4096),
+                                    (29568, 2e-3 * 29568 / 4096 * (29568 / 11008) ** 0.5)])
+def test_bf16_limit_grows_with_k(k, atol):
+    """The bf16 kernels' limit against the plain version: rtol 1.6e-2,
+    atol 2e-3 up to K = 4096, in proportion to K up to 11008, with K^1.5
+    beyond (qwen2-72b's down product, K = 29568)."""
+    assert bf16_gemm_tol(k) == pytest.approx((1.6e-2, atol), rel=1e-12)
 
 
 def _rand(shape, seed):
