@@ -7,9 +7,9 @@ from typing import Optional
 
 import numpy as np
 
+from .spans import SpanSummary
 from .trace import TraceSummary
 from .traffic import Mix
-from .work import Widths
 
 __all__ = ["BatchRecord", "RunContext"]
 
@@ -27,13 +27,15 @@ class BatchRecord:
 
 @dataclasses.dataclass
 class RunContext:
-    widths: Widths
+    config: dict  # the configuration's file
+    architecture: object  # its module, architectures/<name>.py
     mix: Mix
     setup_s: float
     window_s: float
     batches: list  # BatchRecord of every batch of the window
     dispatch: dict  # the program's dispatch counts over the window
-    trace: Optional[TraceSummary] = None
+    trace: Optional[TraceSummary] = None  # a traced run's, else None
+    spans: Optional[SpanSummary] = None  # device seconds by program span, likewise
 
     def traced_batches(self) -> list:
         return [b for b in self.batches if b.traced]

@@ -5,8 +5,9 @@ weights into the same tensors and its own batches):
 * the program's numbers over many seeds (``--seeds``);
 * the control's over a few (``--control-seeds``, among ``--seeds``): the
   reference put in the program's place in fp8 (``references/decoder.py``);
-* the program with a fault planted (``--faults``, :mod:`perfbench.faults`),
-  served by an engine built under it, on the first seed.
+* the program with a fault planted (``--faults``, :mod:`perfbench.faults`
+  and the cell's architecture's own), served by an engine built under it,
+  on the first seed.
 
     python3 -m perfbench.control --workload qwen2-72b.long-prompt \\
         --seeds 11,12,13 --control-seeds 11,12,13 --batches 2 \\
@@ -72,19 +73,19 @@ def readings(cell: specs.Cell, seeds: list, control_seeds: set, n_batches: int,
     """Yield one dict of readings per seed, then one per fault."""
     sv = set_up(cell, seeds[0], device, state_dir)
     for seed in seeds:
-        weights.refill(sv.config, sv.params, sv.buffers, seed)
+        weights.refill(sv.leaves, sv.params, sv.buffers, seed)
         yield {"cell": cell.name, "seed": seed, "run": "program",
                **_judged(cell, sv, sv.engine, seed, n_batches, device, seed in control_seeds)}
     if not fault_names:
         return
     seed = seeds[0]
-    weights.refill(sv.config, sv.params, sv.buffers, seed)
-    arch, mix = system.arch_config(sv.config), sv.mix
+    weights.refill(sv.leaves, sv.params, sv.buffers, seed)
+    arch, mix = sv.arch, sv.mix
     system.release_engine(sv.engine)
     sv.engine = None
     for name in fault_names:
         gc.collect()
-        with faults.planted(name):
+        with faults.planted(name, cell.architecture):
             engine = system.make_engine(arch, sv.params, mix.batch, mix.bucket, mix.gen, device)
             row = _judged(cell, sv, engine, seed, n_batches, device, False)
         system.release_engine(engine)
@@ -99,7 +100,8 @@ def main(argv=None) -> int:
     ap.add_argument("--control-seeds", default="", help="comma-separated, among --seeds")
     ap.add_argument("--batches", type=int, default=1)
     ap.add_argument("--faults", default="",
-                    help=f"comma-separated, of {', '.join(faults.FAULTS)}")
+                    help=f"comma-separated, of {', '.join(faults.FAULTS)} and the cell's "
+                         "architecture's own (decoder: stale_state)")
     args = ap.parse_args(argv)
     cell = specs.load_cell(args.workload)
     if not torch.cuda.is_available():

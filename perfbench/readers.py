@@ -2,7 +2,9 @@
 later ``gemm_roofline.<kind>`` reads as ``gemm_roofline.prompt`` does, in
 its own cells).  Each function takes the run's :class:`~perfbench.context.RunContext`
 and returns a number, or None where the run holds nothing to read: a
-share of a roofline or of a peak is never made up as 0."""
+share of a roofline or of a peak is never made up as 0.  The work a
+batch holds (its products, its attention's bound, its model operations)
+is the architecture's (``ctx.architecture``, ``architectures/<name>.py``)."""
 
 from __future__ import annotations
 
@@ -40,9 +42,10 @@ def gemm_roofline(ctx):
     t = ctx.trace.device_s("gemm_tiled") if ctx.trace else 0.0
     if t <= 0:
         return None
+    arch = ctx.architecture
     bound = sum(work.product_bound_s(*p)
                 for b in ctx.traced_batches()
-                for p in work.served_products(ctx.widths, len(b.lens), ctx.mix.bucket, b.gen))
+                for p in arch.served_products(ctx.config, len(b.lens), ctx.mix.bucket, b.gen))
     return 100.0 * bound / t
 
 
@@ -53,8 +56,7 @@ def flash_roofline(ctx):
     t = ctx.trace.device_s("flash_fwd") if ctx.trace else 0.0
     if t <= 0:
         return None
-    w = ctx.widths
-    bound = sum(work.flash_bound_s(w, int(n)) * w.n_layers
+    bound = sum(ctx.architecture.attention_bound_s(ctx.config, int(n))
                 for b in ctx.traced_batches() for n in b.lens)
     return 100.0 * bound / t
 
@@ -62,7 +64,7 @@ def flash_roofline(ctx):
 def mfu(ctx):
     """Model operations of the window's requests over the window's
     seconds at the bf16 peak, in %."""
-    flops = sum(work.request_model_flops(ctx.widths, int(n), b.gen)
+    flops = sum(ctx.architecture.request_model_flops(ctx.config, int(n), b.gen)
                 for b in ctx.batches for n in b.lens)
     return 100.0 * flops / (ctx.window_s * work.PEAK_FLOPS_BF16)
 

@@ -18,7 +18,9 @@ ends with the first batch that ends after ``--seconds``.  ``--trace 1``
 serves the mix's first ``trace_batches`` batches under the profiler and
 reports the per-layer metrics instead of the end-to-end ones; the
 profiler's stop, which gathers its trace, is left out of the window's
-time.
+time, and the trace is read after the window: device time by kernel and
+the idle gaps (:mod:`perfbench.trace`), and device time by program span
+(:mod:`perfbench.spans`), both handed to the metric readers.
 
 After the window: the import guard, the memory peak, the engine freed,
 and the check (:mod:`perfbench.judge`) of a sample of the served tokens
@@ -56,10 +58,9 @@ sys.path.insert(0, os.path.join(specs.ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from . import guard, judge, system, trace, weights  # noqa: E402
+from . import guard, judge, spans, system, trace, weights  # noqa: E402
 from .context import BatchRecord, RunContext  # noqa: E402
 from .traffic import WARMUP, Mix  # noqa: E402
-from .work import widths_of  # noqa: E402
 
 __all__ = ["set_up", "run_cell", "main", "STATE_DIR", "Served"]
 
@@ -105,9 +106,11 @@ class Served:
 
     engine: object
     config: dict
+    arch: object  # the port's ArchConfig the engine was built from
     mix: Mix
     params: dict
     buffers: dict
+    leaves: list  # the architecture's layout of params
     reference: object
     coupled: bool
     first_run: bool
@@ -123,8 +126,9 @@ def set_up(cell: specs.Cell, seed: int, device="cuda", state_dir: str = STATE_DI
     if on_card:
         system.build_kernels()
     system.use_kernels_on_card()
-    arch = system.arch_config(config)
-    params, bufs = weights.make_params(config, seed, device, arch.padded_vocab)
+    arch = system.arch_config(config, cell.architecture)
+    leaves = cell.architecture.layout(config, arch.padded_vocab)
+    params, bufs = weights.make_params(leaves, seed, device)
     records = os.path.join(state_dir, "records", f"{cell.name}.json")
     tuned = os.path.exists(records)
     first_run = on_card and not tuned  # builds and tunes (the CPU tunes nothing)
@@ -152,7 +156,7 @@ def set_up(cell: specs.Cell, seed: int, device="cuda", state_dir: str = STATE_DI
         engine = system.make_engine(arch, params, mix.batch, mix.bucket, mix.gen, device)
         warm_up()
     _sync(device)
-    return Served(engine, config, mix, params, bufs, reference,
+    return Served(engine, config, arch, mix, params, bufs, leaves, reference,
                   reference.couples_batch(config), first_run)
 
 
@@ -210,7 +214,10 @@ def run_cell(cell: specs.Cell, seed: int, seconds: float, traced: bool, device="
         raise SystemExit(f"forbidden modules loaded: {found}")
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     dispatch = system.dispatch_stats()
-    summary = trace.summarize(trace.kineto_events(prof)) if prof is not None else None
+    summary = by_span = None
+    if prof is not None:
+        summary = trace.summarize(trace.kineto_events(prof))
+        by_span = spans.attribute(spans.kineto_ops(prof))
     del prof
     system.release_engine(engine)
     del engine, sv.engine
@@ -228,8 +235,9 @@ def run_cell(cell: specs.Cell, seed: int, seconds: float, traced: bool, device="
     checks = judge.checks(gaps["gap"], cell.check["limits"])
     correct = judge.passes(checks, failed)
 
-    ctx = RunContext(widths=widths_of(config), mix=mix, setup_s=setup_s,
-                     window_s=window_s, batches=batches, dispatch=dispatch, trace=summary)
+    ctx = RunContext(config=config, architecture=cell.architecture, mix=mix, setup_s=setup_s,
+                     window_s=window_s, batches=batches, dispatch=dispatch, trace=summary,
+                     spans=by_span)
     entries = cell.per_layer if traced else cell.end_to_end
     metrics = {}
     for m in entries:

@@ -19,9 +19,10 @@ The program's table of timed spans (``span_totals()``) is read through
 :func:`program_span_totals`, which gives nothing for a program without
 spans.  :func:`setup_parts` splits a run's ``setup_s`` by it.
 
-Besides the readers of the metrics that read spans, one command serves a
-cell's set-up and its traced batches and prints all of this as one JSON
-line (``--trace 1`` runs of ``perfbench.run`` report the metrics):
+A ``--trace 1`` run of ``perfbench.run`` keeps :func:`attribute`'s
+summary of its traced batches as ``ctx.spans`` for the metric readers
+(:func:`device_ms`).  Besides, one command serves a cell's set-up and its
+traced batches and prints all of this as one JSON line:
 
     python3 -m perfbench.spans --workload qwen3-moe-235b-a22b.long-prompt \\
         --seed 2147483659
@@ -39,8 +40,8 @@ import dataclasses  # noqa: E402
 from .trace import TRACED_RANGE, _short  # noqa: E402
 
 __all__ = ["Op", "SpanSummary", "OUTSIDE", "SETUP_SPANS", "MODEL_SPANS", "kineto_ops",
-           "attribute", "program_span_totals", "setup_parts", "decode_ms", "setup_engine_s",
-           "cell_spans", "main"]
+           "attribute", "program_span_totals", "setup_parts", "decode_ms", "device_ms",
+           "setup_engine_s", "cell_spans", "main"]
 
 #: the label of device and idle time under no program span
 OUTSIDE = "outside the engine"
@@ -204,6 +205,17 @@ def decode_ms(ctx):
     seconds, ``stats['decode_s']``: the graph's replay and the tokens'
     copy to the host)."""
     return 1e3 * sum(b.decode_s for b in ctx.batches) / len(ctx.batches)
+
+
+def device_ms(ctx, *names):
+    """Device milliseconds a traced batch launched under the spans
+    ``names``, summed (disjoint spans: siblings, not one inside another),
+    from the run's ``ctx.spans``; None for an untraced run or where the
+    trace holds none of them."""
+    found = [ctx.spans.by_span[n] for n in names if n in ctx.spans.by_span] if ctx.spans else []
+    if not found:
+        return None
+    return 1e3 * sum(found) / len(ctx.traced_batches())
 
 
 def setup_engine_s(ctx):

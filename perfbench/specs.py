@@ -5,7 +5,10 @@ and traffic mix and lists the metrics; everything else is a file of its
 own under ``perfbench/``, found by the name it carries there:
 
 * ``configs/<config>.json``: the configuration's file (its ``file`` in
-  ``BENCHMARK.json``), which names its plain reference,
+  ``BENCHMARK.json``), which names its architecture,
+  ``architectures/<architecture>.py`` (what the harness knows of one kind
+  of model: the mapping onto the port, the weights' layout, the work
+  arithmetic, the faults of its cache), and its plain reference,
   ``references/<reference>.py``;
 * ``traffic/<traffic>.json``: the mix's parameters, read by
   :mod:`perfbench.traffic`;
@@ -15,8 +18,8 @@ own under ``perfbench/``, found by the name it carries there:
 * ``metrics/<metric>.py``: one reader per metric, a ``read(ctx)`` that
   returns the value or None where it finds nothing to read.
 
-A later change adds a configuration, a mix, a cell or a metric as new
-files and entries; nothing here names one.
+A later change adds an architecture, a configuration, a mix, a cell or a
+metric as new files and entries; nothing here names one.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import os
 from typing import Callable, Optional
 
 __all__ = ["ROOT", "BENCH_DIR", "Cell", "load_benchmark", "load_cell", "metric_reader",
-           "metrics_for", "load_reference"]
+           "metrics_for", "load_reference", "load_architecture", "architecture_of"]
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
@@ -39,6 +42,7 @@ class Cell:
     name: str
     chips: int
     config: dict  # the configuration's file
+    architecture: object  # the module architectures/<config's architecture>.py
     traffic: dict  # the mix's file
     check: dict  # cells/<name>.json
     end_to_end: list  # BENCHMARK.json's metric entries this cell reports
@@ -72,8 +76,9 @@ def load_cell(name: str, root: str = ROOT, bench_dir: str = BENCH_DIR,
     config = _read_json(os.path.join(root, configs[w["config"]]["file"]))
     traffic = _read_json(os.path.join(bench_dir, "traffic", f"{w['traffic']}.json"))
     check = _read_json(os.path.join(bench_dir, "cells", f"{name}.json"))
-    return Cell(name=name, chips=int(w["chips"]), config=config, traffic=traffic,
-                check=check, end_to_end=metrics_for(bench["end_to_end"], name),
+    return Cell(name=name, chips=int(w["chips"]), config=config,
+                architecture=architecture_of(config, bench_dir), traffic=traffic, check=check,
+                end_to_end=metrics_for(bench["end_to_end"], name),
                 per_layer=metrics_for(bench["per_layer"], name))
 
 
@@ -96,3 +101,18 @@ def load_reference(name: str, bench_dir: str = BENCH_DIR):
     """The plain reference module ``references/<name>.py``."""
     path = os.path.join(bench_dir, "references", f"{name}.py")
     return _load_module(path, "perfbench_reference_" + name.replace("-", "_"))
+
+
+def load_architecture(name: str, bench_dir: str = BENCH_DIR):
+    """The architecture module ``architectures/<name>.py``."""
+    path = os.path.join(bench_dir, "architectures", f"{name}.py")
+    return _load_module(path, "perfbench_architecture_" + name.replace("-", "_"))
+
+
+def architecture_of(config: dict, bench_dir: str = BENCH_DIR):
+    """The architecture module that a configuration's file names under
+    ``architecture``; a file that names none is refused."""
+    if "architecture" not in config:
+        raise KeyError(f"configuration {config.get('name')!r} has no 'architecture' key: "
+                       "it names architectures/<architecture>.py")
+    return load_architecture(config["architecture"], bench_dir)

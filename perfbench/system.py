@@ -5,48 +5,43 @@ This module is the benchmark's only door into the program
 (``repro_torch``); the plain reference never passes through it.  What the
 benchmark takes from the program: the engine, its ``stats`` and counters
 (``kernels.ops.dispatch_stats``, ``launch_counts``), and the kernel names
-its trace shows.
+its trace shows; the planted faults patch it through :func:`patched`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import importlib
 import os
 import time
+from unittest import mock
 
 import torch
 
-__all__ = ["arch_config", "build_kernels", "make_engine", "release_engine", "served_gemm_dims",
-           "tune_records", "load_records", "dispatch_stats", "reset_dispatch_stats",
-           "use_kernels_on_card", "free_cuda_state"]
+__all__ = ["arch_config", "patched", "build_kernels", "make_engine", "release_engine",
+           "served_gemm_dims", "tune_records", "load_records", "dispatch_stats",
+           "reset_dispatch_stats", "use_kernels_on_card", "free_cuda_state"]
 
 
-def arch_config(config: dict):
-    """The port's ``ArchConfig`` for a configuration file: the published
-    keys mapped onto the port's fields, plus ``serving`` (what the engine
-    adds: MoE capacity)."""
+def arch_config(config: dict, architecture):
+    """The port's ``ArchConfig`` for a configuration file, as its
+    architecture module maps it (``architectures/<name>.py``)."""
     from repro_torch.configs.base import ArchConfig
 
-    if config.get("hidden_act", "silu") != "silu":
-        raise ValueError(f"{config['name']}: only SwiGLU (silu) decoders are mapped")
-    d, h = config["hidden_size"], config["num_attention_heads"]
-    moe = config.get("num_experts", 0) > 0
-    fields = dict(
-        name=config["name"], family="moe" if moe else "dense",
-        n_layers=config["num_hidden_layers"], d_model=d, n_heads=h,
-        n_kv_heads=config["num_key_value_heads"], head_dim=config.get("head_dim") or d // h,
-        d_ff=config["moe_intermediate_size"] if moe else config["intermediate_size"],
-        vocab_size=config["vocab_size"], norm="rmsnorm", norm_eps=config["rms_norm_eps"],
-        mlp_kind="swiglu", qkv_bias=bool(config.get("attention_bias")),
-        rope_theta=float(config["rope_theta"]),
-        tie_embeddings=bool(config.get("tie_word_embeddings")),
-        param_dtype=config["torch_dtype"], compute_dtype=config["torch_dtype"],
-    )
-    if moe:
-        fields.update(n_experts=config["num_experts"],
-                      experts_per_token=config["num_experts_per_tok"],
-                      router_norm_topk=bool(config.get("norm_topk_prob")),
-                      moe_capacity_factor=float(config["serving"]["capacity_factor"]))
-    return ArchConfig(**fields)
+    return ArchConfig(**architecture.arch_fields(config))
+
+
+@contextlib.contextmanager
+def patched(module: str, attr: str, make):
+    """The port's ``repro_torch.<module>.<attr>`` (``attr`` may be dotted:
+    ``ServeEngine.generate``) replaced by ``make(real)`` for the ``with``
+    block, then restored: how a planted fault reaches the program."""
+    owner = importlib.import_module(f"repro_torch.{module}")
+    *outer, name = attr.split(".")
+    for a in outer:
+        owner = getattr(owner, a)
+    with mock.patch.object(owner, name, make(getattr(owner, name))):
+        yield
 
 
 def use_kernels_on_card() -> None:

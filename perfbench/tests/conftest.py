@@ -42,7 +42,9 @@ def tiny_cell(name: str, limits: dict = None, **extra):
 
     bench = specs.load_benchmark(ROOT)
     like = f"{name}.long-prompt"
-    return specs.Cell(name=f"tiny-{name}", chips=1, config=tiny_config(name, **extra),
+    config = tiny_config(name, **extra)
+    return specs.Cell(name=f"tiny-{name}", chips=1, config=config,
+                      architecture=specs.architecture_of(config),
                       traffic=copy.deepcopy(TINY_TRAFFIC),
                       check={"tune_trials": 2, "check_requests": 4,
                              "limits": limits or {"widest_gap": 0.25}},

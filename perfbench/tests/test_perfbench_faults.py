@@ -11,7 +11,9 @@ routing choices at this size)."""
 import pytest
 
 from conftest import tiny_cell
-from perfbench import faults, run
+from perfbench import faults, run, specs
+
+DECODER = specs.load_architecture("decoder")
 
 
 CELLS = {
@@ -46,7 +48,7 @@ def test_sound_run_is_correct(state_dir, name, traced):
 @pytest.mark.parametrize("name", sorted(CELLS))
 def test_decode_step_that_leaves_its_state_unchanged(state_dir, name):
     """A decode step whose cache write and length advance are lost."""
-    with faults.planted("stale_state"):
+    with faults.planted("stale_state", DECODER):
         result, _ = run_tiny(state_dir, name)
     assert not result["correct"], result["checks"]
 
@@ -55,7 +57,7 @@ def test_decode_step_that_leaves_its_state_unchanged(state_dir, name):
 def test_half_the_batch_left_out(state_dir, name):
     """The second half of each batch is not served: its rows get the
     first half's answers."""
-    with faults.planted("half_batch"):
+    with faults.planted("half_batch", DECODER):
         result, _ = run_tiny(state_dir, name)
     assert not result["correct"], result["checks"]
 
@@ -65,7 +67,7 @@ def test_half_the_batch_left_out(state_dir, name):
 def test_a_token_altered_where_it_is_produced(state_dir, where, name):
     """One token of each request, the first (from prefill's logits) or a
     later one (a decode step's), replaced by the next id."""
-    with faults.planted(f"altered_token.{where}"):
+    with faults.planted(f"altered_token.{where}", DECODER):
         result, _ = run_tiny(state_dir, name)
     assert not result["correct"], result["checks"]
 
@@ -76,8 +78,9 @@ def test_every_fault_is_restored(state_dir):
     from repro_torch.models import transformer as tf
 
     before = (tf.decode_step, ServeEngine.generate, ServeEngine._decode_loop)
-    for name in faults.FAULTS:
-        with faults.planted(name):
+    assert list(faults.of(DECODER)) == ["stale_state", *faults.FAULTS]
+    for name in faults.of(DECODER):
+        with faults.planted(name, DECODER):
             assert (tf.decode_step, ServeEngine.generate, ServeEngine._decode_loop) != before
         assert (tf.decode_step, ServeEngine.generate, ServeEngine._decode_loop) == before
 

@@ -17,8 +17,9 @@ NAMES = ["qwen2-72b", "qwen3-moe-235b-a22b"]
 
 def served(name, dtype, seed=0, rows=4, bucket=64, gen=6):
     cfg = tiny_config(name, torch_dtype=dtype)
-    arch = system.arch_config(cfg)
-    params, _ = weights.make_params(cfg, seed, "cpu", arch.padded_vocab)
+    decoder = specs.architecture_of(cfg)
+    arch = system.arch_config(cfg, decoder)
+    params, _ = weights.make_params(decoder.layout(cfg, arch.padded_vocab), seed, "cpu")
     engine = system.make_engine(arch, params, rows, bucket, gen, "cpu")
     mix = Mix(name="t", batch=rows, low=bucket // 3, high=bucket, bucket=bucket, gen=gen,
               warmup_batches=0, trace_batches=0)

@@ -5,7 +5,9 @@ import pytest
 import torch
 
 from conftest import tiny_config
-from perfbench import work
+from perfbench import specs, work
+
+decoder = specs.load_architecture("decoder")
 
 
 def test_product_bound_by_hand():
@@ -25,15 +27,15 @@ def test_causal_attention_by_hand():
 
 
 def test_widths_of_the_two_configurations():
-    dense = work.widths_of(tiny_config("qwen2-72b") | {"hidden_size": 8192,
-                                                       "num_attention_heads": 64,
-                                                       "num_key_value_heads": 8,
-                                                       "intermediate_size": 29568,
-                                                       "vocab_size": 152064})
+    dense = decoder.widths_of(tiny_config("qwen2-72b") | {"hidden_size": 8192,
+                                                          "num_attention_heads": 64,
+                                                          "num_key_value_heads": 8,
+                                                          "intermediate_size": 29568,
+                                                          "vocab_size": 152064})
     # Qwen2-72B: 877.7 M weights a layer (without the biases and norms)
     assert dense.layer_params_active() == 8192 * (64 + 16) * 128 + 8192 * 8192 + 3 * 8192 * 29568
     assert round(dense.layer_params_active() / 1e6, 1) == 877.7
-    moe = work.widths_of(tiny_config("qwen3-moe-235b-a22b"))
+    moe = decoder.widths_of(tiny_config("qwen3-moe-235b-a22b"))
     assert moe.moe and moe.head_dim == 16 and moe.d_ff == 32
 
 
@@ -58,17 +60,17 @@ def test_served_products_agree_with_the_ports_op_counter(name):
     from repro_torch.utils.op_costs import OpCounter
 
     cfg = tiny_config(name)
-    arch = system.arch_config(cfg)
-    params, _ = weights.make_params(cfg, 3, "cpu", arch.padded_vocab)
+    arch = system.arch_config(cfg, decoder)
+    params, _ = weights.make_params(decoder.layout(cfg, arch.padded_vocab), 3, "cpu")
     model = Model(arch, device="cpu")
     rows, bucket = 8, 16  # at least the 8 rows a bf16 product launches
-    w = work.widths_of(cfg)
+    w = decoder.widths_of(cfg)
     toks = torch.randint(0, cfg["vocab_size"], (rows, bucket))
     with torch.no_grad(), OpCounter() as c:
         _, cache = model.prefill(params, {"tokens": toks}, bucket + 2)
         model.decode_step(params, cache, toks[:, :1])
     got = c.by_kind["gemm_kernel"]["flops"]
-    prods = work.served_products(w, rows, bucket, 2)
+    prods = decoder.served_products(cfg, rows, bucket, 2)
     head_pad = 2 * rows * w.d_model * (arch.padded_vocab - w.vocab) * 2  # prefill + 1 step
     assert got == sum(2 * m * k * n for m, k, n in prods) + head_pad
     assert c.by_kind["gemm_kernel"]["count"] == len(prods)

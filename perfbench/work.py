@@ -2,10 +2,13 @@
 batch, counted from the configuration's widths and the traffic's lengths.
 
 This arithmetic is the benchmark's own, frozen here so that a change to
-the program cannot move it.  It follows the port's ``utils/op_costs``
-(a product of ``(M, K)`` by ``(K, N)`` is ``2·M·K·N`` operations and moves
-``M·K + K·N + M·N`` elements, each read or written once) and its
-``utils/roofline.H100`` peaks.  Everything here is plain Python on ints.
+the program cannot move it.  An architecture's module
+(``architectures/<name>.py``) maps its configuration's file onto
+:class:`Widths` and calls these functions.  It follows the port's
+``utils/op_costs`` (a product of ``(M, K)`` by ``(K, N)`` is ``2·M·K·N``
+operations and moves ``M·K + K·N + M·N`` elements, each read or written
+once) and its ``utils/roofline.H100`` peaks.  Everything here is plain
+Python on ints.
 
 Two counts, for two uses:
 
@@ -31,7 +34,6 @@ __all__ = [
     "PEAK_FLOPS_BF16",
     "PEAK_BYTES_PER_S",
     "Widths",
-    "widths_of",
     "product_bound_s",
     "served_products",
     "causal_attention_flops",
@@ -73,19 +75,6 @@ class Widths:
         if self.moe:
             return attn + self.experts_per_token * 3 * d * self.d_ff + d * self.n_experts
         return attn + 3 * d * self.d_ff
-
-
-def widths_of(config: dict) -> Widths:
-    """The widths of a configuration file (the published model's
-    ``config.json`` keys)."""
-    d, h = config["hidden_size"], config["num_attention_heads"]
-    moe = config.get("num_experts", 0) > 0
-    return Widths(
-        n_layers=config["num_hidden_layers"], d_model=d, n_heads=h,
-        n_kv_heads=config["num_key_value_heads"], head_dim=config.get("head_dim") or d // h,
-        d_ff=config["moe_intermediate_size"] if moe else config["intermediate_size"],
-        vocab=config["vocab_size"], n_experts=config.get("num_experts", 0),
-        experts_per_token=config.get("num_experts_per_tok", 0))
 
 
 def product_bound_s(m: int, k: int, n: int, elem_bytes: int = BF16) -> float:
