@@ -10,13 +10,22 @@ package's mesh and compiler (``remat``, ``scan_layers``,
 ``dryrun_grad_accum``, ``moe_shard``, ``moe_impl``) are kept so both
 records compare field for field; on one card the port reads none of
 them (every MoE config runs ``models.transformer.moe_apply``).
+
+``layer_pattern`` is the port's own field (the JAX package's record has
+none): one character a layer, ``M`` a Mamba-2 mixer, ``-`` an MLP and
+``*`` an attention mixer, each a pre-norm layer with its residual add
+(Nemotron-H's ``hybrid_override_pattern``, run by ``models/hybrid.py``).
+Empty, as in every registry config, keeps each family's own layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["ArchConfig", "ShapeSpec", "SHAPES"]
+__all__ = ["ArchConfig", "ShapeSpec", "SHAPES", "LAYER_KINDS"]
+
+#: the kinds of layer a ``layer_pattern`` names: Mamba-2, MLP, attention
+LAYER_KINDS = "M-*"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +62,7 @@ class ArchConfig:
     mlp_kind: str = "swiglu"  # swiglu | squared_relu | gelu
     qkv_bias: bool = False
     attn_softcap: float = 0.0
-    pos_embed: str = "rope"  # rope | learned | sinusoidal
+    pos_embed: str = "rope"  # rope | learned | sinusoidal | none
     rope_theta: float = 1e6
     tie_embeddings: bool = False
 
@@ -73,6 +82,9 @@ class ArchConfig:
 
     # hybrid (zamba2): one shared attention block applied every N mamba layers
     hybrid_attn_interval: int = 0
+    # hybrid by layer (nemotron-h): "M" mamba, "-" mlp, "*" attention, one a
+    # layer; "" keeps the family's layout
+    layer_pattern: str = ""
 
     # enc-dec (whisper)
     n_encoder_layers: int = 0
@@ -102,6 +114,12 @@ class ArchConfig:
     moe_impl: str = "gspmd"
 
     # ----------------------------------------------------------------------
+    def __post_init__(self):
+        if self.layer_pattern and (set(self.layer_pattern) - set(LAYER_KINDS)
+                                   or len(self.layer_pattern) != self.n_layers):
+            raise ValueError(f"layer_pattern {self.layer_pattern!r}: one of "
+                             f"{LAYER_KINDS!r} for each of the {self.n_layers} layers")
+
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
@@ -119,10 +137,33 @@ class ArchConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
 
+    def layer_counts(self) -> dict[str, int]:
+        """Layers of each kind of ``layer_pattern`` (all of ``LAYER_KINDS``)."""
+        return {k: self.layer_pattern.count(k) for k in LAYER_KINDS}
+
+    def _pattern_layer_params(self) -> dict[str, int]:
+        """Parameters of one layer of each kind of ``layer_pattern``, its
+        pre-norm included: a Mamba-2 mixer (projections, conv and its
+        bias, ``A_log``, ``D``, ``dt_bias`` and the gated norm), an
+        unbiased MLP, an unbiased attention."""
+        d, hd = self.d_model, self.resolved_head_dim
+        di, g, ns, h = self.d_inner, self.ssm_n_groups, self.ssm_state, self.ssm_heads
+        conv_ch = di + 2 * g * ns
+        gated = 3 if self.mlp_kind in ("swiglu", "geglu") else 2
+        return {
+            "M": d + d * (2 * di + 2 * g * ns + h) + (self.ssm_conv_width + 1) * conv_ch
+            + 3 * h + di + di * d,
+            "-": d + gated * d * self.d_ff,
+            "*": d + d * (self.n_heads + 2 * self.n_kv_heads) * hd + self.n_heads * hd * d,
+        }
+
     def n_params(self) -> int:
         """Total parameter count (embedding + blocks + head)."""
         d, hd = self.d_model, self.resolved_head_dim
         emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        if self.layer_pattern:
+            per_kind = self._pattern_layer_params()
+            return int(emb + d + sum(n * per_kind[k] for k, n in self.layer_counts().items()))
         per_layer = 0
         if self.family in ("dense", "vlm", "moe", "encdec"):
             qkv = d * (self.n_heads + 2 * self.n_kv_heads) * hd
@@ -188,6 +229,9 @@ class ArchConfig:
             small.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
         if self.family == "hybrid":
             small.update(hybrid_attn_interval=2)
+        if self.layer_pattern:  # every layer of the pattern kept, each of its kind
+            small.update(hybrid_attn_interval=0,
+                         n_layers=len(overrides.get("layer_pattern", self.layer_pattern)))
         if self.family == "encdec":
             small.update(n_encoder_layers=2, encoder_len=32)
         if self.frontend != "none":
@@ -202,6 +246,20 @@ class ArchConfig:
         t = batch * seq
         d, hd = self.d_model, self.resolved_head_dim
         out: list[tuple[int, int, int, str]] = []
+        if self.layer_pattern:
+            n = self.layer_counts()
+            di, g, ns = self.d_inner, self.ssm_n_groups, self.ssm_state
+            if n["M"]:
+                out.append((t, d, 2 * di + 2 * g * ns + self.ssm_heads, "ssm_in"))
+                out.append((t, di, d, "ssm_out"))
+            if n["-"]:
+                out.append((t, d, self.d_ff, "ffn_in"))
+                out.append((t, self.d_ff, d, "ffn_out"))
+            if n["*"]:
+                out.append((t, d, (self.n_heads + 2 * self.n_kv_heads) * hd, "qkv"))
+                out.append((t, self.n_heads * hd, d, "attn_out"))
+            out.append((t, d, self.padded_vocab, "lm_head"))
+            return out
         if self.family in ("dense", "vlm", "moe", "encdec"):
             out.append((t, d, (self.n_heads + 2 * self.n_kv_heads) * hd, "qkv"))
             out.append((t, self.n_heads * hd, d, "attn_out"))

@@ -6,10 +6,9 @@ decode loop replayed from one CUDA graph per gen-length bucket.
   python -m repro_torch.launch.serve --arch yi-6b --reduced --device cpu \\
       --requests 4 --prompt-len 100 --gen 8 --buckets 128
 
-* **Shape buckets** — prompts of the attention families (dense, vlm,
-  moe, encdec) are right-padded into the smallest configured
-  prompt-length bucket that holds them; SSM and hybrid state cannot take
-  pad tokens, so those run exact lengths and refuse ragged prompts.
+* **Shape buckets** — prompts of every family are right-padded into the
+  smallest configured prompt-length bucket that holds them (SSM and
+  hybrid state stops at each row's real length, taking in no pad token).
   Generation lengths round up to a gen-length bucket.
 * **Graphed decode** — the whole greedy loop of a gen bucket ``g`` (the
   argmax of the prefill logits, then ``g - 1`` decode steps, each writing
@@ -63,11 +62,12 @@ decode loop replayed from one CUDA graph per gen-length bucket.
   static buffers: what the graphed decode must equal.
 
 Correctness under padding: each sequence's seed logits come from its own
-last real position (``Model.prefill(last_idx=...)``), pad K/V rows are
-masked out of every decode step, and each sequence's decode positions
-continue from its own true length, so a bucket-padded generation gives
-the tokens of the exact-shape run (MoE: near-identical, since pad tokens
-contend for expert capacity in prefill, as in the JAX package).
+last real position (``Model.prefill(last_idx=...)``), where its recurrent
+state (SSM, hybrid) also stops, pad K/V rows are masked out of every
+decode step, and each sequence's decode positions continue from its own
+true length, so a bucket-padded generation gives the tokens of the
+exact-shape run (MoE: near-identical, since pad tokens contend for expert
+capacity in prefill, as in the JAX package).
 
 The JAX package also persists its executables on disk (``cache_dir``,
 ``cache_capacity``) so a warm restart compiles nothing; a CUDA graph
@@ -93,9 +93,6 @@ from repro_torch.models.api import Model
 from repro_torch.utils.spans import span
 
 __all__ = ["ServeEngine"]
-
-#: families whose causal-attention masking makes right-padded prompts safe
-_PADDABLE = ("dense", "vlm", "moe", "encdec")
 
 
 def _bucket_for(n: int, buckets: Optional[Sequence[int]]) -> int:
@@ -131,7 +128,6 @@ class ServeEngine:
             self.params = params
             self.max_batch = max_batch
             self.max_len = max_len
-            self.pad_prompts = cfg.family in _PADDABLE
             self.prompt_buckets = sorted(prompt_buckets) if prompt_buckets else None
             self.gen_buckets = sorted(gen_buckets) if gen_buckets else None
             if self.prompt_buckets:
@@ -145,11 +141,10 @@ class ServeEngine:
             # captured graph holds these addresses, and prefill writes into them
             with torch.inference_mode():
                 self._cache = self.model.init_cache(max_batch, max_len)
-                if self.pad_prompts:
-                    self._cache["valid_len"] = torch.zeros(max_batch, dtype=torch.long,
-                                                           device=self.device)
-                    self._cache["prefill_len"] = torch.zeros((), dtype=torch.long,
-                                                             device=self.device)
+                self._cache["valid_len"] = torch.zeros(max_batch, dtype=torch.long,
+                                                       device=self.device)
+                self._cache["prefill_len"] = torch.zeros((), dtype=torch.long,
+                                                         device=self.device)
                 self._logits = torch.zeros((max_batch, 1, cfg.padded_vocab),
                                            dtype=torch.float32, device=self.device)
             #: (fingerprint, gen bucket) -> (CUDA graph, or None on the CPU; token
@@ -282,21 +277,16 @@ class ServeEngine:
     def _request(self, prompts, gen_tokens, prompt_lens, frontend_embeds) -> dict:
         """The prefill inputs of one ``generate`` call, padded to
         ``max_batch`` rows: ``batch``, ``bucket`` (the prompt width
-        served), ``g`` (the gen bucket), ``b`` (the real rows), and for the
-        paddable families ``true_len`` (each row's real length, frontend
-        included) and ``width`` (frontend plus bucket)."""
+        served), ``g`` (the gen bucket), ``b`` (the real rows), ``true_len``
+        (each row's real length, frontend included) and ``width``
+        (frontend plus bucket)."""
         prompts = np.asarray(prompts, np.int64)
         b, p = prompts.shape
         if b > self.max_batch:
             raise ValueError(f"{b} prompts exceed max_batch={self.max_batch}")
         lens = (np.full((b,), p, np.int64) if prompt_lens is None
                 else np.asarray(prompt_lens, np.int64))
-        if self.pad_prompts:
-            bucket = _bucket_for(p, self.prompt_buckets)
-        else:
-            bucket = p  # exact shapes: SSM/hybrid state admits no pads
-            if (lens != p).any():
-                raise ValueError(f"family {self.cfg.family} cannot serve ragged prompts")
+        bucket = _bucket_for(p, self.prompt_buckets)
         if frontend_embeds is not None and self.cfg.frontend != "vision_patches":
             raise ValueError(f"{self.cfg.name} takes no frontend embeddings")
         n_front = 0 if frontend_embeds is None else frontend_embeds.shape[1]
@@ -305,8 +295,8 @@ class ServeEngine:
             raise ValueError(f"{n_front} frontend + bucket {bucket} + gen bucket {g} exceed "
                              f"max_len={self.max_len}: the KV cache cannot hold them")
 
-        req = {"bucket": bucket, "g": g, "b": b, "missed": bool(
-            self.pad_prompts and self.prompt_buckets and bucket not in self.prompt_buckets)}
+        req = {"bucket": bucket, "g": g, "b": b,
+               "missed": bool(self.prompt_buckets and bucket not in self.prompt_buckets)}
         toks = np.zeros((self.max_batch, bucket), np.int64)
         toks[:b, :p] = prompts
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
@@ -321,18 +311,15 @@ class ServeEngine:
             fe[:b] = frontend_embeds
             batch["frontend_embeds"] = fe
         req["batch"] = batch
-        if self.pad_prompts:
-            true_len = np.full((self.max_batch,), bucket, np.int64)
-            true_len[:b] = lens
-            req["true_len"] = torch.from_numpy(true_len + n_front).to(self.device)
-            req["width"] = n_front + bucket
+        true_len = np.full((self.max_batch,), bucket, np.int64)
+        true_len[:b] = lens
+        req["true_len"] = torch.from_numpy(true_len + n_front).to(self.device)
+        req["width"] = n_front + bucket
         return req
 
     def _prefill(self, req: dict, cache=None):
         """Prefill ``req`` into ``cache`` (a fresh cache when None):
         ``(logits, cache)``, the cache's lengths set for decode."""
-        if not self.pad_prompts:
-            return self.model.prefill(self.params, req["batch"], self.max_len, cache=cache)
         logits, cache = self.model.prefill(self.params, req["batch"], self.max_len,
                                            cache=cache, last_idx=req["true_len"] - 1)
         if "valid_len" in cache:

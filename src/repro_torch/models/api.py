@@ -90,18 +90,16 @@ class Model:
     def prefill(self, params: dict, batch: dict, max_len: int,
                 last_idx: Optional[torch.Tensor] = None, cache: Optional[dict] = None):
         """``last_idx`` (B,) selects each sequence's last real position
-        for the seed logits (bucket-padded serving); attention families
-        only — SSM/hybrid state would take in the pad tokens, so the
-        engine never pads those.  ``cache``: an :meth:`init_cache` to
-        write into (a new one otherwise)."""
+        for the seed logits (bucket-padded serving); in the SSM and hybrid
+        families each row's recurrent state also stops there, taking in
+        none of its pad tokens.  ``cache``: an :meth:`init_cache` to write
+        into (a new one otherwise)."""
         c = self.cfg
         if c.family in _ATTN:
             return tf.prefill(c, params, batch, max_len, last_idx=last_idx, cache=cache)
-        if last_idx is not None:
-            raise ValueError(f"family {c.family} does not support padded prefill")
         if c.family == "ssm":
-            return mb.mamba_lm_prefill(c, params, batch, max_len, cache=cache)
-        return hy.hybrid_prefill(c, params, batch, max_len, cache=cache)
+            return mb.mamba_lm_prefill(c, params, batch, max_len, cache=cache, last_idx=last_idx)
+        return hy.hybrid_prefill(c, params, batch, max_len, cache=cache, last_idx=last_idx)
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         c = self.cfg

@@ -46,6 +46,10 @@ from repro_torch.utils.tree import tree_from_numpy
 
 __all__ = [
     "init_params",
+    "attn_params",
+    "mlp_params",
+    "attn_sublayer",
+    "mlp_sublayer",
     "params_from_reference",
     "forward_hidden",
     "forward_logits",
@@ -58,6 +62,7 @@ __all__ = [
     "moe_apply",
     "init_cache",
     "prefill",
+    "last_logits",
     "decode_step",
 ]
 
@@ -95,30 +100,46 @@ def norm_params(shape, kind: str, dtype, device) -> dict:
     return p
 
 
+def dense_params(gen: torch.Generator, lead: tuple, d_in: int, d_out: int, dtype, device,
+                 bias: bool = False) -> dict:
+    """A projection ``(*lead, d_in, d_out)`` drawn as the JAX package's:
+    a truncated normal scaled by ``1/sqrt(d_in)``, and a zero bias."""
+    p = {"w": trunc_normal(gen, (*lead, d_in, d_out), 1.0 / math.sqrt(d_in), dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((*lead, d_out), dtype=dtype, device=device)
+    return p
+
+
+def attn_params(cfg: ArchConfig, gen: torch.Generator, device, lead: tuple) -> dict:
+    """An attention sub-layer's ``wq``, ``wk``, ``wv`` and ``wo``."""
+    dt = _dt(cfg.param_dtype)
+    d, hd, h, kv = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    return {
+        "wq": dense_params(gen, lead, d, h * hd, dt, device, cfg.qkv_bias),
+        "wk": dense_params(gen, lead, d, kv * hd, dt, device, cfg.qkv_bias),
+        "wv": dense_params(gen, lead, d, kv * hd, dt, device, cfg.qkv_bias),
+        "wo": dense_params(gen, lead, h * hd, d, dt, device),
+    }
+
+
+def mlp_params(cfg: ArchConfig, gen: torch.Generator, device, lead: tuple) -> dict:
+    """A dense MLP sub-layer's ``wi``, ``wo`` and, where gated, ``wg``."""
+    dt = _dt(cfg.param_dtype)
+    d, f = cfg.d_model, cfg.d_ff
+    mlp = {"wi": dense_params(gen, lead, d, f, dt, device),
+           "wo": dense_params(gen, lead, f, d, dt, device)}
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        mlp["wg"] = dense_params(gen, lead, d, f, dt, device)
+    return mlp
+
+
 def init_block(cfg: ArchConfig, gen: torch.Generator, device, n: int, *, moe: bool,
                cross: bool = False) -> dict:
     """``n`` blocks' parameters stacked on axis 0, distributed as the JAX
     package's ``init_block``: truncated normals scaled by
     ``1/sqrt(d_in)``, unit norm scales, zero biases."""
     dt = _dt(cfg.param_dtype)
-    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
-    h, kv = cfg.n_heads, cfg.n_kv_heads
-
-    def dense_p(d_in, d_out, bias=False):
-        p = {"w": trunc_normal(gen, (n, d_in, d_out), 1.0 / math.sqrt(d_in), dt, device)}
-        if bias:
-            p["b"] = torch.zeros((n, d_out), dtype=dt, device=device)
-        return p
-
-    def attn_p():
-        return {
-            "wq": dense_p(d, h * hd, cfg.qkv_bias),
-            "wk": dense_p(d, kv * hd, cfg.qkv_bias),
-            "wv": dense_p(d, kv * hd, cfg.qkv_bias),
-            "wo": dense_p(h * hd, d),
-        }
-
-    gated = cfg.mlp_kind in ("swiglu", "geglu")
+    d, f = cfg.d_model, cfg.d_ff
     if moe:
         e = cfg.n_experts
         mlp = {
@@ -127,21 +148,19 @@ def init_block(cfg: ArchConfig, gen: torch.Generator, device, n: int, *, moe: bo
             "wi": trunc_normal(gen, (n, e, d, f), 1.0 / math.sqrt(d), dt, device),
             "wo": trunc_normal(gen, (n, e, f, d), 1.0 / math.sqrt(f), dt, device),
         }
-        if gated:
+        if cfg.mlp_kind in ("swiglu", "geglu"):
             mlp["wg"] = trunc_normal(gen, (n, e, d, f), 1.0 / math.sqrt(d), dt, device)
     else:
-        mlp = {"wi": dense_p(d, f), "wo": dense_p(f, d)}
-        if gated:
-            mlp["wg"] = dense_p(d, f)
+        mlp = mlp_params(cfg, gen, device, (n,))
     p = {
         "ln1": norm_params((n, d), cfg.norm, dt, device),
-        "attn": attn_p(),
+        "attn": attn_params(cfg, gen, device, (n,)),
         "ln2": norm_params((n, d), cfg.norm, dt, device),
         "mlp": mlp,
     }
     if cross:
         p["ln_cross"] = norm_params((n, d), cfg.norm, dt, device)
-        p["cross"] = attn_p()
+        p["cross"] = attn_params(cfg, gen, device, (n,))
     return p
 
 
@@ -405,34 +424,55 @@ def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor):
         return gathered.sum(dim=1).reshape(b, s, d), aux_total
 
 
+def attn_sublayer(cfg: ArchConfig, ln: dict, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                  *, index: Optional[int] = None, **kw):
+    """A pre-norm self-attention sub-layer with its residual add: the span
+    ``block.norm`` over the norm, ``block.attn`` over the attention and the
+    add.  ``kw`` goes to :func:`attn_apply`.  Returns ``(x, new_kv)``."""
+    with span("block.norm", index):
+        h = cm.norm_apply(ln, x, cfg.norm, cfg.norm_eps)
+    with span("block.attn", index):
+        a, new_kv = attn_apply(cfg, p, h, positions, **kw)
+        return x + a, new_kv
+
+
+def mlp_sublayer(cfg: ArchConfig, ln: dict, p: dict, x: torch.Tensor,
+                 index: Optional[int] = None) -> torch.Tensor:
+    """A pre-norm dense MLP sub-layer with its residual add, under the
+    spans ``block.norm`` and ``block.mlp``."""
+    with span("block.norm", index):
+        h = cm.norm_apply(ln, x, cfg.norm, cfg.norm_eps)
+    with span("block.mlp", index):
+        return x + mlp_apply(cfg, p, h)
+
+
 def block_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                 moe: bool, causal: bool = True, kv_cache: Optional[dict] = None,
                 cache_len=None, cross_kv: Optional[dict] = None,
                 enc_out: Optional[torch.Tensor] = None, valid_len=None, prefix_len=None,
                 index: Optional[int] = None):
-    """One pre-norm block.  Returns ``(x, new_kv, aux)``.  Its spans carry
-    ``index``: each pre-norm is ``block.norm``, and each sub-layer with its
-    residual add ``block.attn`` and ``block.mlp`` or ``block.moe``, so that
-    a MoE block's ``moe.*`` spans cover its ``block.moe`` but for the add."""
+    """One pre-norm block: :func:`attn_sublayer`, an encoder-decoder's
+    cross-attention, then :func:`mlp_sublayer` or the MoE.  Returns ``(x,
+    new_kv, aux)``.  Its spans carry ``index``: each pre-norm is
+    ``block.norm``, and each sub-layer with its residual add ``block.attn``
+    and ``block.mlp`` or ``block.moe``, so that a MoE block's ``moe.*``
+    spans cover its ``block.moe`` but for the add."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    with span("block.norm", index):
-        h = cm.norm_apply(p["ln1"], x, cfg.norm, cfg.norm_eps)
-    with span("block.attn", index):
-        a, new_kv = attn_apply(cfg, p["attn"], h, positions, causal=causal, kv_cache=kv_cache,
-                               cache_len=cache_len, valid_len=valid_len, prefix_len=prefix_len)
-        x = x + a
-        if "cross" in p:
+    x, new_kv = attn_sublayer(cfg, p["ln1"], p["attn"], x, positions, index=index,
+                              causal=causal, kv_cache=kv_cache, cache_len=cache_len,
+                              valid_len=valid_len, prefix_len=prefix_len)
+    if "cross" in p:
+        with span("block.attn", index):
             h = cm.norm_apply(p["ln_cross"], x, cfg.norm, cfg.norm_eps)
             c, _ = attn_apply(cfg, p["cross"], h, positions, cross=True, kv_cache=cross_kv,
                               cache_len=cache_len, xkv=enc_out)
             x = x + c
+    if not moe:
+        return mlp_sublayer(cfg, p["ln2"], p["mlp"], x, index), new_kv, aux
     with span("block.norm", index):
         h = cm.norm_apply(p["ln2"], x, cfg.norm, cfg.norm_eps)
-    with span("block.moe" if moe else "block.mlp", index):
-        if moe:
-            m, aux = moe_apply(cfg, p["mlp"], h)
-        else:
-            m = mlp_apply(cfg, p["mlp"], h)
+    with span("block.moe", index):
+        m, aux = moe_apply(cfg, p["mlp"], h)
         return x + m, new_kv, aux
 
 
@@ -664,12 +704,20 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int,
             cp = layer(params["layers"]["cross"], i)
             cache["cross_k"][i, :b] = cm.dense(cp["wk"], enc_out).reshape(b, es, kvh, hd)
             cache["cross_v"][i, :b] = cm.dense(cp["wv"], enc_out).reshape(b, es, kvh, hd)
+    return last_logits(cfg, params, x, last_idx), cache
+
+
+def last_logits(cfg: ArchConfig, params: dict, x: torch.Tensor,
+                last_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Prefill's seed logits ``(B, 1, V)``, under the span ``model.head``:
+    at each sequence's last real position ``last_idx`` (B,) of a
+    right-padded batch, else at the last column."""
     with span("model.head"):
         if last_idx is None:
             x_last = x[:, -1:, :]
         else:
-            x_last = x[torch.arange(b, device=x.device), last_idx.long()][:, None, :]
-        return lm_logits(cfg, params, x_last), cache
+            x_last = x[torch.arange(x.shape[0], device=x.device), last_idx.long()][:, None, :]
+        return lm_logits(cfg, params, x_last)
 
 
 def decode_positions(cache: dict, b: int, device) -> torch.Tensor:

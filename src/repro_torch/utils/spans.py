@@ -29,6 +29,11 @@ The port's spans (see ``PERF.md`` §3 for the metric each feeds):
   ``block.mlp`` or ``block.moe`` with the block's index, and under
   ``block.moe`` ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
   ``moe.combine``;
+* a Mamba-2 layer (``models/mamba2.py``; the SSM family and both hybrid
+  layouts): ``block.norm``, then ``block.mamba`` over the mixer and its
+  residual add, with the layer's index where the stack gives one, and
+  under it ``mamba.conv`` (the causal conv), ``mamba.ssd`` (dt, the
+  chunked scan and the D skip) and ``mamba.gate`` (the gated group norm);
 * training: ``train.step``, ``train.grads``, ``train.clip``,
   ``train.update``, ``remat.forward``, ``remat.recompute`` and
   ``attn.chunked``.

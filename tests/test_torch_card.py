@@ -334,15 +334,12 @@ def test_graphed_decode_equals_the_eager_loop_on_card(name):
     cfg = get_arch(name).reduced()
     model = Model(cfg, device="cuda")
     params = model.init_params(seed=0)
-    paddable = cfg.family not in ("ssm", "hybrid")
-    engine = ServeEngine(cfg, params, max_batch=8, max_len=144,
-                         prompt_buckets=[128] if paddable else None, gen_buckets=[8],
-                         device="cuda")
+    engine = ServeEngine(cfg, params, max_batch=8, max_len=144, prompt_buckets=[128],
+                         gen_buckets=[8], device="cuda")
     assert engine.cache_report()["captures"] == 1
     rng = np.random.default_rng(0)
     for call, width in enumerate((112, 96)):
-        lens = (rng.integers(width // 2, width + 1, 8) if paddable
-                else np.full(8, width))
+        lens = rng.integers(width // 2, width + 1, 8)  # ragged, in every family
         lens[0] = width
         prompts = np.zeros((8, width), np.int64)
         for i, n in enumerate(lens):

@@ -85,11 +85,19 @@ def _batches(cfg, tokens: np.ndarray, dtype: str, seed: int = 2):
 # -- configs ---------------------------------------------------------------------
 
 
+def _fields(cfg) -> dict:
+    """A registry config's fields but ``layer_pattern``, the port's own
+    field (the reference's record has none), which it leaves empty."""
+    fields = dataclasses.asdict(cfg)
+    assert fields.pop("layer_pattern") == ""
+    return fields
+
+
 @pytest.mark.parametrize("name", sorted(ref_registry.ARCHS))
 def test_config_matches_reference(name):
     cfg, ref = registry.get_arch(name), ref_registry.get_arch(name)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
-    assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(ref.reduced())
+    assert _fields(cfg) == dataclasses.asdict(ref)
+    assert _fields(cfg.reduced()) == dataclasses.asdict(ref.reduced())
     assert (cfg.n_params(), cfg.n_active_params()) == (ref.n_params(), ref.n_active_params())
     assert cfg.gemm_workloads(8, 4096) == ref.gemm_workloads(8, 4096)
     assert (cfg.d_inner, cfg.ssm_heads, cfg.padded_vocab) == (
@@ -283,15 +291,24 @@ def test_params_from_reference_keeps_each_leaf_type():
 
 
 def test_model_dispatches_every_family():
+    """Every family's cache starts empty; an SSM prefill right-padded past
+    a row's length (``last_idx``) stops that row's state at its length:
+    its logits and recurrent state are the exact-length prefill's."""
     for name in registry.ARCHS:
         cfg = registry.get_arch(name).reduced()
         model = Model(cfg, device="cpu")
         cache = model.init_cache(2, 16)
         assert int(cache["len"]) == 0
-    with pytest.raises(ValueError):  # SSM state takes no pads
-        Model(registry.get_arch("mamba2-130m").reduced(), device="cpu").prefill(
-            {}, {"tokens": torch.zeros((1, 4), dtype=torch.long)}, 8,
-            last_idx=torch.zeros(1, dtype=torch.long))
+    model = Model(registry.get_arch("mamba2-130m").reduced(), device="cpu")
+    params = model.init_params(seed=2)
+    toks = torch.randint(0, 256, (1, 21), generator=torch.Generator().manual_seed(0))
+    padded = torch.cat([toks, torch.randint(0, 256, (1, 11))], 1)  # 32: two chunks
+    want, exact = model.prefill(params, {"tokens": toks}, 40)
+    got, cache = model.prefill(params, {"tokens": padded}, 40,
+                               last_idx=torch.tensor([toks.shape[1] - 1]))
+    _close(got, want.numpy(), 2e-4)
+    _close(cache["layers"]["ssm"], exact["layers"]["ssm"].numpy(), 2e-4)
+    _close(cache["layers"]["conv"], exact["layers"]["conv"].numpy(), 2e-4)
 
 
 # -- SSD, SSM and hybrid ---------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The port's serving engine and CLIs held against the JAX package's:
 greedy tokens of ragged, bucket-padded requests on the reduced yi-6b
 (f32, reference params carried across), a tuned flash record driving
-dispatch on both sides, the same for every other family (padded prompts
-for moe, encdec and vlm, exact ones for ssm and hybrid), the decode
+dispatch on both sides, the same for every other family (prompts padded
+to a bucket, the ssm and hybrid state stopped at each row's length), the decode
 programs' keys (prompt jitter reuses one, a records change rebuilds it),
 ``tune --op flash`` writing flash-scoped records on the CPU, and the
 entry points refusing to run without a card unless asked for the CPU.
@@ -35,6 +35,7 @@ from repro_torch.launch import tune as tune_cli
 from repro_torch.launch.serve import ServeEngine
 from repro_torch.models.api import Model
 from repro_torch.models.transformer import params_from_reference
+from test_torch_hybrid import tiny_model
 
 
 @pytest.fixture
@@ -197,19 +198,51 @@ def test_engine_tokens_match_reference_per_family(name, over, clean_dispatch):
 
 @pytest.mark.parametrize("name", ["mamba2-130m", "zamba2-1.2b"])
 def test_engine_serves_ssm_and_hybrid_at_exact_lengths(name, clean_dispatch):
-    """SSM/hybrid prompts run at their own length (no pads), give the
-    reference engine's tokens, and refuse ragged prompts."""
+    """SSM/hybrid prompts right-padded into a bucket (whose pads their
+    state takes in none of) give the tokens of the reference engine, which
+    runs them at their own length; a ragged batch is served too."""
     cfg, ref_cfg, params, ref_params = _family_models(name)
-    # 48 tokens: a multiple of the reduced ssm_chunk (16), as the SSD scan needs
+    # 48 tokens: a multiple of the reduced ssm_chunk (16), as the reference's SSD scan needs
     prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (3, 48)).astype(np.int32)
     ref_out = RefEngine(ref_cfg, ref_params, max_batch=4, max_len=72,
                         gen_buckets=[8]).generate(prompts, 7)
     engine = ServeEngine(cfg, params, max_batch=4, max_len=72, prompt_buckets=[64],
                          gen_buckets=[8], device="cpu")
     np.testing.assert_array_equal(engine.generate(prompts, 7), ref_out)
-    assert engine.last_timing["prompt_bucket"] == 48  # buckets do not apply
-    with pytest.raises(ValueError, match="ragged"):
-        engine.generate(prompts, 7, prompt_lens=np.array([48, 33, 48]))
+    assert engine.last_timing["prompt_bucket"] == 64
+    out = engine.generate(prompts, 7, prompt_lens=np.array([48, 33, 48]))
+    assert out.shape == (3, 7)
+    np.testing.assert_array_equal(out[[0, 2]], ref_out[[0, 2]])
+
+
+def _ssm_model(name: str):
+    """A reduced SSM or hybrid registry arch, or the tiny Nemotron-H pattern
+    stack of ``test_torch_hybrid``, with its weights."""
+    if name == "nemotron-h-tiny":
+        cfg, _, params = tiny_model(seed=2)
+        return cfg, params
+    cfg = get_arch(name).reduced()
+    return cfg, Model(cfg, device="cpu").init_params(seed=2)
+
+
+@pytest.mark.parametrize("name", ["mamba2-130m", "zamba2-1.2b", "nemotron-h-tiny"])
+def test_ragged_ssm_batch_gives_each_row_served_alone(name, clean_dispatch):
+    """Rows of 45, 23 and 38 tokens right-padded to a bucket of 48: each
+    row's tokens are those it is served alone at its exact length (its
+    recurrent state took in no pad, its attention saw no pad K/V), and the
+    engine's loop over its static buffers gives ``eager_reference``'s."""
+    cfg, params = _ssm_model(name)
+    lens = np.array([45, 23, 38])
+    prompts = _ragged(cfg, lens, 45, seed=8)
+    engine = ServeEngine(cfg, params, max_batch=3, max_len=64, prompt_buckets=[48],
+                         gen_buckets=[8], device="cpu")
+    out = engine.generate(prompts, 7, prompt_lens=lens)
+    assert engine.last_timing["prompt_bucket"] == 48
+    np.testing.assert_array_equal(out, engine.eager_reference(prompts, 7, prompt_lens=lens))
+    alone = ServeEngine(cfg, params, max_batch=1, max_len=64, gen_buckets=[8], device="cpu")
+    for row, n in enumerate(lens):
+        np.testing.assert_array_equal(out[row], alone.generate(prompts[row:row + 1, :n], 7)[0])
+        assert alone.last_timing["prompt_bucket"] == n
 
 
 def test_engine_prepends_frontend_embeddings(clean_dispatch):
