@@ -15,6 +15,7 @@ the meta device, and yi-6b's steps counted on the card against it.
     python3 chip_smoke.py
     python3 chip_smoke.py --search-only [path/to/src]   # phases 11(b), 16(d) alone
     python3 chip_smoke.py --flash-f32-only [path/to/src]  # the f32 flash rows alone
+    python3 chip_smoke.py --ssd-only [path/to/src]  # the SSD's chunked-scan row alone
 
 Phases (each prints its wall time):
 
@@ -97,6 +98,16 @@ Phases (each prints its wall time):
      ``scaled_dot_product_attention`` (the yardstick, used nowhere in the
      port), and hold the reduced yi-6b served on the card against the
      same model on the CPU (plain versions);
+     then (b) the Mamba-2 SSD's chunked scan (``csrc/ssd.cu``) at the
+     nemotron-h-47b cell's shapes (8 ragged rows in bucket 4096, 256
+     heads of 64, 8 groups, state 256, chunk 128, one layer): its three
+     kernels' ptxas registers and spills and ``HGMMA`` counts (fails on a
+     spill or a kernel without ``HGMMA``), held against its plain version
+     (the state, y, and the share of y's bf16 elements that differ; a
+     planted fault, the scores entering their product as TF32 alone, must
+     be refused), timed (unspun and spun) beside the plain version and its
+     bound (the benchmark's ``ssd_flops`` / ``ssd_bytes`` for one layer),
+     with each kernel's share from the profiler: the ``ssd[...]`` row;
  11. the paper's tuners on the card: (a) N-A2C through the tune CLI
      (``--tuner n-a2c --cost hopper --device cuda --warm-start``, a
      snapshot every round) over yi-6b's five bf16 GEMMs, and through the
@@ -151,7 +162,9 @@ Phases (each prints its wall time):
      ``torch.matmul`` at every shape the serve launched it on, and the
      flash kernel under the blocks dispatch chose against its plain
      version at every served attention shape (qwen3-moe's 16 query heads
-     a KV head, llava's 7, zamba2's head_dim 64);
+     a KV head, llava's 7, zamba2's head_dim 64), and the SSD's chunked
+     scan against its plain version at every instantiation the serve
+     launched (mamba2-130m's state 128 and zamba2's 64, chunk 256);
  14. train yi-6b at its published widths with 16 of its 32 layers (AdamW
      with f32 master weights for all 32 would take 97 GB), bf16, remat
      ``full``, on ``SyntheticLM`` batches of 2 x 4096 tokens, through
@@ -1386,6 +1399,9 @@ def main() -> None:
         set_global_records(TuningRecords())
         check_reduced_model_against_cpu(Model, get_arch, np)
         phase("10 full-width flash check, times, reduced model vs CPU", t0)
+        t0 = time.perf_counter()
+        kernels.append(ssd_row(flush))
+        phase("10(b) the SSD's chunked scan at the nemotron-h cell's shapes", t0)
     fault_dir.cleanup()
 
     work = tempfile.TemporaryDirectory()  # the stores phases 11 and 12 write
@@ -2021,6 +2037,7 @@ def serve_families(kernels: list) -> None:
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd
     from repro_torch.kernels.gemm import LAUNCHES, gemm_tiled
     from repro_torch.launch.serve import ServeEngine
     from repro_torch.models.api import Model
@@ -2057,6 +2074,7 @@ def serve_families(kernels: list) -> None:
         LAUNCHES.clear()
         fa.LAUNCHES.clear()
         fa.DTYPE_LAUNCHES.clear()
+        ssd.LAUNCHES.clear()
         engine = ServeEngine(cfg, params, max_batch=reqs, max_len=max_len,
                              prompt_buckets=[bucket] if paddable else None,
                              gen_buckets=[SERVE_TOKENS], device="cuda")
@@ -2090,10 +2108,13 @@ def serve_families(kernels: list) -> None:
                     n for (kind, _), n in launched.items() if kind == "flash")
             elif row["name"].startswith("flash_f32["):
                 row["launches_families"] += flash_f32
+            elif row["name"].startswith("ssd["):
+                row["launches_families"] += launched.get(("ssd", tuple(row["instance"])), 0)
             elif row.get("shape"):
                 row["launches_families"] += launched.get(("gemm", tuple(row["shape"])), 0)
-        gemm_err, flash_err = check_served_kernels(
-            name, launched, reqs, cfg.n_heads, cfg.n_kv_heads, gen, ops, fa, gemm_tiled)
+        gemm_err, flash_err, ssd_err = check_served_kernels(
+            name, launched, reqs, cfg.n_heads, cfg.n_kv_heads, gen, ops, fa, gemm_tiled,
+            (bucket, cfg.ssm_heads, cfg.ssm_n_groups))
         g = stats.get("gemm", {})
         print(f"[family] {name} ({cfg.family}, {depth}, weights {n_bytes / 1e9:.2f} GB bf16, "
               f"init {t_init:.1f}s): {reqs} requests x {seq} tokens"
@@ -2109,7 +2130,8 @@ def serve_families(kernels: list) -> None:
               f"{parts['gemm']['captured']}, x {rep['replays']} replay); flash dispatch "
               f"{stats.get('flash', {})}, launches {parts['flash']['prefill']}; tokens equal "
               f"the eager loop's; worst error at the served shapes: GEMM {gemm_err} "
-              f"flash {flash_err}; sample {tokens[0][:6].tolist()}", flush=True)
+              f"flash {flash_err} SSD (state, y, y differing) {ssd_err}; "
+              f"sample {tokens[0][:6].tolist()}", flush=True)
         del tokens
         phase(f"13 {name}", t0)
 
@@ -2931,21 +2953,24 @@ def resume_on_card(cfg) -> None:
         raise SystemExit(f"the resumed step 3 loss {b} differs from the straight run's {a}")
 
 
-def check_served_kernels(label, launched, batch, heads, kv_heads, gen, ops, fa, gemm_tiled):
+def check_served_kernels(label, launched, batch, heads, kv_heads, gen, ops, fa, gemm_tiled,
+                         ssm):
     """Hold each kernel against its reference at every shape a serve path
     launched it on, on random bf16 operands: the GEMM kernel under the
     config dispatch chose against an f32 ``torch.matmul`` (MATMUL_TOL),
     the flash kernel on ``(batch, S, heads, hd)`` queries against
     ``(batch, S, kv_heads, hd)`` keys and values under the blocks dispatch
-    chose against its plain version (FLASH_TOL).  Exits on a
-    disagreement; returns the worst error of each (None where the path
-    launched none)."""
+    chose against its plain version (FLASH_TOL), the SSD's chunked scan
+    at each ``(n, q)`` on ``batch`` full rows of ``ssm``'s ``(positions,
+    heads, groups)`` against its plain version (:func:`check_ssd`).  Exits
+    on a disagreement; returns the worst error of each (None where the
+    path launched none; the SSD's the largest of each of its three)."""
     bf16 = torch.bfloat16
 
     def rand(shape):
         return torch.randn(shape, generator=gen, device="cuda").to(bf16)
 
-    worst = {"gemm": None, "flash": None}
+    worst = {"gemm": None, "flash": None, "ssd": None}
     for kind, dims in sorted(launched):
         if kind == "gemm":
             m, k, n = dims
@@ -2955,7 +2980,7 @@ def check_served_kernels(label, launched, batch, heads, kv_heads, gen, ops, fa, 
                               torch.matmul(a.float(), b.float()), bf16, MATMUL_TOL)
             print(f"[check] {label} served gemm {dims} ({src}) {cfg}: max abs err {err}")
             del a, b
-        else:
+        elif kind == "flash":
             sq, sk, hd = dims
             blocks, src = ops.flash_blocks(sq, sk, hd, bf16, grid_y=batch * heads)
             q = rand((batch, sq, heads, hd))
@@ -2966,9 +2991,18 @@ def check_served_kernels(label, launched, batch, heads, kv_heads, gen, ops, fa, 
             print(f"[check] {label} served flash q {tuple(q.shape)} k/v {tuple(k.shape)} "
                   f"(G = {heads // kv_heads}) blocks {blocks} ({src}): max abs err {err}")
             del q, k, v
+        else:  # the SSD's chunked scan, at the instantiation the path launched
+            n, q = dims
+            seq, h, g = ssm
+            args = ssd_operands(gen, batch, seq, h, g, n)
+            err = check_ssd(f"{label} served ssd ({batch}, {seq}, {h}, 64) groups {g} state {n} "
+                            f"chunk {q}", args, q, None)
+            del args
+            if worst[kind] is not None:
+                err = tuple(map(max, err, worst[kind]))
         worst[kind] = err if worst[kind] is None else max(worst[kind], err)
         torch.cuda.empty_cache()
-    return worst["gemm"], worst["flash"]
+    return worst["gemm"], worst["flash"], worst["ssd"]
 
 
 def _leaves(tree):
@@ -3349,6 +3383,237 @@ def check_f32_ring() -> None:
           flush=True)
 
 
+#: the nemotron-h-47b cell's SSD, one layer: rows, bucket, heads, groups,
+#: state, chunk (head dim 64), and the rows' lengths (ragged, in
+#: [2049, 4096] as the cell's traffic draws them)
+SSD_SHAPE = (8, 4096, 256, 8, 256, 128)
+SSD_LENS = (4096, 3301, 2049, 2877, 3968, 2500, 4000, 2222)
+#: the kernel against its plain version (tests/test_torch_card.py says
+#: why): the state within 1e-4 of its largest entry, y within one bf16
+#: step, and y's bf16 values equal to the plain version's in all but this
+#: share of its elements
+SSD_TOL = (1e-4, 2 ** -7)
+SSD_Y_DIFFER = 0.01
+SSD_CU = os.path.join(SRC, "repro_torch", "kernels", "csrc", "ssd.cu")
+#: planted fault the y limit must refuse: the scan kernel's dt-scaled
+#: scores enter their product as TF32 alone (the split's low part dropped),
+#: which the state, formed by another kernel, does not see
+SSD_FAULTS = {
+    "scores_tf32_only": (
+        "          v[3] = j1 <= r1 ? v[3] * expf(d1 - dj.y) * tj.y : 0.0f;\n",
+        "          v[3] = j1 <= r1 ? v[3] * expf(d1 - dj.y) * tj.y : 0.0f;\n"
+        "          for (int e = 0; e < 4; ++e) v[e] = __uint_as_float(__float_as_uint(v[e]) & kTf32Mask);\n",
+    ),
+}
+
+
+def ssd_sass(lib_path: str, log: str) -> list[str]:
+    """ptxas' registers and spills and the ``HGMMA`` count of every kernel
+    of a build of ``ssd.cu``, one string a kernel; exits on a spill, or on
+    a kernel with no ``HGMMA``."""
+    from repro_torch.kernels.build import nvcc_path
+
+    used = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            used.setdefault(name, {})["spills"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            used.setdefault(name, {})["regs"] = int(m.group(1))
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc_path()), "cuobjdump"), "-sass",
+                           lib_path], capture_output=True, text=True, check=True).stdout
+    hgmma, fn = collections.Counter(), None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and "HGMMA" in line:
+            hgmma[fn] += 1
+    out = []
+    for fn, r in sorted(used.items()):
+        m = re.search(r"(ssd_(?:chunk_prep|chunk_state|chunk_scan))I((?:Li\d+E)+)", fn)
+        short = fn
+        if m:
+            dims = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
+            short = f"{m.group(1)}<{dims}>"
+        out.append(f"{short}: registers {r.get('regs')}, spill stores {r.get('spills')} B, "
+                   f"HGMMA {hgmma[fn]}")
+        if r.get("spills"):
+            raise SystemExit(f"[sass] {short} spills {r['spills']} bytes")
+        if hgmma[fn] == 0:
+            raise SystemExit(f"[sass] {short} has no HGMMA")
+    return out
+
+
+def ssd_operands(gen, b: int, l: int, h: int, g: int, n: int) -> tuple:
+    """The SSD's operands for ``b`` rows of ``l`` positions, ``h`` heads of
+    64, ``g`` groups and state ``n``, drawn as the nemotron-h cell draws
+    them: bf16 x, raw dt, B and C; f32 dt_bias, A and D."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return (rand(b, l, h, 64).bfloat16(), rand(b, l, h).bfloat16(), rand(h) * 0.465 - 4.579,
+            -torch.exp(1.3863 + 0.277 * rand(h)), rand(b, l, g, n).bfloat16(),
+            rand(b, l, g, n).bfloat16(), 1 + 0.1 * rand(h))
+
+
+def ssd_errors(got, want) -> tuple[float, float, float, bool]:
+    """The kernel's ``(y, state)`` against the plain version's: the
+    state's largest error over its largest entry, y's largest abs error,
+    the share of y's bf16 elements that differ, and whether all three lie
+    within :data:`SSD_TOL` and :data:`SSD_Y_DIFFER`."""
+    (y, state), (want_y, want_state) = got, want
+    state_err = (state - want_state).abs().max().item() / want_state.abs().max().item()
+    y, want_y = y.float(), want_y.float()
+    gap = (y - want_y).abs()
+    y_err = gap.max().item()
+    y_in = (gap <= SSD_TOL[1] * want_y.abs() + 1e-4 * want_y.abs().max()).all().item()
+    differ = (gap > 0).float().mean().item()
+    return state_err, y_err, differ, state_err <= SSD_TOL[0] and y_in and differ < SSD_Y_DIFFER
+
+
+def ssd_plain(args, q: int, valid_len):
+    """The SSD's plain version (f32 einsums, TF32 off) on ``args``."""
+    from repro_torch.kernels import ssd
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return ssd.ssd_scan_plain(*args, q, valid_len)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def check_ssd(what: str, args, q: int, valid_len) -> tuple[float, float, float]:
+    """The kernel against its plain version on ``args``; exits outside the
+    limits.  Returns :func:`ssd_errors`' three errors."""
+    from repro_torch.kernels import ssd
+
+    got = ssd.ssd_scan(*args, q, valid_len)
+    state_err, y_err, differ, ok = ssd_errors(got, ssd_plain(args, q, valid_len))
+    print(f"[check] {what}: state rel err {state_err:.3g}, y max abs err {y_err:.4g}, y "
+          f"elements differing {differ:.4%} (limits {SSD_TOL}, {SSD_Y_DIFFER:.0%})", flush=True)
+    if not ok:
+        raise SystemExit(f"[check] {what}: outside the limits")
+    return state_err, y_err, differ
+
+
+def refuse_ssd_faults(args, q: int, valid_len, want) -> None:
+    """Build each planted-fault variant of ``ssd.cu`` and launch it, through
+    the wrapper, on the operands the kernel was checked on; the limits
+    must refuse every one."""
+    from repro_torch.kernels import ssd
+
+    with tempfile.TemporaryDirectory() as d:
+        for name in SSD_FAULTS:
+            t0 = time.perf_counter()
+            lib, _ = fault_variant(SSD_CU, SSD_FAULTS, name, d)
+            saved, ssd._LIB = ssd._LIB, (ssd.bind(lib), "")
+            try:
+                got = ssd.ssd_scan(*args, q, valid_len)
+            finally:
+                ssd._LIB = saved
+            state_err, y_err, differ, ok = ssd_errors(got, want)
+            print(f"[fault] ssd {name} (built in {time.perf_counter() - t0:.1f}s): state rel err "
+                  f"{state_err:.3g}, y max abs err {y_err:.4g}, y elements differing {differ:.4%} "
+                  f"-> {'within the limits' if ok else 'refused'}", flush=True)
+            if ok:
+                raise SystemExit(f"the SSD's limits let the planted fault {name} pass")
+
+
+def ssd_row(flush) -> dict:
+    """A ``kernels`` row for the Mamba-2 SSD's chunked scan at
+    :data:`SSD_SHAPE` (the nemotron-h cell's prefill, one layer): the
+    build's ptxas and SASS report (:func:`ssd_sass`), the kernel held
+    against its plain version (:func:`check_ssd`) and the planted faults
+    refused, timed (unspun and spun) beside the plain version (f32
+    einsums, TF32 off) and its bound (the benchmark's arithmetic,
+    ``perfbench/architectures/nemotron_h.py``'s ``ssd_flops`` and
+    ``ssd_bytes`` over the rows' real lengths at the bf16 peak and HBM's),
+    and each kernel's device time from the profiler."""
+    import json as json_
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from perfbench import work
+    from perfbench.architectures import nemotron_h
+    from repro_torch.kernels import ssd
+    from repro_torch.kernels.build import _BUILD_DIR, source_digest
+
+    lib, log = ssd.build_kernel()
+    lib_path = os.path.join(_BUILD_DIR, f"libssd_{source_digest('ssd.cu')}.so")
+    for line in ssd_sass(lib_path, log):
+        print(f"[sass] {line}", flush=True)
+    b, l, h, g, n, q = SSD_SHAPE
+    args = ssd_operands(torch.Generator(device="cuda").manual_seed(30), b, l, h, g, n)
+    valid_len = torch.tensor(SSD_LENS, device="cuda")
+    run = lambda: ssd.ssd_scan(*args, q, valid_len)  # noqa: E731
+    plain = lambda: ssd.ssd_scan_plain(*args, q, valid_len)  # noqa: E731
+    before = ssd.LAUNCHES[(n, q)]
+    state_err, y_err, differ = check_ssd(f"ssd {SSD_SHAPE}", args, q, valid_len)
+    launches = ssd.LAUNCHES[(n, q)] - before
+    refuse_ssd_faults(args, q, valid_len, ssd_plain(args, q, valid_len))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ms = timed_ms(run, 10, flush)
+    ms_spin = timed_ms(run, 10, flush, spin=True)
+    plain_ms = timed_ms(plain, 2, flush)
+    with open(os.path.join(HERE, "perfbench", "configs", "nemotron-h-47b.json")) as f:
+        config = json_.load(f)
+    flops = sum(nemotron_h.ssd_flops(config, n_) for n_ in SSD_LENS)
+    nbytes = sum(nemotron_h.ssd_bytes(config, n_) for n_ in SSD_LENS)
+    bound_ms = 1e3 * sum(max(nemotron_h.ssd_flops(config, n_) / work.PEAK_FLOPS_BF16,
+                             nemotron_h.ssd_bytes(config, n_) / work.PEAK_BYTES_PER_S)
+                         for n_ in SSD_LENS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    parts = {e.key.split("<")[0].split("::")[-1].removeprefix("void "): e.device_time_total / 1e3
+             for e in prof.key_averages() if "ssd_" in e.key}
+    print(f"[time] ssd {SSD_SHAPE} lens {SSD_LENS}: kernel_ms={ms:.4f} spun {ms_spin:.4f}; "
+          f"plain_ms={plain_ms:.4f}; bound_ms={bound_ms:.4f} (ssd_bound_s of one layer: "
+          f"{flops:.4g} operations at the bf16 peak, {nbytes:.4g} bytes); share of the bound "
+          f"spun {bound_ms / ms_spin:.4f}; by kernel (ms) "
+          + " ".join(f"{k}={v:.4f}" for k, v in parts.items())
+          + f"; state rel err {state_err:.3g}, y max abs err {y_err:.4g}, y elements differing "
+          f"{differ:.4%}", flush=True)
+    torch.cuda.empty_cache()
+    return {
+        "name": f"ssd[{b}x{l}x{h}/{g}x64x{n}/{q}]", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "no TPU kernel (src/repro/models/mamba2.py:ssd_chunked is plain code)",
+        "shape": [b, l, h, 64, n], "instance": [n, q], "launches": launches,
+        "max_abs_err": y_err, "state_rel_err": state_err, "y_differ_share": differ, "ms": ms,
+        "ms_spin": ms_spin, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "operations" if flops / work.PEAK_FLOPS_BF16 >= nbytes / work.PEAK_BYTES_PER_S
+        else "bytes", "by_kernel_ms": parts,
+    }
+
+
+def ssd_only(src: str) -> None:
+    """The SSD's chunked scan alone, on the package under ``src``:
+
+        python3 chip_smoke.py --ssd-only [path/to/src]
+
+    Prints the card, the source's digest, the ``[sass]`` lines and the
+    ``[time] ssd`` line, and the ``kernels`` row."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA card is available")
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.kernels.build import source_digest
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    print(f"[ssd-only] {os.path.abspath(src)} ssd.cu {source_digest('ssd.cu')}", flush=True)
+    flush = torch.empty(100 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    row = ssd_row(flush)
+    print(json.dumps({"kernels": [row]}))
+
+
 def flash_f32_row(rand, flush, peak_bytes: float, shape: tuple,
                   fault_libs: dict | None = None) -> dict:
     """A ``kernels`` row for the float32 flash kernel (CUDA cores), which
@@ -3615,6 +3880,8 @@ if __name__ == "__main__":
             search_only(sys.argv[2] if len(sys.argv) > 2 else SRC)
         elif sys.argv[1:2] == ["--flash-f32-only"]:
             flash_f32_only(sys.argv[2] if len(sys.argv) > 2 else SRC)
+        elif sys.argv[1:2] == ["--ssd-only"]:
+            ssd_only(sys.argv[2] if len(sys.argv) > 2 else SRC)
         else:
             main()
     finally:

@@ -19,8 +19,9 @@ it streams are the same, and its key is ``(8, K, N)``.
 tuned ``(block_q, block_kv)`` of a long self-attention, through
 :func:`flash_blocks`, in the same order: tuned record, then the
 kernel's heuristic blocks, then plain attention when no block the
-kernel launches divides the sequence.  :func:`launch_counts` reads both
-kernels' launch counters as one ``Counter``.
+kernel launches divides the sequence.  :func:`launch_counts` reads the
+kernels' launch counters (GEMM, flash and the SSD's chunked scan) as one
+``Counter``.
 
 The lookup is memoized per ``(op, dims, dtype, backend)`` and dropped by
 :func:`set_kernel_policy` and by any records change (a records change
@@ -71,6 +72,7 @@ from .flash_attention import default_blocks
 from .gemm import LAUNCHES as GEMM_LAUNCHES
 from .gemm import (KernelConfig, default_config, gemm_tiled, kernel_config_from_state,
                    launch_role, misaligned)
+from .ssd import LAUNCHES as SSD_LAUNCHES
 
 __all__ = [
     "gemm",
@@ -241,10 +243,12 @@ def flash_blocks(seq_q: int, seq_kv: int, head_dim: int, dtype: torch.dtype,
 
 
 def launch_counts() -> collections.Counter:
-    """Both kernels' launch counts, keyed ``("gemm", (M, K, N))`` and
-    ``("flash", (seq_q, seq_kv, head_dim))``."""
+    """The kernels' launch counts, keyed ``("gemm", (M, K, N))``,
+    ``("flash", (seq_q, seq_kv, head_dim))`` and ``("ssd", (n, q))`` (one
+    a chunked-scan call)."""
     counts = collections.Counter({("gemm", d): n for d, n in GEMM_LAUNCHES.items()})
     counts.update({("flash", d): n for d, n in FLASH_LAUNCHES.items()})
+    counts.update({("ssd", d): n for d, n in SSD_LAUNCHES.items()})
     return counts
 
 

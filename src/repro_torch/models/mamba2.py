@@ -2,12 +2,17 @@
 of the JAX package's ``models/mamba2.py``.
 
 Prefill uses the chunked SSD algorithm: a quadratic, attention-like form
-inside chunks plus a linear recurrence across chunk boundaries (the JAX
-package's ``lax.scan`` over chunks is a Python loop here).  The SSD math
-is plain tensor code in the reference too (no Pallas kernel), so torch
-ops carry it; the block's in/out projections go through ``cm.dense``,
-i.e. the hand-written GEMM kernel.  Decode keeps an O(1)-in-sequence
-recurrent state per layer (conv window and SSM state), updated in place
+inside chunks plus a linear recurrence across chunk boundaries.  The SSD
+math is plain tensor code in the reference (no Pallas kernel); its plain
+version here is ``kernels/ssd.py:ssd_chunked`` (re-exported).  The served
+prefill — CUDA tensors that autograd does not record, at a shape
+``kernels.ssd.takes`` accepts — runs the hand-written chunked-scan kernel
+(``kernels.ssd.ssd_scan``, from the raw dt to y with its D skip); every
+other prefill (training's autograd, the CPU) runs the same function in
+plain PyTorch (``kernels.ssd.ssd_scan_plain``), and one on the card counts
+in :data:`SSD_EINSUM_CALLS`.  The block's in/out projections go through
+``cm.dense``, i.e. the hand-written GEMM kernel.  Decode keeps an
+O(1)-in-sequence recurrent state per layer (conv window and SSM state), updated in place
 on the device, with the cache's ``len`` a device tensor, so a decode
 step makes no host sync and can be captured in a CUDA graph.
 
@@ -21,6 +26,7 @@ window is gathered at the row's last real positions.
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional
 
@@ -29,7 +35,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.api import constrain, logical
+from repro_torch.kernels import ssd
 from repro_torch.kernels.ops import closing_product
+from repro_torch.kernels.ssd import ssd_chunked
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 from repro_torch.utils.spans import span
@@ -42,6 +50,7 @@ __all__ = [
     "init_mamba_state",
     "ssd_chunked",
     "ssd_reference",
+    "SSD_EINSUM_CALLS",
     "gated_rmsnorm",
     "init_mamba_lm",
     "mamba_lm_forward",
@@ -73,85 +82,17 @@ def ssd_reference(x, dt, A, B, C) -> torch.Tensor:
     return torch.stack(ys, dim=1)  # (b,l,h,p)
 
 
-#: f32 bytes of the per-head decay blocks (b, c, q, q, h) one SSD pass may hold;
-#: a longer batch runs in blocks of rows (about four such tensors are live)
-_SSD_BLOCK_BYTES = 1 << 30
+#: prefill SSDs run as :func:`ssd_chunked`'s einsums on CUDA tensors, per
+#: ``(n, q)``: a run shows which route its prefills took
+SSD_EINSUM_CALLS: collections.Counter = collections.Counter()
 
 
-def ssd_chunked(x, dt, A, B, C, chunk: int, return_state: bool = False):
-    """Chunked SSD (Mamba2 Listing 1).  All SSD math runs in f32, as the
-    reference's does; inputs may be bf16.  x: (b,l,h,p); dt: (b,l,h);
-    A: (h,) (negative); B,C: (b,l,g,n), g dividing h: head k reads group
-    ``k // (h/g)`` (g = h: one a head, the JAX package's form).
-
-    B and C stay per group: every contraction with them takes the heads as
-    ``(g, h/g)``, and the decays scale x or a contraction's output, so no
-    head-expanded ``(…, h, n)`` operand is formed (the chunk states are
-    ``(h, p, n)`` by nature).  Each multi-operand einsum of the reference
-    is written as pairwise products, so no (b,c,q,q,h,p) intermediate is
-    ever formed.  A batch whose decay blocks exceed ``_SSD_BLOCK_BYTES``
-    runs in blocks of rows.  A length the chunk does not divide is padded
-    at its end with ``dt = 0``, which leaves the state unchanged."""
-    b, l, h, p = x.shape
-    q = min(chunk, l)
-    tail = -l % q
-    if tail:
-        x, dt, B, C = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, tail)) for t in (x, dt, B, C))
-    rows = max(1, _SSD_BLOCK_BYTES // ((l + tail) * q * h * 4))
-    parts = [_ssd_rows(x[r:r + rows], dt[r:r + rows], A, B[r:r + rows], C[r:r + rows], q)
-             for r in range(0, b, rows)]
-    y = parts[0][0] if len(parts) == 1 else torch.cat([y for y, _ in parts])
-    y = y[:, :l].to(x.dtype)
-    if return_state:
-        return y, parts[0][1] if len(parts) == 1 else torch.cat([st for _, st in parts])
-    return y
-
-
-def _ssd_rows(x, dt, A, B, C, q: int):
-    """:func:`ssd_chunked` over one block of rows, the length a multiple
-    of the chunk ``q``: ``(y f32 (b,l,h,p), final state (b,h,p,n))``."""
-    b, l, h, p = x.shape
-    g, n = B.shape[-2:]
-    r = h // g
-    c = l // q
-    xc = x.reshape(b, c, q, g, r, p).float()
-    dtc = dt.reshape(b, c, q, g, r).float()
-    Bc = B.reshape(b, c, q, g, n).float()
-    Cc = C.reshape(b, c, q, g, n).float()
-
-    dA_cs = torch.cumsum(dtc * A.reshape(g, r), dim=2)  # (b,c,q,g,r) within-chunk cumulative
-
-    # -- intra-chunk (diagonal blocks): L[i,j] = exp(dA_cs[i] - dA_cs[j]), i >= j
-    seg = dA_cs[:, :, :, None] - dA_cs[:, :, None, :]  # (b,c,qi,qj,g,r)
-    ii = torch.arange(q, device=x.device)
-    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None, None]
-    # masked before the exponential: above the diagonal seg grows with the
-    # chunk and its exp overflows (at 256, every published config's chunk),
-    # and the backward of the JAX package's where(causal, exp(seg), 0) then
-    # multiplies the masked zeros by inf: NaN gradients (ROADMAP.md)
-    L = torch.exp(torch.where(causal, seg, -math.inf))
-    del seg
-    scores = torch.einsum("bcign,bcjgn->bcijg", Cc, Bc)[..., None] * L  # C_i·B_j per group
-    del L
-    y_diag = torch.einsum("bcijgr,bcjgrp->bcigrp", scores * dtc[:, :, None], xc)
-    del scores
-
-    # -- chunk summary states: the decays and dt scale x ------------------------------
-    decay_to_end = torch.exp(dA_cs[:, :, -1:] - dA_cs)  # (b,c,q,g,r)
-    S = torch.einsum("bcqgn,bcqgrp->bcgrpn", Bc, xc * (dtc * decay_to_end)[..., None])
-
-    # -- inter-chunk recurrence: carry states across chunks -----------------------
-    chunk_decay = torch.exp(dA_cs[:, :, -1])  # (b,c,g,r)
-    state = torch.zeros((b, g, r, p, n), dtype=torch.float32, device=x.device)
-    entering = []
-    for ci in range(c):  # emit the state ENTERING each chunk
-        entering.append(state)
-        state = state * chunk_decay[:, ci, :, :, None, None] + S[:, ci]
-    entering = torch.stack(entering, dim=1)  # (b,c,g,r,p,n)
-
-    # -- off-diagonal contribution of the carried state, its decay on the output --
-    y_off = torch.einsum("bcign,bcgrpn->bcigrp", Cc, entering) * torch.exp(dA_cs)[..., None]
-    return (y_diag + y_off).reshape(b, l, h, p), state.reshape(b, h, p, n)
+def _ssd_on_kernel(cfg: ArchConfig, *operands: torch.Tensor) -> bool:
+    """Whether a prefill SSD runs the chunked-scan kernel: CUDA operands
+    that autograd does not record, at a shape it has an instantiation for."""
+    return (operands[0].device.type == "cuda"
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in operands))
+            and ssd.takes(cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk, operands[0].dtype))
 
 
 # =============================================================================
@@ -224,13 +165,19 @@ def _split_proj(cfg, zxbcdt):
     return zxbcdt[..., :di], zxbcdt[..., di:di + conv_ch], zxbcdt[..., di + conv_ch:]
 
 
-def _ssm_inputs(cfg, xBC, dt_raw, p):
-    """x by head, B and C by group (each group's heads read them), dt and A."""
+def _ssm_views(cfg, xBC):
+    """x by head, B and C by group (each group's heads read them): views."""
     di, g, n, h, conv_ch = _shapes(cfg)
     b, l = xBC.shape[:2]
     xs = xBC[..., :di].reshape(b, l, h, cfg.ssm_head_dim)
     Bm = xBC[..., di:di + g * n].reshape(b, l, g, n)
     Cm = xBC[..., di + g * n:].reshape(b, l, g, n)
+    return xs, Bm, Cm
+
+
+def _ssm_inputs(cfg, xBC, dt_raw, p):
+    """x by head, B and C by group (each group's heads read them), dt and A."""
+    xs, Bm, Cm = _ssm_views(cfg, xBC)
     dt_f = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     return xs, Bm, Cm, dt_f, A
@@ -272,13 +219,16 @@ def mamba_block_prefill(cfg: ArchConfig, p: dict, x: torch.Tensor,
         with span("mamba.conv"):
             xBC = F.silu(_causal_conv(xBC_raw, p["conv_w"], p["conv_b"]))
         with span("mamba.ssd"):
-            xs, Bm, Cm, dt_f, A = _ssm_inputs(cfg, xBC, dt_raw, p)
-            if valid_len is not None:
-                real = torch.arange(x.shape[1], device=x.device)[None, :] < valid_len[:, None]
-                dt_f = dt_f * real[..., None]
+            xs, Bm, Cm = _ssm_views(cfg, xBC)
             xs = constrain(xs, logical("dp", None, "tp", None))
-            y, final_state = ssd_chunked(xs, dt_f, A, Bm, Cm, cfg.ssm_chunk, return_state=True)
-            y = y + p["D"][None, None, :, None].to(y.dtype) * xs
+            args = (xs, dt_raw, p["dt_bias"], -torch.exp(p["A_log"]), Bm, Cm, p["D"],
+                    cfg.ssm_chunk, valid_len)
+            if _ssd_on_kernel(cfg, xBC, dt_raw, p["dt_bias"], p["A_log"], p["D"]):
+                y, final_state = ssd.ssd_scan(*args)
+            else:
+                if xs.device.type == "cuda":
+                    SSD_EINSUM_CALLS[(cfg.ssm_state, cfg.ssm_chunk)] += 1
+                y, final_state = ssd.ssd_scan_plain(*args)
         conv_state = _conv_window(xBC_raw, cfg.ssm_conv_width, valid_len).to(
             getattr(torch, cfg.compute_dtype))
         return _gated_out(cfg, p, y, z, x), {"conv": conv_state, "ssm": final_state}

@@ -25,7 +25,7 @@ from repro_torch.core.analysis import (
     max_threads_for_reg_tile,
 )
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import gemm
+from repro_torch.kernels import gemm, ssd
 
 
 def _card():
@@ -225,6 +225,113 @@ def test_flash_kernel_matches_plain_on_card(dtype, tol, hd):
         torch.testing.assert_close(out.float(),
                                    fa.flash_attention_plain(q, k, v, bq, bkv, causal).float(),
                                    rtol=tol[0], atol=tol[1])
+
+
+#: the SSD's chunked scan: (b, l, h, g, n, q, each row's length) at
+#: nemotron-h-47b's widths (a length the chunk of 128 does not divide, and
+#: the cell's bucket), mamba2-130m's and zamba2-1.2b's (chunk 256), the
+#: second row ragged in every case (dt = 0 past its length)
+SSD_CASES = {
+    "nemotron-h-1000": (2, 1000, 256, 8, 256, 128, (1000, 613)),
+    "nemotron-h-4096": (2, 4096, 256, 8, 256, 128, (4096, 2049)),
+    "mamba2-130m": (2, 1000, 24, 1, 128, 256, (1000, 517)),
+    "zamba2-1.2b": (2, 1000, 64, 1, 64, 256, (1000, 300)),
+}
+
+
+def _ssd_operands(gen, b, l, h, g, n):
+    """bf16 x, raw dt, B, C; f32 dt_bias, A and D, drawn as the nemotron-h
+    cell draws them (softplus(dt_bias) in [1e-3, 1e-1], A in [-16, -1])."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x, dt_raw = rand(b, l, h, 64).bfloat16(), rand(b, l, h).bfloat16()
+    B, C = rand(b, l, g, n).bfloat16(), rand(b, l, g, n).bfloat16()
+    dt_bias = rand(h) * 0.465 - 4.579
+    A = -torch.exp(1.3863 + 0.277 * rand(h))
+    return x, dt_raw, dt_bias, A, B, C, 1 + 0.1 * rand(h)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_kernel_matches_plain_on_card(case):
+    """The chunked scan against its plain version (true f32 einsums, TF32
+    off).  The state: within 1e-4 of its largest entry (the kernel's TF32
+    split keeps about 22 bits of each f32-formed operand: it reads about
+    2e-6).  y: both round an f32 sum to bf16 once, so they differ by at
+    most one bf16 step (rtol 2^-7), and by the f32 sums' gap near 0 (atol
+    1e-4 of y's largest entry).  And they differ in under 1% of y's
+    elements: with the split the two f32 sums agree to about 1e-6 of y,
+    so the bf16 rounding seldom falls apart (0.04-0.07% of elements on an
+    H100 80GB HBM3), where an operand entering as TF32 alone splits it far
+    more often (8.2% with the scores as TF32 alone: chip_smoke's planted
+    fault ``scores_tf32_only``)."""
+    gen = _card()
+    b, l, h, g, n, q, lens = SSD_CASES[case]
+    args = _ssd_operands(gen, b, l, h, g, n)
+    valid_len = torch.tensor(lens, device="cuda")
+    before = ssd.LAUNCHES[(n, q)]
+    y, state = ssd.ssd_scan(*args, q, valid_len)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES[(n, q)] == before + 1
+    assert y.shape == (b, l, h, 64) and state.shape == (b, h, 64, n)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want_y, want_state = ssd.ssd_scan_plain(*args, q, valid_len)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(state, want_state, rtol=0,
+                               atol=1e-4 * want_state.abs().max().item())
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=2 ** -7,
+                               atol=1e-4 * want_y.float().abs().max().item())
+    differ = (y != want_y).float().mean().item()
+    assert differ < 0.01, f"{differ:.3%} of y's elements differ from the plain version's"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mamba2-130m", "zamba2-1.2b", "nemotron-h-widths"])
+def test_mamba_prefill_on_the_kernel_equals_the_einsum_route_on_card(name, monkeypatch):
+    """A whole Mamba-2 block's prefill under ``torch.inference_mode()``
+    (the engine's) runs the chunked scan, and gives the einsum route's
+    output and state.  nemotron-h-widths: mamba2-130m's block at
+    nemotron-h-47b's SSD widths (8 groups, state 256, chunk 128).  The
+    state: 1e-4 of its largest entry (as above).  The block's output: both
+    routes compute y + D x in f32 and round it once, so the output differs
+    only where a rounding of y fell apart (under 0.07% of y, above) and
+    the gated norm and the bf16 out projection carry that on: under 1% of
+    its elements differ, by 2e-5 on the mean (0.02-0.05% and 1.3e-6 at
+    most on an H100 80GB HBM3), and none by more than bf16's limit (rtol
+    1.6e-2, atol 2e-2: a flipped y can move an output that cancels to near
+    zero by one step of its terms)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import mamba2 as mb
+
+    gen = _card()
+    cfg = dataclasses.replace(get_arch("mamba2-130m" if name == "nemotron-h-widths" else name),
+                              n_layers=1)
+    if name == "nemotron-h-widths":
+        cfg = dataclasses.replace(cfg, ssm_n_groups=8, ssm_state=256, ssm_chunk=128)
+    params = mb.init_mamba_block(cfg, gen, "cuda", ())
+    x = (torch.randn(2, 1000, cfg.d_model, generator=gen, device="cuda") * 0.5).bfloat16()
+    valid_len = torch.tensor([1000, 611], device="cuda")
+    key = (cfg.ssm_state, cfg.ssm_chunk)
+    with torch.inference_mode():
+        before = (ssd.LAUNCHES[key], mb.SSD_EINSUM_CALLS[key])
+        out, st = mb.mamba_block_prefill(cfg, params, x, valid_len)
+        assert (ssd.LAUNCHES[key], mb.SSD_EINSUM_CALLS[key]) == (before[0] + 1, before[1])
+        monkeypatch.setattr(ssd, "takes", lambda *a: False)
+        want, want_st = mb.mamba_block_prefill(cfg, params, x, valid_len)
+        assert (ssd.LAUNCHES[key], mb.SSD_EINSUM_CALLS[key]) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(st["ssm"], want_st["ssm"], rtol=0,
+                               atol=1e-4 * want_st["ssm"].abs().max().item())
+    torch.testing.assert_close(st["conv"], want_st["conv"], rtol=0, atol=0)
+    torch.testing.assert_close(out.float(), want.float(), rtol=1.6e-2, atol=2e-2)
+    gap = (out.float() - want.float()).abs()
+    assert (gap > 0).float().mean().item() < 0.01, f"{(gap > 0).float().mean().item():.3%} differ"
+    assert gap.mean().item() < 2e-5, f"mean abs error {gap.mean().item():.3g}"
 
 
 @pytest.mark.gpu

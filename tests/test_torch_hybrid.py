@@ -22,6 +22,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 import torch_reference_nemotron_h as ref
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ssd
 from repro_torch.models import mamba2 as mb
 from repro_torch.models.api import Model
 from repro_torch.models.transformer import layer
@@ -111,7 +112,7 @@ def test_ssd_row_blocks_and_a_ragged_tail_change_nothing(monkeypatch):
     recurrence's outputs and final state."""
     x, dt, A, B, C = _ssd_args(3, 40, 4, 6, 2, 5)
     y, state = mb.ssd_chunked(x, dt, A, B, C, chunk=16, return_state=True)
-    monkeypatch.setattr(mb, "_SSD_BLOCK_BYTES", 1)
+    monkeypatch.setattr(ssd, "_SSD_BLOCK_BYTES", 1)
     y_rows, state_rows = mb.ssd_chunked(x, dt, A, B, C, chunk=16, return_state=True)
     _close(y_rows, y)
     _close(state_rows, state)
