@@ -202,7 +202,7 @@ Phases (each prints its wall time):
      the card and traced on meta through the same entry points
      (``make_train_step``, ``Model.prefill``, ``Model.decode_step``):
      FLOPs and bytes, by kind, equal; the GEMM kernel's counted FLOPs
-     equal 2·M·K·N over ``gemm.LAUNCHES`` and flash's its launches times
+     equal 2·M·K·N over the ledger's GEMM launches and flash's its launches times
      ``flash_work``; the train step's GEMM in all four roles, flash in
      prefill only; the meta trace's live peak within ``PEAK_RTOL`` of
      ``max_memory_allocated`` over the step; a counter planted to drop
@@ -280,9 +280,8 @@ kernel row gives ``launches_tune``, ``launches_serve`` (phase 9) and
 ``launches_families`` (phase 13, at the row's shape; the flash row at
 every shape) and their sum as ``launches``.  Each ``flash_f32[...]`` row
 counts the float32 flash kernel's launches on the same paths, of any
-shape, read from ``flash_attention.DTYPE_LAUNCHES`` (keyed by dtype;
-``LAUNCHES`` is keyed by shape alone, and the other flash rows count
-every dtype).  GEMM rows give each
+shape, read from the launch ledger by dtype (``kernels/ledger.py``; the
+other flash rows read it by shape, and count every dtype).  GEMM rows give each
 time twice: ``ms``/``library_ms`` timed as earlier slices timed them
 (the event span holds the host's enqueue of the call), and
 ``ms_spin``/``library_ms_spin`` with the card kept busy while the host
@@ -847,9 +846,10 @@ def main() -> None:
     from repro_torch.core.session import Workload
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ledger
     from repro_torch.kernels import ops
     from repro_torch.kernels.gemm import (
-        LAUNCHES, KernelConfig, build_kernel, default_config, gemm_plain,
+        KernelConfig, build_kernel, default_config, gemm_plain,
         gemm_tiled, kernel_config_from_state, kernel_f32_ring, kernel_max_threads,
         kernel_max_threads_bf16, simt_ring_configs, state_from_config, wgmma_configs,
     )
@@ -1021,7 +1021,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         records_path = os.path.join(tmp, "yi-6b.json")
         # -- GEMM main path: counts zeroed here, read after phase 5 ------------
-        LAUNCHES.clear()
+        ledger.reset_launches("gemm")
         ops.reset_dispatch_stats()
 
         # -- 3. tune ---------------------------------------------------------------
@@ -1094,7 +1094,7 @@ def main() -> None:
         print(f"[serve] dispatch_stats={stats}")
         if stats["records"] < len(tuned):
             raise SystemExit(f"only {stats['records']} dispatches came from records")
-        launches = collections.Counter(LAUNCHES)
+        launches = ledger.launches("gemm")
         for shape, count in cli_launches.items():
             dims = tuple(int(d) for d in shape.split("x"))
             launches[dims] = launches.get(dims, 0) + count
@@ -1210,14 +1210,14 @@ def main() -> None:
                     n_checked += 1
         q = rand((1, 100, 4, 64), torch.bfloat16)
         k = rand((1, 100, 2, 64), torch.bfloat16)
-        before = sum(fa.LAUNCHES.values())
+        before = ledger.launches("flash").total()
         try:
             fa.flash_attention(q, k, k, 64, 64)
         except ValueError as e:
             print(f"[check] indivisible blocks refused: {e}")
         else:
             raise SystemExit("the flash wrapper took blocks that do not divide the sequence")
-        if sum(fa.LAUNCHES.values()) != before:
+        if ledger.launches("flash").total() != before:
             raise SystemExit("a refused flash call launched the kernel")
         torch.cuda.synchronize()
         print(f"[check] {n_checked} flash kernel/plain cases agree; max abs err "
@@ -1233,8 +1233,7 @@ def main() -> None:
         phase("7 flash kernel vs plain", t0)
 
         # -- flash tuning path: counts zeroed here, read after phase 8 ---------------
-        fa.LAUNCHES.clear()
-        fa.DTYPE_LAUNCHES.clear()
+        ledger.reset_launches("flash")
 
         # -- 8. tune the prefill attention, then the CLI on the same records ----------
         t0 = time.perf_counter()
@@ -1258,9 +1257,9 @@ def main() -> None:
                        "--tuner", "g-bfs", "--warm-start", "--fraction", "1.0",
                        "--max-trials", str(FLASH_CLI_TRIALS), "--records", records_path])
         flash_cli = json.loads(re.search(r"flash_launches=(.*)", out).group(1))
-        flash_tune_launches = sum(fa.LAUNCHES.values()) + sum(flash_cli.values())
+        flash_tune_launches = ledger.launches("flash").total() + sum(flash_cli.values())
         cli_dtype = json.loads(re.search(r"flash_dtype_launches=(.*)", out).group(1))
-        f32_tune = fa.DTYPE_LAUNCHES["float32"] + cli_dtype.get("float32", 0)
+        f32_tune = ledger.launches("flash", "dtype")["float32"] + cli_dtype.get("float32", 0)
         for row in f32_rows:
             row["launches_tune"] = f32_tune
         print(f"[launches] flash tuning path: {flash_tune_launches} kernel launches "
@@ -1285,9 +1284,7 @@ def main() -> None:
         # the decode loop once and then captures it), read just after the
         # first generate
         ops.reset_dispatch_stats()
-        LAUNCHES.clear()
-        fa.LAUNCHES.clear()
-        fa.DTYPE_LAUNCHES.clear()
+        ledger.reset_launches("gemm", "flash")
         engine = ServeEngine(cfg, params, max_batch=SERVE_REQUESTS,
                              max_len=SERVE_BUCKET + SERVE_TOKENS, prompt_buckets=[SERVE_BUCKET],
                              gen_buckets=[SERVE_TOKENS], device="cuda")
@@ -1297,7 +1294,7 @@ def main() -> None:
         launched, parts = serve_launches(ops.launch_counts(), engine.launch_report())
         serve_flash = sum(n for (kind, _), n in launched.items() if kind == "flash")
         for row in f32_rows:
-            row["launches_serve"] = fa.DTYPE_LAUNCHES["float32"]
+            row["launches_serve"] = ledger.launches("flash", "dtype")["float32"]
             row["launches"] = row["launches_tune"] + row["launches_serve"]
         serve_gemm = {d: n for (kind, d), n in launched.items() if kind == "gemm"}
         served_gemms = sorted(serve_gemm)
@@ -1321,7 +1318,8 @@ def main() -> None:
         print(f"[serve] GEMM dispatch split: records={stats['gemm']['records']} "
               f"heuristic={stats['gemm']['heuristic']} matmul={stats['gemm']['matmul']}; "
               f"GEMM kernel launches={sum(serve_gemm.values())}; "
-              f"flash kernel launches={serve_flash} (float32 {fa.DTYPE_LAUNCHES['float32']})")
+              f"flash kernel launches={serve_flash} "
+              f"(float32 {ledger.launches('flash', 'dtype')['float32']})")
         print(f"[serve] sample tokens: {tokens[0][:8].tolist()}")
         if stats["flash"]["records"] != cfg.n_layers or stats["flash"]["heuristic"] != 0:
             raise SystemExit(f"flash dispatch {stats['flash']}: expected {cfg.n_layers} "
@@ -1473,11 +1471,12 @@ def paper_tuners(kernels: list, gemm_rows: dict, rand, flush, peak_bytes: float,
     from repro_torch.core.session import Workload
     from repro_torch.core.tuners import NA2CTuner
     from repro_torch.kernels import ops
-    from repro_torch.kernels.gemm import LAUNCHES, gemm_plain, kernel_config_from_state
+    from repro_torch.kernels import ledger
+    from repro_torch.kernels.gemm import gemm_plain, kernel_config_from_state
 
     # -- (a) N-A2C on the served path: counts zeroed here, read after the serve
     rec = os.path.join(workdir, "na2c.json")
-    LAUNCHES.clear()
+    ledger.reset_launches("gemm")
     ops.reset_dispatch_stats()
     out = run_cli(["repro_torch.launch.tune", "--arch", "yi-6b", "--shape", "train_4k",
                    "--tuner", "n-a2c", "--cost", "hopper", "--device", "cuda",
@@ -1508,7 +1507,7 @@ def paper_tuners(kernels: list, gemm_rows: dict, rand, flush, peak_bytes: float,
     cfg, src = ops.kernel_config(m, k, n, torch.bfloat16)
     got = ops.gemm(a, b)
     torch.cuda.synchronize()
-    launches = collections.Counter(LAUNCHES)
+    launches = ledger.launches("gemm")
     if src != "records" or ops.dispatch_stats()["gemm"]["records"] < 1:
         raise SystemExit(f"the decode product was not served from N-A2C's record ({src})")
     err = check_close(f"N-A2C-tuned decode {DECODE_TUNED} {cfg}", got, gemm_plain(a, b, cfg),
@@ -1580,7 +1579,8 @@ def paper_comparison(kernels: list, rand, flush, peak_bytes: float) -> None:
     from repro_torch.core.session import Workload
     from repro_torch.core.tuners import TUNERS, rnn_controller
     from repro_torch.core.analysis import HopperSpec, _gemm_state_launch_error
-    from repro_torch.kernels.gemm import LAUNCHES, gemm_plain, gemm_tiled, kernel_config_from_state
+    from repro_torch.kernels import ledger
+    from repro_torch.kernels.gemm import gemm_plain, gemm_tiled, kernel_config_from_state
 
     # how much of the space each dtype's kernels can launch at all
     paper_space, spec = GemmConfigSpace(*PAPER_DIMS), HopperSpec()
@@ -1590,7 +1590,7 @@ def paper_comparison(kernels: list, rand, flush, peak_bytes: float) -> None:
             n_launch[in_bytes] += _gemm_state_launch_error(paper_space, st, in_bytes, spec) is None
     print(f"[paper] launchable states of GemmConfigSpace{PAPER_DIMS} (default HopperSpec): "
           f"bfloat16 {n_launch[2]}, float32 {n_launch[4]} of {paper_space.size()}", flush=True)
-    LAUNCHES.clear()
+    ledger.reset_launches("gemm")
     draws = draw_counter(rnn_controller)
     results = {}
     for name in TUNERS:
@@ -1599,7 +1599,7 @@ def paper_comparison(kernels: list, rand, flush, peak_bytes: float) -> None:
         results[name] = session.tune_workload(wl, name, Budget(max_fraction=0.001), seed=0,
                                               warm_start=True, analyze="prune")
         torch.cuda.empty_cache()
-    paper_launches = sum(LAUNCHES.values())  # read before the checks' launches
+    paper_launches = ledger.launches("gemm").total()  # read before the checks' launches
     m, k, n = PAPER_DIMS
     a, b = rand((m, k), torch.float32), rand((k, n), torch.float32)
     best_ms, worst_err = {}, 0.0
@@ -1687,7 +1687,8 @@ def tuning_at_scale(kernels: list, gemm_rows: dict, rand, workdir: str,
     from repro_torch.core.session import Workload
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.kernels.gemm import LAUNCHES, gemm_plain, gemm_tiled, kernel_config_from_state
+    from repro_torch.kernels import ledger
+    from repro_torch.kernels.gemm import gemm_plain, gemm_tiled, kernel_config_from_state
     from repro_torch.launch.tune import flash_workloads_for_arch, workloads_for_arch
 
     workloads = (workloads_for_arch("yi-6b", "train_4k")
@@ -1698,8 +1699,7 @@ def tuning_at_scale(kernels: list, gemm_rows: dict, rand, workdir: str,
                 if {"crash", "hang", "corrupt"} <= {p.fault_for(k) for k in seeds})
     gate = TimingGate(timing_lock_path("cuda"))
     gate0 = gate.stats()
-    LAUNCHES.clear()
-    fa.LAUNCHES.clear()
+    ledger.reset_launches("gemm", "flash")
     ops.reset_dispatch_stats()
 
     # -- (a) process lanes sharing the card, planted faults, retries ----------------
@@ -1804,7 +1804,8 @@ def tuning_at_scale(kernels: list, gemm_rows: dict, rand, workdir: str,
     stats = ops.dispatch_stats()["gemm"]
     if stats.get("records", 0) < len(workloads) - 1:
         raise SystemExit(f"[scale] dispatch {stats}: the tuned products were not served")
-    launches.update(LAUNCHES)  # dispatch's launches; the checks below are not counted
+    # dispatch's launches; the checks below are not counted
+    launches.update(ledger.launches("gemm"))
     set_global_records(TuningRecords())
     for wl in workloads:  # every best state launches within the bf16 limit
         st, best_cost = bests[wl.label], report.results[wl.label].best_cost
@@ -2037,8 +2038,8 @@ def serve_families(kernels: list) -> None:
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.kernels import ssd
-    from repro_torch.kernels.gemm import LAUNCHES, gemm_tiled
+    from repro_torch.kernels import ledger
+    from repro_torch.kernels.gemm import gemm_tiled
     from repro_torch.launch.serve import ServeEngine
     from repro_torch.models.api import Model
 
@@ -2071,17 +2072,14 @@ def serve_families(kernels: list) -> None:
         t_init = time.perf_counter() - t0
         # -- this family's serve path: counts zeroed here, read after its first generate
         ops.reset_dispatch_stats()
-        LAUNCHES.clear()
-        fa.LAUNCHES.clear()
-        fa.DTYPE_LAUNCHES.clear()
-        ssd.LAUNCHES.clear()
+        ledger.reset_launches()
         engine = ServeEngine(cfg, params, max_batch=reqs, max_len=max_len,
                              prompt_buckets=[bucket] if paddable else None,
                              gen_buckets=[SERVE_TOKENS], device="cuda")
         tokens = engine.generate(prompts, SERVE_TOKENS, prompt_lens=lens, frontend_embeds=fe)
         timing, rep, stats = engine.last_timing, engine.cache_report(), ops.dispatch_stats()
         launched, parts = serve_launches(ops.launch_counts(), engine.launch_report())
-        flash_f32 = fa.DTYPE_LAUNCHES["float32"]
+        flash_f32 = ledger.launches("flash", "dtype")["float32"]
         peak = torch.cuda.max_memory_allocated()
         check_tokens(name, tokens, cfg, reqs)
         want = engine.eager_reference(prompts, SERVE_TOKENS, prompt_lens=lens,
@@ -2155,8 +2153,8 @@ def train_yi6b(kernels: list, rand, flush, peak_ops: float, peak_bytes: float) -
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import DataPipeline, SyntheticLM
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ledger
     from repro_torch.kernels import ops
     from repro_torch.models import common as cm
     from repro_torch.optim import clip_by_global_norm
@@ -2173,8 +2171,7 @@ def train_yi6b(kernels: list, rand, flush, peak_ops: float, peak_bytes: float) -
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_dispatch_stats()
-    gemm_mod.reset_launches()
-    fa.LAUNCHES.clear()
+    ledger.reset_launches("gemm", "flash")
     pipe = DataPipeline(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, seed=0), TRAIN_BATCH)
     trainer = Trainer(cfg, pipe, None, lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS + 1,
                       device="cuda")
@@ -2182,9 +2179,9 @@ def train_yi6b(kernels: list, rand, flush, peak_ops: float, peak_bytes: float) -
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     log = trainer.train(TRAIN_STEPS)
-    roles = collections.Counter(gemm_mod.ROLE_LAUNCHES)
+    roles = ledger.launches("gemm", "role", "dims")
     stats = ops.dispatch_stats()
-    flash_launched = sum(fa.LAUNCHES.values())
+    flash_launched = ledger.launches("flash").total()
     peak = torch.cuda.max_memory_allocated()
     for rec in log:
         print(f"[train] step {rec['step']}: loss={rec['loss']:.6f} grad_norm={rec['grad_norm']:.6f} "
@@ -2354,12 +2351,12 @@ def trace_train_step(trainer, step: int, step_s: float) -> tuple:
     step's GEMM launches by role and shape, its busy and its GEMM ms."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ledger
 
-    before = collections.Counter(gemm_mod.ROLE_LAUNCHES)
+    before = ledger.launches("gemm", "role", "dims")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.train(step)
-    step_roles = collections.Counter(gemm_mod.ROLE_LAUNCHES) - before
+    step_roles = ledger.launches("gemm", "role", "dims") - before
     events = prof.events()
     span = [ev.time_range for ev in events
             if ev.name == "train.step" and ev.device_type == torch.autograd.DeviceType.CPU][-1]
@@ -2419,8 +2416,7 @@ def remat_dots(kernels: list, phase14: dict) -> None:
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import DataPipeline, SyntheticLM
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ledger
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
     from repro_torch.models.api import Model
@@ -2447,16 +2443,15 @@ def remat_dots(kernels: list, phase14: dict) -> None:
     tokens = TRAIN_BATCH * TRAIN_SEQ
     torch.cuda.reset_peak_memory_stats()
     ops.reset_dispatch_stats()
-    gemm_mod.reset_launches()
-    fa.LAUNCHES.clear()
+    ledger.reset_launches("gemm", "flash")
     pipe = DataPipeline(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, seed=0), TRAIN_BATCH)
     trainer = Trainer(cfg, pipe, None, lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS + 1,
                       device="cuda")
     trainer.initialize(resume=False)
     with ops.watch_kept() as kept_blocks:
         log = trainer.train(TRAIN_STEPS)
-    roles = collections.Counter(gemm_mod.ROLE_LAUNCHES)
-    flash_launched = sum(fa.LAUNCHES.values())
+    roles = ledger.launches("gemm", "role", "dims")
+    flash_launched = ledger.launches("flash").total()
     peak = torch.cuda.max_memory_allocated()
     for rec, full_loss in zip(log, phase14["losses"]):
         print(f"[dots] step {rec['step']}: loss={rec['loss']:.6f} (remat full: {full_loss:.6f}) "
@@ -2533,7 +2528,7 @@ def remat_dots(kernels: list, phase14: dict) -> None:
             torch.ops.repro_torch.gemm.default, torch.ops.aten.mm.default,
             torch.ops.aten.addmm.default) else CheckpointPolicy.PREFER_RECOMPUTE
 
-    gemm_mod.reset_launches()
+    ledger.reset_launches("gemm")
     kept = tf._kept_product_frames
     tf._kept_product_frames = functools.partial(create_selective_checkpoint_contexts, keep_2d)
     try:
@@ -2545,7 +2540,7 @@ def remat_dots(kernels: list, phase14: dict) -> None:
     finally:
         tf._kept_product_frames = kept
     sac_s = sum(r["step_time_s"] for r in sac_log[1:]) / (len(sac_log) - 1)
-    sac_again = block_recompute(gemm_mod.ROLE_LAUNCHES, cfg.padded_vocab)
+    sac_again = block_recompute(ledger.launches("gemm", "role", "dims"), cfg.padded_vocab)
     print(f"[dots-sac] the same {TRAIN_STEPS} steps under selective checkpointing "
           f"(create_selective_checkpoint_contexts, MUST_SAVE the operator, mm, addmm): "
           f"step_s={sac_s:.4f} against dots' {step_s:.4f} and full's {phase14['step_s']:.4f}; "
@@ -2559,10 +2554,11 @@ def remat_dots(kernels: list, phase14: dict) -> None:
 
     # -- (b) phase 14(d)'s gradients under dots, against the CPU's f32
     t0 = time.perf_counter()
-    gemm_mod.reset_launches()
+    ledger.reset_launches("gemm")
     grad_rel, fault_rel = gradients_card_vs_cpu(dataclasses.replace(get_arch("yi-6b"),
                                                                     remat="dots"))
-    again = block_recompute(gemm_mod.ROLE_LAUNCHES, get_arch("yi-6b").padded_vocab)
+    again = block_recompute(ledger.launches("gemm", "role", "dims"),
+                            get_arch("yi-6b").padded_vocab)
     print(f"[dots-grad] yi-6b ({GRAD_LAYERS} layers, published widths, remat dots) on 1 x "
           f"{GRAD_SEQ} tokens: worst per-leaf relative L2 error, card bf16 vs CPU f32: "
           f"{worst(grad_rel):.4g} (limit {GRAD_REL_LIMIT}); with dB computed from a "
@@ -2584,7 +2580,7 @@ def remat_dots(kernels: list, phase14: dict) -> None:
                  "labels": torch.from_numpy(np.stack(labs)).long().cuda()}
         got = {}
         for remat in ("full", "dots"):
-            gemm_mod.reset_launches()
+            ledger.reset_launches("gemm")
             torch.cuda.reset_peak_memory_stats()
             model = Model(dataclasses.replace(arch, remat=remat), device="cuda")
             torch.cuda.synchronize()
@@ -2592,8 +2588,8 @@ def remat_dots(kernels: list, phase14: dict) -> None:
             grads, metrics = value_and_grad(model, params, batch)
             torch.cuda.synchronize()
             step = time.perf_counter() - t1
-            parts = by_role(gemm_mod.ROLE_LAUNCHES)
-            parts["recompute_blocks"] = block_recompute(gemm_mod.ROLE_LAUNCHES,
+            parts = by_role(ledger.launches("gemm", "role", "dims"))
+            parts["recompute_blocks"] = block_recompute(ledger.launches("gemm", "role", "dims"),
                                                         arch.padded_vocab)
             got[remat] = (dict(tree_paths(grads)), float(metrics["loss"]), parts)
             print(f"[dots-ssm] {name} ({arch.n_layers} layers, published widths, bf16) "
@@ -2665,7 +2661,7 @@ def moe_router_kept() -> None:
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ledger
     from repro_torch.kernels import ops
     from repro_torch.models.api import Model
     from repro_torch.train.step import value_and_grad
@@ -2681,7 +2677,7 @@ def moe_router_kept() -> None:
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             if func is torch.ops.aten.mm.default and tuple(out.shape) == self.shape:
-                self.by_role[getattr(gemm_mod._ROLE, "name", "forward")] += 1
+                self.by_role[ledger.current_role()] += 1
             return out
 
     t0 = time.perf_counter()
@@ -2702,7 +2698,7 @@ def moe_router_kept() -> None:
     for remat in ("full", "dots"):
         model = Model(dataclasses.replace(arch, remat=remat), device="cuda")
         # timed alone, then counted again in a dispatch mode that sees each mm
-        gemm_mod.reset_launches()
+        ledger.reset_launches("gemm")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -2713,7 +2709,8 @@ def moe_router_kept() -> None:
         torch.cuda.synchronize()
         step = time.perf_counter() - t1
         peak = torch.cuda.max_memory_allocated()
-        again = sum(n for (role, (_, _, n_out)), n in gemm_mod.ROLE_LAUNCHES.items()
+        again = sum(n for (role, (_, _, n_out)), n
+                    in ledger.launches("gemm", "role", "dims").items()
                     if role == "recompute" and n_out != arch.padded_vocab)
         got[remat] = (dict(tree_paths(grads)), float(metrics["loss"]))
         del grads
@@ -2764,11 +2761,12 @@ def head_to_head(kernels: list, rand, flush, peak_bytes: float) -> None:
     from repro_torch.core import (AnalyticalHopperCost, Budget, GemmConfigSpace, GemmWorkload,
                                   TuningRecords, TuningSession)
     from repro_torch.core.tuners import rnn_controller
-    from repro_torch.kernels.gemm import LAUNCHES, gemm_plain, gemm_tiled, kernel_config_from_state
+    from repro_torch.kernels import ledger
+    from repro_torch.kernels.gemm import gemm_plain, gemm_tiled, kernel_config_from_state
 
     m, k, n = COMPARE_DIMS
     # the search: counts zeroed here, read after it
-    LAUNCHES.clear()
+    ledger.reset_launches("gemm")
     draws = draw_counter(rnn_controller)
     t0 = time.perf_counter()
     session = TuningSession(TuningRecords(), verbose=False, device="cuda")
@@ -2776,7 +2774,7 @@ def head_to_head(kernels: list, rand, flush, peak_bytes: float) -> None:
     budget = Budget(max_fraction=COMPARE_FRACTION)
     results = session.compare(wl, COMPARE_TUNERS, budget, n_seeds=COMPARE_SEEDS,
                               warm_start=True, analyze="prune")
-    launched = sum(LAUNCHES.values())
+    launched = ledger.launches("gemm").total()
     search_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     space = GemmConfigSpace(m, k, n)
@@ -3137,7 +3135,7 @@ def dry_run_on_card(kernels: list, dry: BackgroundDryRun, rand, flush, hw, smi: 
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get_arch, get_shape
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ledger
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun
     from repro_torch.utils.op_costs import OpCounter
@@ -3165,7 +3163,7 @@ def dry_run_on_card(kernels: list, dry: BackgroundDryRun, rand, flush, hw, smi: 
         """A planted counting fault: the dB products go uncounted."""
 
         def add_kernel(self, kind, dims, flops, nbytes, out):
-            if kind == "gemm" and getattr(gemm_mod._ROLE, "name", "forward") == "dB":
+            if kind == "gemm" and ledger.current_role() == "dB":
                 return
             super().add_kernel(kind, dims, flops, nbytes, out)
 
@@ -3182,19 +3180,17 @@ def dry_run_on_card(kernels: list, dry: BackgroundDryRun, rand, flush, hw, smi: 
             cell["run"]()  # warm-up: the allocator's and cuBLAS's first use
             torch.cuda.synchronize()
             gc.collect()  # nothing of the warm-up left for the counted step to free
-            gemm_mod.reset_launches()
-            fa.LAUNCHES.clear()
-            fa.DTYPE_LAUNCHES.clear()
+            ledger.reset_launches("gemm", "flash")
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             card = dryrun.count_step(cell["run"])
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() - base
-            gemm_l, flash_l = collections.Counter(gemm_mod.LAUNCHES), collections.Counter(fa.LAUNCHES)
-            roles = collections.Counter(role for role, _ in gemm_mod.ROLE_LAUNCHES.elements())
+            gemm_l, flash_l = ledger.launches("gemm"), ledger.launches("flash")
+            roles = ledger.launches("gemm", "role")
             launched.update(gemm_l)
             flash_launched.update({(batch, dims): c for dims, c in flash_l.items()})
-            flash_f32 += fa.DTYPE_LAUNCHES["float32"]
+            flash_f32 += ledger.launches("flash", "dtype")["float32"]
             label = f"yi-6b {name} ({depth} of 32 layers, batch {batch})"
             problems = count_problems(card, meta, gemm_l, flash_l, flash_flops)
             if card.kernel_launches != collections.Counter(
@@ -3223,11 +3219,12 @@ def dry_run_on_card(kernels: list, dry: BackgroundDryRun, rand, flush, hw, smi: 
                   f"{card.peak_bytes / 1e9:.4f} GB)", flush=True)
             failures += [f"{label}: {p}" for p in problems]
             if kind == "train" and depth == DRY_DEPTHS[0]:
-                gemm_mod.reset_launches()
+                ledger.reset_launches("gemm")
                 with DropsDB() as bad:
                     cell["run"]()
                 torch.cuda.synchronize()
-                caught = count_problems(bad, meta, gemm_mod.LAUNCHES, fa.LAUNCHES, flash_flops)
+                caught = count_problems(bad, meta, ledger.launches("gemm"),
+                                        ledger.launches("flash"), flash_flops)
                 print(f"[dryrun-probe] planted fault, a counter that drops the dB products: "
                       f"{'refused' if caught else 'NOT refused'}: {caught[:2]}", flush=True)
                 if not caught:
@@ -3513,11 +3510,12 @@ def refuse_ssd_faults(args, q: int, valid_len, want) -> None:
         for name in SSD_FAULTS:
             t0 = time.perf_counter()
             lib, _ = fault_variant(SSD_CU, SSD_FAULTS, name, d)
-            saved, ssd._LIB = ssd._LIB, (ssd.bind(lib), "")
+            bound = ssd.bind(lib)
+            real, ssd.build_kernel = ssd.build_kernel, lambda: (bound, "")
             try:
                 got = ssd.ssd_scan(*args, q, valid_len)
             finally:
-                ssd._LIB = saved
+                ssd.build_kernel = real
             state_err, y_err, differ, ok = ssd_errors(got, want)
             print(f"[fault] ssd {name} (built in {time.perf_counter() - t0:.1f}s): state rel err "
                   f"{state_err:.3g}, y max abs err {y_err:.4g}, y elements differing {differ:.4%} "
@@ -3542,6 +3540,7 @@ def ssd_row(flush) -> dict:
 
     from perfbench import work
     from perfbench.architectures import nemotron_h
+    from repro_torch.kernels import ledger
     from repro_torch.kernels import ssd
     from repro_torch.kernels.build import _BUILD_DIR, source_digest
 
@@ -3554,9 +3553,9 @@ def ssd_row(flush) -> dict:
     valid_len = torch.tensor(SSD_LENS, device="cuda")
     run = lambda: ssd.ssd_scan(*args, q, valid_len)  # noqa: E731
     plain = lambda: ssd.ssd_scan_plain(*args, q, valid_len)  # noqa: E731
-    before = ssd.LAUNCHES[(n, q)]
+    before = ledger.launches("ssd")[(n, q)]
     state_err, y_err, differ = check_ssd(f"ssd {SSD_SHAPE}", args, q, valid_len)
-    launches = ssd.LAUNCHES[(n, q)] - before
+    launches = ledger.launches("ssd")[(n, q)] - before
     refuse_ssd_faults(args, q, valid_len, ssd_plain(args, q, valid_len))
     torch.backends.cuda.matmul.allow_tf32 = False
     ms = timed_ms(run, 10, flush)
@@ -3662,7 +3661,8 @@ def flash_f32_row(rand, flush, peak_bytes: float, shape: tuple,
         "name": f"flash_f32[{batch}x{seq}x{heads}/{kv_heads}x{hd}]", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34", "shape": [batch, seq, heads, hd],
-        # no launch counts here: the main paths write them from DTYPE_LAUNCHES
+        # no launch counts here: the main paths write them from the ledger's
+        # flash launches by dtype
         # (every float32 launch, of any shape, counts in each f32 row)
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if flops / FP32_PEAK >= nbytes / peak_bytes else "bytes",

@@ -30,9 +30,9 @@ import torch
 from repro_torch.core import Budget, TuningRecords, Workload, get_op, set_global_records
 from repro_torch.core.tuners import GBFSTuner
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.flash_attention import LAUNCHES as FLASH_LAUNCHES
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.gemm import LAUNCHES, gemm_plain, kernel_config_from_state
+from repro_torch.kernels.gemm import gemm_plain, kernel_config_from_state
+from repro_torch.kernels.ledger import launches, reset_launches
 
 #: kernel against its plain version in float32 (the JAX package's kernel tests)
 GEMM_TOL = dict(rtol=1e-4, atol=8e-4)
@@ -74,14 +74,14 @@ def main():
     set_global_records(records)
     kernel_ops.set_kernel_policy(kernel_ops.KernelPolicy(cost_backend=BACKEND))
     a, b = get_op("gemm").operands(space, "float32", seed=0, device=dev)
-    LAUNCHES.clear()
+    reset_launches()
     kernel_ops.reset_dispatch_stats()
     out = kernel_ops.gemm(a, b, device=dev)  # dispatches the tuned config
     ref = gemm_plain(a, b, kernel_config_from_state(res.best_state))
     torch.testing.assert_close(out, ref, **GEMM_TOL)
     print(f"gemm kernel vs plain max abs err: {(out - ref).abs().max().item():.2e} "
           f"(dispatch {kernel_ops.dispatch_stats()['gemm']['records']} from the record, "
-          f"{sum(LAUNCHES.values())} kernel launches)")
+          f"{launches().total()} kernel launches)")
 
     # ---- flash: same registry, same tuner, different op --------------------
     seq, hd = 256, 64
@@ -92,13 +92,13 @@ def main():
                    fres.n_trials)
     flash = get_op("flash")
     q, kk, v = flash.operands(fspace, "float32", seed=0, device=dev)
-    FLASH_LAUNCHES.clear()
+    reset_launches()
     tuned_out = flash.kernel_run(fspace, fres.best_state, (q, kk, v))
     bq, bkv = fres.best_state.block_q, fres.best_state.block_kv
     ref = flash_attention_plain(q, kk, v, bq, bkv)
     torch.testing.assert_close(tuned_out, ref, **FLASH_TOL)
     print(f"flash kernel vs plain max abs err: {(tuned_out - ref).abs().max().item():.2e} "
-          f"(block_q={bq}, block_kv={bkv}, {sum(FLASH_LAUNCHES.values())} kernel launches)")
+          f"(block_q={bq}, block_kv={bkv}, {launches().total()} kernel launches)")
     print(f"OK: both tuned kernels match their plain versions on {dev}")
 
 

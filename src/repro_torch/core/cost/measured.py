@@ -182,16 +182,15 @@ def worker_stats() -> dict:
     the launches of each kernel wrapper by shape (flash's by dtype too):
     a measurement worker reports them through
     ``ProcessExecutor.worker_call``."""
-    from repro_torch.kernels import flash_attention, gemm
+    from repro_torch.kernels.ledger import launches
 
     out = {"pid": os.getpid(), "peak_allocated": 0, "peak_reserved": 0}
     if torch.cuda.is_initialized():
         out.update(peak_allocated=torch.cuda.max_memory_allocated(),
                    peak_reserved=torch.cuda.max_memory_reserved())
-    for name, counter in (("gemm_launches", gemm.LAUNCHES),
-                          ("flash_launches", flash_attention.LAUNCHES)):
-        out[name] = {"x".join(map(str, dims)): n for dims, n in counter.items() if n}
-    out["flash_dtype_launches"] = {d: n for d, n in flash_attention.DTYPE_LAUNCHES.items() if n}
+    for kind in ("gemm", "flash"):
+        out[f"{kind}_launches"] = {"x".join(map(str, d)): n for d, n in launches(kind).items()}
+    out["flash_dtype_launches"] = dict(launches("flash", "dtype"))
     return out
 
 

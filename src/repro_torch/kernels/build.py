@@ -16,10 +16,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+from typing import Callable
 
 from repro_torch.utils.spans import span
 
-__all__ = ["CSRC_DIR", "nvcc_path", "source_digest", "build_library"]
+__all__ = ["CSRC_DIR", "nvcc_path", "source_digest", "build_library", "load"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -53,6 +55,23 @@ def build_library(source: str, build_dir: str = _BUILD_DIR) -> tuple[ctypes.CDLL
     ``RuntimeError``.  Timed as the span ``kernels.load``."""
     with span("kernels.load", os.path.basename(source), timed=True):
         return _build_library(source, build_dir)
+
+
+_LOADED: dict[str, tuple[ctypes.CDLL, str]] = {}
+_LOAD_LOCKS: dict[str, threading.Lock] = {}
+
+
+def load(source: str, bind: Callable[[ctypes.CDLL], ctypes.CDLL]) -> tuple[ctypes.CDLL, str]:
+    """``csrc/<source>`` built (:func:`build_library`) and declared by
+    ``bind``, once per process: every later call returns the same library
+    and ptxas' resource report.  Thread-safe; different sources load side
+    by side.  A failed build raises, and the next call tries again."""
+    if source not in _LOADED:  # a published entry never changes: read it unlocked
+        with _LOAD_LOCKS.setdefault(source, threading.Lock()):
+            if source not in _LOADED:
+                lib, log = build_library(source)
+                _LOADED[source] = (bind(lib), log)
+    return _LOADED[source]
 
 
 def _build_library(source: str, build_dir: str) -> tuple[ctypes.CDLL, str]:

@@ -18,18 +18,12 @@ the same block loop and online softmax in PyTorch f32, rounding where the
 kernel rounds — for CPU tensors (an empty result for ``meta`` tensors, a
 dry run's trace), and reports the grid's work to the op counters in
 force.
-Every kernel launch adds one to :data:`LAUNCHES` (keyed by
-``(seq_q, seq_kv, head_dim)``, the workload key's dims) and one to
-:data:`DTYPE_LAUNCHES` (keyed by the operands' dtype, ``"float32"`` or
-``"bfloat16"``).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import math
-import threading
 from typing import Optional
 
 import torch
@@ -38,8 +32,9 @@ from repro_torch.core.analysis import HopperSpec, flash_launch_error
 from repro_torch.core.flash_space import FlashScheduleState
 from repro_torch.utils.op_costs import kernel_ran, uncounted
 
-from .build import build_library
+from .build import load
 from .gemm import misaligned
+from .ledger import note_launch
 
 __all__ = [
     "flash_attention",
@@ -52,18 +47,9 @@ __all__ = [
     "launch_with",
     "kernel_max_threads",
     "kernel_f32_ring",
-    "LAUNCHES",
-    "DTYPE_LAUNCHES",
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-#: kernel launches per ``(seq_q, seq_kv, head_dim)``: the wrapper adds one
-#: where it launches the kernel, and nowhere else
-LAUNCHES: collections.Counter = collections.Counter()
-#: kernel launches per operand dtype (``"float32"``, ``"bfloat16"``),
-#: counted where :data:`LAUNCHES` is
-DTYPE_LAUNCHES: collections.Counter = collections.Counter()
 
 
 #: heuristic blocks by input width, most preferred first.  bf16: two
@@ -161,21 +147,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # -- build and bind ------------------------------------------------------------
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
-
-
 def build_kernel() -> tuple[ctypes.CDLL, str]:
     """Compile ``csrc/flash_attention.cu`` for ``sm_90a`` (once per source
     hash) and load it.  Returns the library and ptxas' resource report.
     A failed build raises."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        lib, log = build_library("flash_attention.cu")
-        _LIB = (bind(lib), log)
-        return _LIB
+    return load("flash_attention.cu", bind)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -221,7 +197,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for CUDA tensors, the plain version for CPU tensors, an empty result
     for ``meta`` tensors (a dry run's trace); on every device the grid's
     work (:func:`flash_work`) is reported to the op counters in force, and
-    only a launch counts in :data:`LAUNCHES` and :data:`DTYPE_LAUNCHES`.  Raises
+    only a launch counts in the launch ledger.  Raises
     ``ValueError`` on anything the kernel does not take — the causal mask
     has no offset, so causal attention needs ``Sq == Sk`` — and
     ``RuntimeError`` when a launch fails.
@@ -267,8 +243,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out = torch.empty_like(q)
         else:
             out = launch_with(build_kernel()[0], q, k, v, bq, bkv, causal)
-            LAUNCHES[(sq, sk, hd)] += 1
-            DTYPE_LAUNCHES[str(q.dtype).removeprefix("torch.")] += 1
+            note_launch("flash", (sq, sk, hd), q.dtype)
     kernel_ran("flash", (sq, sk, hd),
                *flash_work(b, sq, sk, h, kvh, hd, bq, bkv, causal, q.element_size()), out)
     return out

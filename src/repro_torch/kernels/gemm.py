@@ -16,20 +16,14 @@ kernel does not take), then launches the kernel on the current stream
 for CUDA tensors, or runs :func:`gemm_plain` — the same K slabs and f32
 accumulation in PyTorch — for CPU tensors (on ``meta`` tensors it
 returns an empty result: a dry run traces the step there), and reports
-the kernel's work to the op counters in force.  Every kernel launch adds one
-to :data:`LAUNCHES` (keyed by ``(M, K, N)``) and to :data:`ROLE_LAUNCHES`
-(keyed by the :func:`launch_role` in force and ``(M, K, N)``: a training
-step's forward, remat recompute, ``dA`` and ``dB`` products).
+the kernel's work to the op counters in force.
 """
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import ctypes
 import dataclasses
 import functools
-import threading
 from typing import Optional
 
 import torch
@@ -39,7 +33,8 @@ from repro_torch.core.analysis import (GEMM_BW_BN, GEMM_WG_INSTANCES, HopperSpec
 from repro_torch.core.config_space import TilingState
 from repro_torch.utils.op_costs import kernel_ran, uncounted
 
-from .build import build_library
+from .build import load
+from .ledger import note_launch
 
 __all__ = [
     "KernelConfig",
@@ -60,39 +55,9 @@ __all__ = [
     "wgmma_configs",
     "BF16_TOL",
     "bf16_gemm_tol",
-    "LAUNCHES",
-    "ROLE_LAUNCHES",
-    "launch_role",
-    "reset_launches",
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-#: kernel launches per ``(M, K, N)``: the wrapper adds one where it
-#: launches the kernel, and nowhere else
-LAUNCHES: collections.Counter = collections.Counter()
-#: the same launches keyed ``(role, (M, K, N))``, by the role in force on
-#: the launching thread (``forward`` unless :func:`launch_role` says other)
-ROLE_LAUNCHES: collections.Counter = collections.Counter()
-_ROLE = threading.local()
-
-
-@contextlib.contextmanager
-def launch_role(role: str):
-    """Attribute this thread's launches inside the block to ``role``
-    (``recompute``, ``dA``, ``dB``; the autograd engine runs a CUDA
-    backward on its own thread, so the role is per thread)."""
-    prev = getattr(_ROLE, "name", "forward")
-    _ROLE.name = role
-    try:
-        yield
-    finally:
-        _ROLE.name = prev
-
-
-def reset_launches() -> None:
-    LAUNCHES.clear()
-    ROLE_LAUNCHES.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,21 +204,11 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor, config: KernelConfig) -> torch.
 
 # -- build and bind ------------------------------------------------------------
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
-
-
 def build_kernel() -> tuple[ctypes.CDLL, str]:
     """Compile ``csrc/gemm.cu`` for ``sm_90a`` (once per source hash) and
     load it.  Returns the library and ptxas' resource report.  A failed
     build raises."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        lib, log = build_library("gemm.cu")
-        _LIB = (bind(lib), log)
-        return _LIB
+    return load("gemm.cu", bind)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -375,8 +330,8 @@ def gemm_tiled(a: torch.Tensor, b: torch.Tensor, config: KernelConfig) -> torch.
     an empty result for ``meta`` tensors (a dry run's trace).  On every
     device the kernel's work, 2·M·K·N FLOPs and (M·K + K·N + M·N) elements
     moved, is reported to the op counters in force
-    (``utils/op_costs.kernel_ran``); only a launch counts in
-    :data:`LAUNCHES`.  Raises ``ValueError`` on anything the kernel does
+    (``utils/op_costs.kernel_ran``); only a launch counts in the launch
+    ledger.  Raises ``ValueError`` on anything the kernel does
     not take, and ``RuntimeError`` when a launch fails."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm_tiled expects (M, K) @ (K, N), got {tuple(a.shape)} @ {tuple(b.shape)}")
@@ -402,8 +357,7 @@ def gemm_tiled(a: torch.Tensor, b: torch.Tensor, config: KernelConfig) -> torch.
             out = torch.empty((m, n), dtype=a.dtype, device=a.device)
         else:
             out = launch_with(build_kernel()[0], a, b, cfg)
-            LAUNCHES[(m, k, n)] += 1
-            ROLE_LAUNCHES[(getattr(_ROLE, "name", "forward"), (m, k, n))] += 1
+            note_launch("gemm", (m, k, n), a.dtype)
     kernel_ran("gemm", (m, k, n), 2 * m * k * n, (m * k + k * n + m * n) * a.element_size(),
                out)
     return out

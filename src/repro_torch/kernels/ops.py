@@ -20,8 +20,8 @@ tuned ``(block_q, block_kv)`` of a long self-attention, through
 :func:`flash_blocks`, in the same order: tuned record, then the
 kernel's heuristic blocks, then plain attention when no block the
 kernel launches divides the sequence.  :func:`launch_counts` reads the
-kernels' launch counters (GEMM, flash and the SSD's chunked scan) as one
-``Counter``.
+launch ledger (``kernels/ledger.py``: GEMM, flash and the SSD's chunked
+scan) as one ``Counter``.
 
 The lookup is memoized per ``(op, dims, dtype, backend)`` and dropped by
 :func:`set_kernel_policy` and by any records change (a records change
@@ -67,12 +67,9 @@ from torch.utils import flop_counter
 from repro_torch.core.analysis import dtype_in_bytes, flash_launch_error
 from repro_torch.core.records import add_change_listener, global_records, workload_key_for
 from repro_torch.utils.op_costs import expand_under_counter
-from .flash_attention import LAUNCHES as FLASH_LAUNCHES
 from .flash_attention import default_blocks
-from .gemm import LAUNCHES as GEMM_LAUNCHES
-from .gemm import (KernelConfig, default_config, gemm_tiled, kernel_config_from_state,
-                   launch_role, misaligned)
-from .ssd import LAUNCHES as SSD_LAUNCHES
+from .gemm import KernelConfig, default_config, gemm_tiled, kernel_config_from_state, misaligned
+from .ledger import launch_role, launches
 
 __all__ = [
     "gemm",
@@ -246,10 +243,7 @@ def launch_counts() -> collections.Counter:
     """The kernels' launch counts, keyed ``("gemm", (M, K, N))``,
     ``("flash", (seq_q, seq_kv, head_dim))`` and ``("ssd", (n, q))`` (one
     a chunked-scan call)."""
-    counts = collections.Counter({("gemm", d): n for d, n in GEMM_LAUNCHES.items()})
-    counts.update({("flash", d): n for d, n in FLASH_LAUNCHES.items()})
-    counts.update({("ssd", d): n for d, n in SSD_LAUNCHES.items()})
-    return counts
+    return launches(None, "kind", "dims")
 
 
 def dtype_name(dtype: torch.dtype) -> str:

@@ -21,38 +21,33 @@ first time it is needed (into ``_build/`` beside this file, keyed by a hash
 of the source) and bound with ``ctypes``.
 
 :func:`ssd_scan` is the wrapper and :func:`ssd_scan_plain` the plain
-version of the same function.  :func:`takes` says which shapes the kernel
-has an instantiation for; the model asks it before routing there.  Every
-kernel call (three kernels on one stream) adds one to :data:`LAUNCHES`,
-keyed by ``(n, q)``.
+version of the same function; :func:`ssd_prefill`, the Mamba-2 block's
+call, routes between them.  :func:`takes` says which shapes the kernel has
+an instantiation for.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import math
-import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from .build import build_library
+from .build import load
+from .ledger import note_launch
+from .ops import note_dispatch
 
 __all__ = [
     "ssd_chunked",
     "ssd_scan",
     "ssd_scan_plain",
+    "ssd_prefill",
     "takes",
     "build_kernel",
     "bind",
-    "LAUNCHES",
 ]
-
-#: kernel calls per ``(n, q)``: the wrapper adds one where it launches the
-#: kernels, and nowhere else
-LAUNCHES: collections.Counter = collections.Counter()
 
 #: ``(chunk, state size)`` pairs with an instantiation (head dim 64, bf16):
 #: the B^T and C tiles a CTA stages as TF32 hold at most 128 KB
@@ -173,9 +168,8 @@ def ssd_scan_plain(x, dt_raw, dt_bias, A, B, C, D, chunk: int,
                    valid_len: Optional[torch.Tensor] = None):
     """The kernel's function in PyTorch: ``dt`` from ``dt_raw`` (masked past
     ``valid_len``), :func:`ssd_chunked`'s y in f32 plus ``D·x``, rounded
-    once to x's type, and the final state (b, h, p, n) in f32.  The
-    Mamba-2 block's prefill runs it wherever the kernel does not
-    (training's autograd, the CPU, shapes :func:`takes` refuses)."""
+    once to x's type, and the final state (b, h, p, n) in f32.
+    :func:`ssd_prefill` runs it wherever the kernel does not."""
     y, state = _ssd_f32(x, _dt(dt_raw, dt_bias, valid_len), A, B, C, chunk)
     y = y + D.float()[None, None, :, None] * x.float()
     return y.to(x.dtype), state
@@ -183,21 +177,11 @@ def ssd_scan_plain(x, dt_raw, dt_bias, A, B, C, D, chunk: int,
 
 # -- build and bind ------------------------------------------------------------------
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
-
-
 def build_kernel() -> tuple[ctypes.CDLL, str]:
     """Compile ``csrc/ssd.cu`` for ``sm_90a`` (once per source hash) and
     load it.  Returns the library and ptxas' resource report.  A failed
     build raises."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        lib, log = build_library("ssd.cu")
-        _LIB = (bind(lib), log)
-        return _LIB
+    return load("ssd.cu", bind)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -209,6 +193,31 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 # -- the wrapper ---------------------------------------------------------------------
+
+
+def _on_kernel(operands, chunk: int) -> bool:
+    """Whether a prefill runs the kernel: CUDA operands that autograd does
+    not record, at a shape :func:`takes` accepts."""
+    x, B = operands[0], operands[4]
+    return (x.device.type == "cuda"
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in operands))
+            and takes(x.shape[-1], B.shape[-1], chunk, x.dtype))
+
+
+def ssd_prefill(x: torch.Tensor, dt_raw: torch.Tensor, dt_bias: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, chunk: int,
+                valid_len: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-2 block's prefill SSD, operands as :func:`ssd_scan`'s: the
+    kernel where :func:`_on_kernel`, else :func:`ssd_scan_plain` (training's
+    autograd, the CPU, ``meta``, shapes without an instantiation).  Counts
+    the route in ``ops.dispatch_stats()["ssd"]``: ``heuristic`` (the
+    kernel, which runs its own fixed schedule) or ``plain``."""
+    operands = (x, dt_raw, dt_bias, A, B, C, D)
+    if _on_kernel(operands, chunk):
+        note_dispatch("ssd", "heuristic")
+        return ssd_scan(*operands, chunk, valid_len)
+    note_dispatch("ssd", "plain")
+    return ssd_scan_plain(*operands, chunk, valid_len)
 
 
 def _strided(t: torch.Tensor) -> bool:
@@ -230,8 +239,8 @@ def ssd_scan(x: torch.Tensor, dt_raw: torch.Tensor, dt_bias: torch.Tensor, A: to
     the final state ``(b, h, 64, n)`` in f32.
 
     Launched on the card for CUDA tensors, the plain version
-    (:func:`ssd_scan_plain`) for CPU tensors; only a launch counts in
-    :data:`LAUNCHES`.  Raises ``ValueError`` on anything the kernel does
+    (:func:`ssd_scan_plain`) for CPU tensors; only a launch counts in the
+    launch ledger.  Raises ``ValueError`` on anything the kernel does
     not take (:func:`takes`; shapes, types, devices) and ``RuntimeError``
     when a launch fails.  The kernel has no backward (nor has the JAX
     package's SSD a kernel), so operands that autograd would record are
@@ -293,5 +302,5 @@ def ssd_scan(x: torch.Tensor, dt_raw: torch.Tensor, dt_bias: torch.Tensor, A: to
     if rc != 0:
         raise RuntimeError(f"ssd kernel launch failed (error {rc}) at x {tuple(x.shape)}, "
                            f"B {tuple(B.shape)}, chunk {q}")
-    LAUNCHES[(n, q)] += 1
+    note_launch("ssd", (n, q), x.dtype)
     return y, state

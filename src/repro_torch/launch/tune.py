@@ -77,7 +77,7 @@ from repro_torch.core import (
 from repro_torch.core.executor import EXECUTORS, stop_worker_servers
 from repro_torch.core.shard import parse_shard
 from repro_torch.core.tuners import TUNERS
-from repro_torch.kernels import flash_attention, gemm
+from repro_torch.kernels.ledger import launches
 
 
 def _pad_dim(x: int) -> int:
@@ -297,9 +297,7 @@ def main(argv=None) -> None:
         device=device,
     )
     budget = Budget(max_fraction=args.fraction, max_trials=args.max_trials)
-    gemm0 = collections.Counter(gemm.LAUNCHES)
-    flash0 = collections.Counter(flash_attention.LAUNCHES)
-    flash_dtype0 = collections.Counter(flash_attention.DTYPE_LAUNCHES)
+    gemm0, flash0, flash_dtype0 = launches("gemm"), launches("flash"), launches("flash", "dtype")
     try:
         with journal if journal is not None else contextlib.nullcontext():
             report = session.tune_arch(
@@ -345,11 +343,10 @@ def main(argv=None) -> None:
         f"recovered={report.stats.n_transient_recovered} "
         f"respawns={report.stats.n_respawns})"
     )
-    print(f"[tune] kernel_launches={json.dumps(_launch_counts(gemm.LAUNCHES, gemm0))}")
-    print(f"[tune] flash_launches="
-          f"{json.dumps(_launch_counts(flash_attention.LAUNCHES, flash0))}")
+    print(f"[tune] kernel_launches={json.dumps(_launch_counts(launches('gemm'), gemm0))}")
+    print(f"[tune] flash_launches={json.dumps(_launch_counts(launches('flash'), flash0))}")
     print(f"[tune] flash_dtype_launches="
-          f"{json.dumps(dict(flash_attention.DTYPE_LAUNCHES - flash_dtype0))}")
+          f"{json.dumps(dict(launches('flash', 'dtype') - flash_dtype0))}")
 
 
 if __name__ == "__main__":

@@ -4,13 +4,12 @@ of the JAX package's ``models/mamba2.py``.
 Prefill uses the chunked SSD algorithm: a quadratic, attention-like form
 inside chunks plus a linear recurrence across chunk boundaries.  The SSD
 math is plain tensor code in the reference (no Pallas kernel); its plain
-version here is ``kernels/ssd.py:ssd_chunked`` (re-exported).  The served
-prefill — CUDA tensors that autograd does not record, at a shape
-``kernels.ssd.takes`` accepts — runs the hand-written chunked-scan kernel
-(``kernels.ssd.ssd_scan``, from the raw dt to y with its D skip); every
-other prefill (training's autograd, the CPU) runs the same function in
-plain PyTorch (``kernels.ssd.ssd_scan_plain``), and one on the card counts
-in :data:`SSD_EINSUM_CALLS`.  The block's in/out projections go through
+version here is ``kernels/ssd.py:ssd_chunked`` (re-exported).  The
+prefill's SSD, from the raw dt to y with its D skip, is one call to
+``kernels.ssd.ssd_prefill``, which runs the hand-written chunked-scan
+kernel on a served prefill and the same function in plain PyTorch on
+every other (training's autograd, the CPU), and counts the route in
+``ops.dispatch_stats()["ssd"]``.  The block's in/out projections go through
 ``cm.dense``, i.e. the hand-written GEMM kernel.  Decode keeps an
 O(1)-in-sequence recurrent state per layer (conv window and SSM state), updated in place
 on the device, with the cache's ``len`` a device tensor, so a decode
@@ -26,7 +25,6 @@ window is gathered at the row's last real positions.
 
 from __future__ import annotations
 
-import collections
 import math
 from typing import Optional
 
@@ -50,7 +48,6 @@ __all__ = [
     "init_mamba_state",
     "ssd_chunked",
     "ssd_reference",
-    "SSD_EINSUM_CALLS",
     "gated_rmsnorm",
     "init_mamba_lm",
     "mamba_lm_forward",
@@ -80,19 +77,6 @@ def ssd_reference(x, dt, A, B, C) -> torch.Tensor:
         state = state * dA[..., None, None] + dBx
         ys.append(torch.einsum("bhpn,bhn->bhp", state, C[:, t]))
     return torch.stack(ys, dim=1)  # (b,l,h,p)
-
-
-#: prefill SSDs run as :func:`ssd_chunked`'s einsums on CUDA tensors, per
-#: ``(n, q)``: a run shows which route its prefills took
-SSD_EINSUM_CALLS: collections.Counter = collections.Counter()
-
-
-def _ssd_on_kernel(cfg: ArchConfig, *operands: torch.Tensor) -> bool:
-    """Whether a prefill SSD runs the chunked-scan kernel: CUDA operands
-    that autograd does not record, at a shape it has an instantiation for."""
-    return (operands[0].device.type == "cuda"
-            and not (torch.is_grad_enabled() and any(t.requires_grad for t in operands))
-            and ssd.takes(cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk, operands[0].dtype))
 
 
 # =============================================================================
@@ -221,14 +205,8 @@ def mamba_block_prefill(cfg: ArchConfig, p: dict, x: torch.Tensor,
         with span("mamba.ssd"):
             xs, Bm, Cm = _ssm_views(cfg, xBC)
             xs = constrain(xs, logical("dp", None, "tp", None))
-            args = (xs, dt_raw, p["dt_bias"], -torch.exp(p["A_log"]), Bm, Cm, p["D"],
-                    cfg.ssm_chunk, valid_len)
-            if _ssd_on_kernel(cfg, xBC, dt_raw, p["dt_bias"], p["A_log"], p["D"]):
-                y, final_state = ssd.ssd_scan(*args)
-            else:
-                if xs.device.type == "cuda":
-                    SSD_EINSUM_CALLS[(cfg.ssm_state, cfg.ssm_chunk)] += 1
-                y, final_state = ssd.ssd_scan_plain(*args)
+            y, final_state = ssd.ssd_prefill(xs, dt_raw, p["dt_bias"], -torch.exp(p["A_log"]),
+                                             Bm, Cm, p["D"], cfg.ssm_chunk, valid_len)
         conv_state = _conv_window(xBC_raw, cfg.ssm_conv_width, valid_len).to(
             getattr(torch, cfg.compute_dtype))
         return _gated_out(cfg, p, y, z, x), {"conv": conv_state, "ssm": final_state}

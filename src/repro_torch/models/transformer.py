@@ -38,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.api import constrain, logical
-from repro_torch.kernels.gemm import launch_role
+from repro_torch.kernels.ledger import launch_role
 from repro_torch.kernels.ops import KeptStore, closing_product, gemm, kept_mm, kept_products
 from repro_torch.models import common as cm
 from repro_torch.utils.spans import span

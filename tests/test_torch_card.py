@@ -6,8 +6,6 @@ machine that has only PyTorch built for CUDA:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_card.py
 """
 
-import collections
-
 import pytest
 import torch
 
@@ -26,6 +24,7 @@ from repro_torch.core.analysis import (
 )
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm, ssd
+from repro_torch.kernels.ledger import current_role, launches, reset_launches
 
 
 def _card():
@@ -67,10 +66,10 @@ def test_gemm_kernel_matches_plain_on_card(case, tol):
     a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
     b = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
     for cfg in configs:
-        before = gemm.LAUNCHES[(m, k, n)]
+        before = launches("gemm")[(m, k, n)]
         out = gemm.gemm_tiled(a, b, cfg)
         torch.cuda.synchronize()
-        assert gemm.LAUNCHES[(m, k, n)] == before + 1
+        assert launches("gemm")[(m, k, n)] == before + 1
         torch.testing.assert_close(out.float(), gemm.gemm_plain(a, b, cfg).float(),
                                    rtol=tol[0], atol=tol[1])
 
@@ -169,10 +168,10 @@ def test_every_wgmma_instantiation_matches_plain_on_card(dims):
         for bk in sorted({c.block_k for c in cfgs}):
             ref = gemm.gemm_plain(a, b, gemm.KernelConfig(64, bk, 64)).float()
             for cfg in (c for c in cfgs if c.block_k == bk):
-                before = gemm.LAUNCHES[(m, k, n)]
+                before = launches("gemm")[(m, k, n)]
                 out = gemm.gemm_tiled(a, b, cfg)
                 torch.cuda.synchronize()
-                assert gemm.LAUNCHES[(m, k, n)] == before + 1
+                assert launches("gemm")[(m, k, n)] == before + 1
                 torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol,
                                            msg=lambda s, cfg=cfg: f"{cfg} {(m, k, n)}: {s}")
             del ref
@@ -183,10 +182,10 @@ def test_gemm_refuses_unaligned_bf16_operands_on_card():
     _card()
     buf = torch.zeros(64 * 64 + 8, device="cuda").bfloat16()
     a = buf[1:64 * 64 + 1].view(64, 64)
-    before = sum(gemm.LAUNCHES.values())
+    before = launches("gemm").total()
     with pytest.raises(ValueError, match="16-byte"):
         gemm.gemm_tiled(a, a.clone(), gemm.KernelConfig(64, 64, 64, 64, 64))
-    assert sum(gemm.LAUNCHES.values()) == before
+    assert launches("gemm").total() == before
 
 
 #: (G, causal, (block_q, block_kv), seq) per dtype: the bf16 kernel takes
@@ -216,12 +215,12 @@ def test_flash_kernel_matches_plain_on_card(dtype, tol, hd):
         q = torch.randn(2, seq, 2 * g, hd, generator=gen, device="cuda").to(dtype)
         k = torch.randn(2, seq, 2, hd, generator=gen, device="cuda").to(dtype)
         v = torch.randn(2, seq, 2, hd, generator=gen, device="cuda").to(dtype)
-        before = fa.LAUNCHES[(seq, seq, hd)]
-        before_dtype = fa.DTYPE_LAUNCHES[str(dtype).removeprefix("torch.")]
+        before = launches("flash")[(seq, seq, hd)]
+        before_dtype = launches("flash", "dtype")[str(dtype).removeprefix("torch.")]
         out = fa.flash_attention(q, k, v, bq, bkv, causal)
         torch.cuda.synchronize()
-        assert fa.LAUNCHES[(seq, seq, hd)] == before + 1
-        assert fa.DTYPE_LAUNCHES[str(dtype).removeprefix("torch.")] == before_dtype + 1
+        assert launches("flash")[(seq, seq, hd)] == before + 1
+        assert launches("flash", "dtype")[str(dtype).removeprefix("torch.")] == before_dtype + 1
         torch.testing.assert_close(out.float(),
                                    fa.flash_attention_plain(q, k, v, bq, bkv, causal).float(),
                                    rtol=tol[0], atol=tol[1])
@@ -270,10 +269,10 @@ def test_ssd_kernel_matches_plain_on_card(case):
     b, l, h, g, n, q, lens = SSD_CASES[case]
     args = _ssd_operands(gen, b, l, h, g, n)
     valid_len = torch.tensor(lens, device="cuda")
-    before = ssd.LAUNCHES[(n, q)]
+    before = launches("ssd")[(n, q)]
     y, state = ssd.ssd_scan(*args, q, valid_len)
     torch.cuda.synchronize()
-    assert ssd.LAUNCHES[(n, q)] == before + 1
+    assert launches("ssd")[(n, q)] == before + 1
     assert y.shape == (b, l, h, 64) and state.shape == (b, h, 64, n)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -307,6 +306,7 @@ def test_mamba_prefill_on_the_kernel_equals_the_einsum_route_on_card(name, monke
     import dataclasses
 
     from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
     from repro_torch.models import mamba2 as mb
 
     gen = _card()
@@ -318,13 +318,18 @@ def test_mamba_prefill_on_the_kernel_equals_the_einsum_route_on_card(name, monke
     x = (torch.randn(2, 1000, cfg.d_model, generator=gen, device="cuda") * 0.5).bfloat16()
     valid_len = torch.tensor([1000, 611], device="cuda")
     key = (cfg.ssm_state, cfg.ssm_chunk)
+
+    def routes():
+        stats = ops.dispatch_stats().get("ssd", {})
+        return launches("ssd")[key], stats.get("heuristic", 0), stats.get("plain", 0)
+
     with torch.inference_mode():
-        before = (ssd.LAUNCHES[key], mb.SSD_EINSUM_CALLS[key])
+        before = routes()
         out, st = mb.mamba_block_prefill(cfg, params, x, valid_len)
-        assert (ssd.LAUNCHES[key], mb.SSD_EINSUM_CALLS[key]) == (before[0] + 1, before[1])
+        assert routes() == (before[0] + 1, before[1] + 1, before[2])
         monkeypatch.setattr(ssd, "takes", lambda *a: False)
         want, want_st = mb.mamba_block_prefill(cfg, params, x, valid_len)
-        assert (ssd.LAUNCHES[key], mb.SSD_EINSUM_CALLS[key]) == (before[0] + 1, before[1] + 1)
+        assert routes() == (before[0] + 1, before[1] + 1, before[2] + 1)
     torch.testing.assert_close(st["ssm"], want_st["ssm"], rtol=0,
                                atol=1e-4 * want_st["ssm"].abs().max().item())
     torch.testing.assert_close(st["conv"], want_st["conv"], rtol=0, atol=0)
@@ -533,12 +538,12 @@ def test_gemm_backward_matches_plain_on_card(dims):
     a = torch.randn(m, k, generator=gen, device="cuda").to(bf16).requires_grad_()
     b = torch.randn(k, n, generator=gen, device="cuda").to(bf16).requires_grad_()
     g = torch.randn(m, n, generator=gen, device="cuda").to(bf16)
-    gemm.reset_launches()
+    reset_launches()
     da, db = torch.autograd.grad(ops.gemm(a, b), [a, b], g)
     torch.cuda.synchronize()
     assert (da.dtype, db.dtype) == (bf16, bf16)
-    assert gemm.ROLE_LAUNCHES[("dA", (m, n, k))] == 1
-    assert gemm.ROLE_LAUNCHES[("dB", (k, m, n))] == 1
+    assert launches("gemm", "role", "dims")[("dA", (m, n, k))] == 1
+    assert launches("gemm", "role", "dims")[("dB", (k, m, n))] == 1
     for got, lhs, rhs in ((da, g, b.detach().t().contiguous()),
                           (db, a.detach().t().contiguous(), g)):
         cfg, _ = ops.kernel_config(lhs.shape[0], lhs.shape[1], rhs.shape[1], bf16)
@@ -575,7 +580,7 @@ def test_reduced_train_step_on_card_matches_the_cpu():
     batch = {"tokens": torch.from_numpy(np.stack([s[0] for s in samples])).long(),
              "labels": torch.from_numpy(np.stack([s[1] for s in samples])).long()}
     out = {}
-    gemm.reset_launches()
+    reset_launches()
     for label, model, p in (("cpu", cpu, params), ("card", Model(cfg, device="cuda"),
                                                     params_card)):
         opt = AdamW(lr=1e-3)
@@ -583,7 +588,7 @@ def test_reduced_train_step_on_card_matches_the_cpu():
         p, _, metrics = make_train_step(model, opt)(p, opt.init(p), b)
         out[label] = (float(metrics["loss"]), float(metrics["grad_norm"]),
                       [t.cpu() for t in tree_leaves(p)])
-    roles = {role for role, _ in gemm.ROLE_LAUNCHES}
+    roles = set(launches("gemm", "role"))
     assert roles == {"forward", "recompute", "dA", "dB"}
     (loss, norm, p_cpu), (loss_c, norm_c, p_card) = out["cpu"], out["card"]
     assert abs(loss - loss_c) <= 2e-4 * abs(loss) and abs(norm - norm_c) <= 2e-4 * norm
@@ -617,11 +622,11 @@ def test_reduced_dots_step_on_card_keeps_every_block_product():
              "labels": torch.from_numpy(np.stack([s[1] for s in samples])).long().cuda()}
     out = {}
     for remat in ("full", "dots"):
-        gemm.reset_launches()
+        reset_launches()
         model = Model(dataclasses.replace(cfg, remat=remat), device="cuda")
         grads, metrics = value_and_grad(model, params, batch)
         out[remat] = (float(metrics["loss"]), tree_leaves(grads),
-                      collections.Counter(gemm.ROLE_LAUNCHES))
+                      launches("gemm", "role", "dims"))
     (loss_f, g_f, roles_f), (loss_d, g_d, roles_d) = out["full"], out["dots"]
     assert abs(loss_f - loss_d) <= 2e-4 * abs(loss_f)
     for a, b in zip(g_f, g_d):
@@ -644,8 +649,6 @@ def _dry_counts(kind: str, counter_cls=None):
     """One counted step of the probe on the card and its trace on meta:
     ``(card counter, meta counter, GEMM launches, flash launches, flash
     FLOPs a launch)``."""
-    import collections
-
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import ops
@@ -658,16 +661,14 @@ def _dry_counts(kind: str, counter_cls=None):
     meta = dryrun.count_step(dryrun.make_cell(cfg, shape, "meta")["run"])
     cell = dryrun.make_cell(cfg, shape, "cuda")
     cell["run"]()
-    gemm.reset_launches()
-    fa.LAUNCHES.clear()
+    reset_launches()
     with (counter_cls or OpCounter)() as card:
         cell["run"]()
     torch.cuda.synchronize()
     h, hd = cfg.n_heads, cfg.resolved_head_dim
     blocks, _ = ops.flash_blocks(seq, seq, hd, torch.bfloat16, grid_y=batch * h)
     per_launch = fa.flash_work(batch, seq, seq, h, cfg.n_kv_heads, hd, *blocks, True, 2)[0]
-    return (card, meta, collections.Counter(gemm.LAUNCHES), collections.Counter(fa.LAUNCHES),
-            per_launch)
+    return card, meta, launches("gemm"), launches("flash"), per_launch
 
 
 @pytest.mark.gpu
@@ -691,7 +692,7 @@ def test_count_check_refuses_a_counter_that_drops_dB():
 
     class DropsDB(OpCounter):
         def add_kernel(self, kind, dims, flops, nbytes, out):
-            if getattr(gemm._ROLE, "name", "forward") != "dB":
+            if current_role() != "dB":
                 super().add_kernel(kind, dims, flops, nbytes, out)
 
     _card()

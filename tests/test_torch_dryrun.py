@@ -25,6 +25,7 @@ from repro_torch.configs.registry import ARCHS, SHAPES, get_arch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gemm_mod
 from repro_torch.kernels import ops
+from repro_torch.kernels.ledger import launches, reset_launches
 from repro_torch.launch import dryrun
 from repro_torch.utils.op_costs import OpCounter
 
@@ -61,8 +62,7 @@ def _counts(counter: OpCounter) -> dict:
 
 
 def test_kernel_wrappers_on_meta_report_their_work_and_launch_nothing():
-    gemm_mod.reset_launches()
-    fa.LAUNCHES.clear()
+    reset_launches()
     a = torch.empty(256, 64, dtype=torch.bfloat16, device="meta")
     b = torch.empty(64, 128, dtype=torch.bfloat16, device="meta")
     q = torch.empty(2, 256, 8, 32, dtype=torch.bfloat16, device="meta")
@@ -72,7 +72,7 @@ def test_kernel_wrappers_on_meta_report_their_work_and_launch_nothing():
         o = fa.flash_attention(q, kv, kv, 64, 64)
     assert out.shape == (256, 128) and out.device.type == "meta"
     assert o.shape == q.shape and o.device.type == "meta"
-    assert not gemm_mod.LAUNCHES and not gemm_mod.ROLE_LAUNCHES and not fa.LAUNCHES
+    assert not launches("gemm") and not launches("gemm", "role", "dims") and not launches("flash")
     assert c.by_kind["gemm_kernel"]["flops"] == 2 * 256 * 64 * 128
     assert c.by_kind["gemm_kernel"]["bytes"] == 2 * (256 * 64 + 64 * 128 + 256 * 128)
     # causal, 4 q blocks of 64 over 4 kv blocks of 64: 1 + 2 + 3 + 4 visits a head

@@ -46,12 +46,12 @@ from repro_torch.core.flash_space import FlashAttnConfigSpace, FlashScheduleStat
 from repro_torch.core.ops import get_op
 from repro_torch.core.tuners import GBFSTuner
 from repro_torch.kernels.flash_attention import (
-    LAUNCHES,
     default_blocks,
     flash_attention,
     flash_attention_plain,
     state_from_blocks,
 )
+from repro_torch.kernels.ledger import launches
 from repro_torch.launch.tune import flash_workloads_for_arch
 
 DTYPES = [("float32", 2e-5), ("bfloat16", 0.05)]
@@ -142,10 +142,10 @@ def test_wrapper_refusals():
     _, (q8, k8, v8) = _both(_qkv(1, 64, 4, 2, 8), "float32")
     with pytest.raises(ValueError):
         flash_attention(q8, k8, v8, 32, 32)  # no head_dim-8 instantiation
-    before = sum(LAUNCHES.values())
+    before = launches("flash").total()
     flash_attention(q, k, v, 32, 32)
     flash_attention(q[:, :32], k, v, 32, 32, causal=False)  # cross shapes are fine
-    assert sum(LAUNCHES.values()) == before  # the plain version is no launch
+    assert launches("flash").total() == before  # the plain version is no launch
 
 
 @pytest.mark.parametrize("hd", (8, 16, 32, 64, 128, 256))

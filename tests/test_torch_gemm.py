@@ -19,12 +19,12 @@ from repro_torch.core.config_space import TilingState
 from repro_torch.core.records import TuningRecords, global_records, set_global_records, workload_key_for
 from repro_torch.kernels import ops
 from repro_torch.kernels.gemm import (
-    LAUNCHES,
     KernelConfig,
     default_config,
     gemm_tiled,
     state_from_config,
 )
+from repro_torch.kernels.ledger import launches
 
 SHAPES = [(64, 64, 64), (128, 256, 64), (256, 128, 512), (8, 1024, 8)]
 # the JAX package's kernel test configs (tests/test_gemm_kernel.py)
@@ -204,9 +204,9 @@ def test_wrapper_refusals():
         gemm_tiled(a, a, KernelConfig(48, 32, 32, 48, 32, 1, 1))  # does not divide
     with pytest.raises(ValueError):
         gemm_tiled(a, a, KernelConfig(64, 64, 64, 64, 64, 1, 1))  # 4096 threads
-    before = sum(LAUNCHES.values())
+    before = launches("gemm").total()
     gemm_tiled(a, a, cfg)
-    assert sum(LAUNCHES.values()) == before  # the plain version is no launch
+    assert launches("gemm").total() == before  # the plain version is no launch
 
 
 def test_default_config_fits_hopper_where_the_tpu_default_does_not():

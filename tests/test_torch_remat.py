@@ -52,8 +52,8 @@ from repro.models import transformer as ref_tf
 from repro.models.api import Model as RefModel
 from repro_torch.configs import registry
 from repro_torch.configs.base import ShapeSpec
-from repro_torch.kernels import gemm as gemm_mod
 from repro_torch.kernels import ops
+from repro_torch.kernels.ledger import current_role, launches, reset_launches
 from repro_torch.launch import dryrun
 from repro_torch.models import transformer as tf
 from repro_torch.models.api import Model
@@ -138,20 +138,16 @@ class _Products(OpCounter):
 
     def add_kernel(self, kind, dims, flops, nbytes, out):
         if kind == "gemm":
-            self.order[_role()].append(("gemm", dims))
+            self.order[current_role()].append(("gemm", dims))
         super().add_kernel(kind, dims, flops, nbytes, out)
 
     def _count(self, func, args, kwargs, ins, out):
         if func in BATCHED:
-            self.order[_role()].append(("batched", tuple(out.shape)))
+            self.order[current_role()].append(("batched", tuple(out.shape)))
         super()._count(func, args, kwargs, ins, out)
 
     def count(self, role, what, exclude_n=None) -> int:
         return sum(1 for w, dims in self.order[role] if w == what and dims[-1] != exclude_n)
-
-
-def _role() -> str:
-    return getattr(gemm_mod._ROLE, "name", "forward")
 
 
 # -- loss and gradients against the reference's dots --------------------------------
@@ -368,10 +364,10 @@ def test_the_recompute_runs_no_saved_product(name):
     for remat in ("full", "dots"):
         cfg, model, params, _, _ = _models(name, remat)
         _, batch = _batch(cfg)
-        gemm_mod.reset_launches()
+        reset_launches()
         with _Products() as seen:
             value_and_grad(model, params, batch)
-        assert not gemm_mod.LAUNCHES and not gemm_mod.ROLE_LAUNCHES
+        assert not launches("gemm") and not launches("gemm", "role", "dims")
         head = cfg.padded_vocab
         counts[remat] = {
             "forward": seen.count("forward", "gemm", exclude_n=head),

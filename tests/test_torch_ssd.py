@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.registry import get_arch
 from repro_torch.kernels import ops, ssd
+from repro_torch.kernels.ledger import launches, note_launch, reset_launches
 from repro_torch.models import mamba2 as mb
 
 TOL = 2e-4
@@ -97,9 +98,9 @@ def test_wrapper_runs_the_plain_version_on_cpu(lens):
     length chunk 128 does not divide)."""
     x, dt_raw, dt_bias, A, B, C, D = _scan_args()
     valid_len = None if lens is None else torch.tensor(lens)
-    before = ssd.LAUNCHES.copy()
+    before = launches("ssd")
     y, state = ssd.ssd_scan(x, dt_raw, dt_bias, A, B, C, D, 128, valid_len)
-    assert ssd.LAUNCHES == before
+    assert launches("ssd") == before
     want_y, want_state = ssd.ssd_scan_plain(x, dt_raw, dt_bias, A, B, C, D, 128, valid_len)
     torch.testing.assert_close(y, want_y, rtol=0, atol=0)
     torch.testing.assert_close(state, want_state, rtol=0, atol=0)
@@ -167,32 +168,39 @@ def test_ssd_chunked_is_the_plain_version_reexported():
     torch.testing.assert_close(y, mb.ssd_reference(x, dt, A, *wide), rtol=TOL, atol=TOL)
 
 
-def test_launch_counts_report_the_ssd_kernel(monkeypatch):
-    monkeypatch.setattr(ssd, "LAUNCHES", ssd.LAUNCHES.copy())
-    monkeypatch.setattr(ops, "SSD_LAUNCHES", ssd.LAUNCHES)
-    ssd.LAUNCHES[(256, 128)] += 24
-    assert ops.launch_counts()[("ssd", (256, 128))] == 24
+def test_launch_counts_report_the_ssd_kernel():
+    reset_launches("ssd")
+    for _ in range(24):
+        note_launch("ssd", (256, 128), torch.bfloat16)
+    try:
+        assert ops.launch_counts()[("ssd", (256, 128))] == 24
+    finally:
+        reset_launches("ssd")
 
 
 def test_prefill_on_cpu_takes_the_einsum_route_and_counts_no_card_call():
     """A CPU prefill runs ssd_chunked (the plain version), whatever its
-    widths, and only prefills on the card count in SSD_EINSUM_CALLS."""
+    widths: its route counts as ``plain`` in ``dispatch_stats()["ssd"]``,
+    and no kernel call counts in the launch ledger."""
     cfg = get_arch("mamba2-130m").reduced(n_layers=1)
     params = mb.init_mamba_block(cfg, torch.Generator().manual_seed(0), "cpu", ())
     x = torch.randn(2, 40, cfg.d_model, generator=torch.Generator().manual_seed(1))
-    before = (mb.SSD_EINSUM_CALLS.copy(), ssd.LAUNCHES.copy())
+    before = launches("ssd")
+    ops.reset_dispatch_stats()
     out, st = mb.mamba_block_prefill(cfg, params, x, torch.tensor([40, 23]))
-    assert (mb.SSD_EINSUM_CALLS, ssd.LAUNCHES) == before
+    assert launches("ssd") == before
+    stats = ops.dispatch_stats()["ssd"]
+    assert (stats["plain"], stats["heuristic"]) == (1, 0)
     assert out.shape == x.shape and st["ssm"].shape == (2, cfg.ssm_heads, 16, 16)
 
 
 def test_prefill_on_the_wrapper_equals_the_einsum_route(monkeypatch):
-    """The model's kernel route, taken here on CPU tensors (so through the
-    wrapper's plain version), hands the wrapper the views, A, D and lengths
-    the einsum route uses: a bf16 block at a width the kernel takes (head
-    dim 64, state 64, chunk 128, 2 groups) gives the einsum route's state
-    and, within a bf16 rounding step carried through the gated norm and
-    the out projection, its output."""
+    """The kernel route of ``ssd.ssd_prefill``, taken here on CPU tensors
+    (so through the wrapper's plain version), hands the wrapper the views,
+    A, D and lengths the einsum route uses: a bf16 block at a width the
+    kernel takes (head dim 64, state 64, chunk 128, 2 groups) gives the
+    einsum route's state and, within a bf16 rounding step carried through
+    the gated norm and the out projection, its output."""
     import dataclasses
 
     cfg = dataclasses.replace(get_arch("mamba2-130m").reduced(n_layers=1), ssm_head_dim=64,
@@ -210,9 +218,10 @@ def test_prefill_on_the_wrapper_equals_the_einsum_route(monkeypatch):
         return scan(*args)
 
     monkeypatch.setattr(ssd, "ssd_scan", counted)
-    monkeypatch.setattr(mb, "_ssd_on_kernel", lambda cfg, *operands: ssd.takes(
-        cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk, operands[0].dtype))
+    monkeypatch.setattr(ssd, "_on_kernel", lambda operands, chunk: ssd.takes(
+        operands[0].shape[-1], operands[4].shape[-1], chunk, operands[0].dtype))
+    ops.reset_dispatch_stats()
     out, st = mb.mamba_block_prefill(cfg, params, x, valid_len)
-    assert len(calls) == 1
+    assert len(calls) == 1 and ops.dispatch_stats()["ssd"]["heuristic"] == 1
     torch.testing.assert_close(st["ssm"], want_st["ssm"], rtol=TOL, atol=TOL)
     torch.testing.assert_close(out.float(), want.float(), rtol=1.6e-2, atol=2e-2)

@@ -43,8 +43,8 @@ from repro.train.step import make_train_step as ref_make_train_step
 from repro_torch.configs import registry
 from repro_torch.data.pipeline import DataPipeline, SyntheticLM
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import gemm as gemm_mod
 from repro_torch.kernels import ops
+from repro_torch.kernels.ledger import current_role
 from repro_torch.launch import train as train_cli
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
@@ -228,7 +228,7 @@ def test_the_recompute_runs_under_its_launch_role():
     seen = []
 
     def body(x):
-        seen.append(getattr(gemm_mod._ROLE, "name", "forward"))
+        seen.append(current_role())
         return (x * x).sum()
 
     x = torch.ones(3, requires_grad=True)
