@@ -16,6 +16,7 @@ the meta device, and yi-6b's steps counted on the card against it.
     python3 chip_smoke.py --search-only [path/to/src]   # phases 11(b), 16(d) alone
     python3 chip_smoke.py --flash-f32-only [path/to/src]  # the f32 flash rows alone
     python3 chip_smoke.py --ssd-only [path/to/src]  # the SSD's chunked-scan row alone
+    python3 chip_smoke.py --conv-only [path/to/src]  # the Mamba-2 causal conv's row alone
 
 Phases (each prints its wall time):
 
@@ -108,6 +109,15 @@ Phases (each prints its wall time):
      be refused), timed (unspun and spun) beside the plain version and its
      bound (the benchmark's ``ssd_flops`` / ``ssd_bytes`` for one layer),
      with each kernel's share from the profiler: the ``ssd[...]`` row;
+     then (c) the Mamba-2 causal conv (``csrc/conv.cu``) at the same
+     cell's shapes (xBC, 20480 channels, read in place from in_proj's
+     output rows of 37120): ptxas' registers and spills (fails on a
+     spill), held against its plain version (at most one bf16 step apart,
+     in at most 0.01 % of the elements; planted faults, the taps reversed
+     in time and the taps summed in f32, must be refused), timed
+     with the L2 flushed (unspun and spun) beside the plain version,
+     ``F.conv1d(groups=ch)`` + ``F.silu`` and the byte bound: the
+     ``conv[...]`` row;
  11. the paper's tuners on the card: (a) N-A2C through the tune CLI
      (``--tuner n-a2c --cost hopper --device cuda --warm-start``, a
      snapshot every round) over yi-6b's five bf16 GEMMs, and through the
@@ -155,8 +165,10 @@ Phases (each prints its wall time):
      tokens/s, peak memory, the GEMM dispatch split and both kernels'
      launches; the tokens must lie in [0, vocab) and equal the eager
      loop's, the GEMM kernel must launch in every prefill and every decode
-     graph (a batch under 8 on zero-padded rows), and flash on every
-     prompt above 2048 tokens without a softcap; then one more generate
+     graph (a batch under 8 on zero-padded rows), flash on every prompt
+     above 2048 tokens without a softcap, and the conv kernel on every
+     Mamba layer's prefill (``dispatch_stats()["conv"]``: ``heuristic``
+     equal to the conv launches, ``plain`` 0); then one more generate
      of each, traced as in phase 9; then, the model freed, hold the GEMM
      kernel under the config dispatch chose against an f32
      ``torch.matmul`` at every shape the serve launched it on, and the
@@ -164,7 +176,9 @@ Phases (each prints its wall time):
      version at every served attention shape (qwen3-moe's 16 query heads
      a KV head, llava's 7, zamba2's head_dim 64), and the SSD's chunked
      scan against its plain version at every instantiation the serve
-     launched (mamba2-130m's state 128 and zamba2's 64, chunk 256);
+     launched (mamba2-130m's state 128 and zamba2's 64, chunk 256), and
+     the causal conv against its plain version at every channel count
+     the serve launched it on (1792 and 4224);
  14. train yi-6b at its published widths with 16 of its 32 layers (AdamW
      with f32 master weights for all 32 would take 97 GB), bf16, remat
      ``full``, on ``SyntheticLM`` batches of 2 x 4096 tokens, through
@@ -277,10 +291,11 @@ launched, what the captures recorded and what the replays launched, and
 a path's launches are the counts less the recorded, plus the replayed:
 the prefill's, the warm-up's, and each graph's once per replay.  Each
 kernel row gives ``launches_tune``, ``launches_serve`` (phase 9) and
-``launches_families`` (phase 13, at the row's shape; the flash row at
-every shape) and their sum as ``launches``.  Each ``flash_f32[...]`` row
-counts the float32 flash kernel's launches on the same paths, of any
-shape, read from the launch ledger by dtype (``kernels/ledger.py``; the
+``launches_families`` (phase 13, at the row's shape; the flash and conv
+rows at every shape) and their sum as ``launches``; the conv row keeps
+its check's own launch apart, as ``launches_check``.  Each
+``flash_f32[...]`` row counts the float32 flash kernel's launches on the
+same paths, of any shape, read from the launch ledger by dtype (``kernels/ledger.py``; the
 other flash rows read it by shape, and count every dtype).  GEMM rows give each
 time twice: ``ms``/``library_ms`` timed as earlier slices timed them
 (the event span holds the host's enqueue of the call), and
@@ -1400,6 +1415,9 @@ def main() -> None:
         t0 = time.perf_counter()
         kernels.append(ssd_row(flush))
         phase("10(b) the SSD's chunked scan at the nemotron-h cell's shapes", t0)
+        t0 = time.perf_counter()
+        kernels.append(conv_row(flush))
+        phase("10(c) the Mamba-2 causal conv at the nemotron-h cell's shapes", t0)
     fault_dir.cleanup()
 
     work = tempfile.TemporaryDirectory()  # the stores phases 11 and 12 write
@@ -2028,7 +2046,10 @@ def serve_families(kernels: list) -> None:
     ``launches_families``.  Checks the tokens lie in [0, vocab) and equal
     the eager loop's on the same prefill, that the GEMM kernel launched,
     and that flash launched where the prompt exceeds the threshold (no
-    softcap); traces one more generate (``[profile]`` lines); then, the
+    softcap), and, in a Mamba family, that the conv kernel launched and
+    ``dispatch_stats()["conv"]`` counts every route as the kernel's
+    (``heuristic`` equal to the conv launches, ``plain`` 0); traces one
+    more generate (``[profile]`` lines); then, the
     model freed, holds each kernel against its reference at every shape
     the path launched it on (``[check]`` lines; the ``[family]`` line
     gives the worst errors)."""
@@ -2100,6 +2121,13 @@ def serve_families(kernels: list) -> None:
         if (seq > cfg.attn_chunk_threshold and cfg.family != "ssm"
                 and cfg.attn_softcap == 0 and parts["flash"]["prefill"] == 0):
             raise SystemExit(f"{name}: the flash kernel never launched on a {seq}-token prefill")
+        conv_launched = {dims: n for (kind, dims), n in launched.items() if kind == "conv"}
+        conv = stats.get("conv", {})
+        if cfg.family in ("ssm", "hybrid") and (
+                not conv_launched or conv.get("plain", 0)
+                or conv.get("heuristic", 0) != sum(conv_launched.values())):
+            raise SystemExit(f"{name}: the served prefill did not run every Mamba layer's conv "
+                             f"on its kernel: launches {conv_launched}, dispatch {conv}")
         for row in kernels:
             if row["name"].startswith("flash_attention"):
                 row["launches_families"] += sum(
@@ -2108,9 +2136,14 @@ def serve_families(kernels: list) -> None:
                 row["launches_families"] += flash_f32
             elif row["name"].startswith("ssd["):
                 row["launches_families"] += launched.get(("ssd", tuple(row["instance"])), 0)
+            elif row["name"].startswith("conv["):  # every conv launch, at any width
+                by_ch = row["launches_families_by_channels"]
+                for (_, ch), n in conv_launched.items():
+                    by_ch[str(ch)] = by_ch.get(str(ch), 0) + n
+                row["launches_families"] += sum(conv_launched.values())
             elif row.get("shape"):
                 row["launches_families"] += launched.get(("gemm", tuple(row["shape"])), 0)
-        gemm_err, flash_err, ssd_err = check_served_kernels(
+        gemm_err, flash_err, ssd_err, conv_err = check_served_kernels(
             name, launched, reqs, cfg.n_heads, cfg.n_kv_heads, gen, ops, fa, gemm_tiled,
             (bucket, cfg.ssm_heads, cfg.ssm_n_groups))
         g = stats.get("gemm", {})
@@ -2126,9 +2159,11 @@ def serve_families(kernels: list) -> None:
               f"prefill {parts['gemm']['prefill']} + warm-up {parts['gemm']['warmup']} + "
               f"replayed {parts['gemm']['replayed']} (the graph records "
               f"{parts['gemm']['captured']}, x {rep['replays']} replay); flash dispatch "
-              f"{stats.get('flash', {})}, launches {parts['flash']['prefill']}; tokens equal "
+              f"{stats.get('flash', {})}, launches {parts['flash']['prefill']}; conv dispatch "
+              f"{stats.get('conv', {})}, launches {sum(conv_launched.values())}; tokens equal "
               f"the eager loop's; worst error at the served shapes: GEMM {gemm_err} "
-              f"flash {flash_err} SSD (state, y, y differing) {ssd_err}; "
+              f"flash {flash_err} SSD (state, y, y differing) {ssd_err} conv (bf16 steps, "
+              f"differing) {conv_err}; "
               f"sample {tokens[0][:6].tolist()}", flush=True)
         del tokens
         phase(f"13 {name}", t0)
@@ -2960,15 +2995,19 @@ def check_served_kernels(label, launched, batch, heads, kv_heads, gen, ops, fa, 
     ``(batch, S, kv_heads, hd)`` keys and values under the blocks dispatch
     chose against its plain version (FLASH_TOL), the SSD's chunked scan
     at each ``(n, q)`` on ``batch`` full rows of ``ssm``'s ``(positions,
-    heads, groups)`` against its plain version (:func:`check_ssd`).  Exits
-    on a disagreement; returns the worst error of each (None where the
-    path launched none; the SSD's the largest of each of its three)."""
+    heads, groups)`` against its plain version (:func:`check_ssd`), and the
+    causal conv at each ``(width, channels)`` on ``batch`` such rows of
+    xBC, read in place from in_proj rows of z (heads x 64), xBC and dt (one
+    a head), against its plain version (:func:`check_conv`).  Exits on a
+    disagreement; returns the worst error of each (None where the path
+    launched none; the SSD's and the conv's the largest of each of their
+    parts)."""
     bf16 = torch.bfloat16
 
     def rand(shape):
         return torch.randn(shape, generator=gen, device="cuda").to(bf16)
 
-    worst = {"gemm": None, "flash": None, "ssd": None}
+    worst = {"gemm": None, "flash": None, "ssd": None, "conv": None}
     for kind, dims in sorted(launched):
         if kind == "gemm":
             m, k, n = dims
@@ -2989,7 +3028,7 @@ def check_served_kernels(label, launched, batch, heads, kv_heads, gen, ops, fa, 
             print(f"[check] {label} served flash q {tuple(q.shape)} k/v {tuple(k.shape)} "
                   f"(G = {heads // kv_heads}) blocks {blocks} ({src}): max abs err {err}")
             del q, k, v
-        else:  # the SSD's chunked scan, at the instantiation the path launched
+        elif kind == "ssd":  # the chunked scan, at the instantiation the path launched
             n, q = dims
             seq, h, g = ssm
             args = ssd_operands(gen, batch, seq, h, g, n)
@@ -2998,9 +3037,18 @@ def check_served_kernels(label, launched, batch, heads, kv_heads, gen, ops, fa, 
             del args
             if worst[kind] is not None:
                 err = tuple(map(max, err, worst[kind]))
+        else:  # the causal conv, xBC between z and dt in in_proj's row
+            _, ch = dims
+            seq, h, _ = ssm
+            at = h * 64
+            args = conv_operands(gen, batch, seq, ch, at, at + ch + h)
+            err = check_conv(f"{label} served conv ({batch}, {seq}, {ch})", args)
+            del args
+            if worst[kind] is not None:
+                err = tuple(map(max, err, worst[kind]))
         worst[kind] = err if worst[kind] is None else max(worst[kind], err)
         torch.cuda.empty_cache()
-    return worst["gemm"], worst["flash"], worst["ssd"]
+    return worst["gemm"], worst["flash"], worst["ssd"], worst["conv"]
 
 
 def _leaves(tree):
@@ -3500,28 +3548,41 @@ def check_ssd(what: str, args, q: int, valid_len) -> tuple[float, float, float]:
     return state_err, y_err, differ
 
 
-def refuse_ssd_faults(args, q: int, valid_len, want) -> None:
-    """Build each planted-fault variant of ``ssd.cu`` and launch it, through
-    the wrapper, on the operands the kernel was checked on; the limits
-    must refuse every one."""
-    from repro_torch.kernels import ssd
-
+def refuse_fault_variants(what: str, module, source: str, faults: dict, launch, judge) -> None:
+    """Build each planted-fault variant of ``source`` (``faults``), swap it
+    in for ``module``'s kernel (its ``build_kernel``), run ``launch()``
+    (the wrapper on the operands the kernel was checked on) and judge its
+    output: ``judge(got)`` gives a summary and whether it lies within the
+    limits.  The limits must refuse every variant."""
     with tempfile.TemporaryDirectory() as d:
-        for name in SSD_FAULTS:
+        for name in faults:
             t0 = time.perf_counter()
-            lib, _ = fault_variant(SSD_CU, SSD_FAULTS, name, d)
-            bound = ssd.bind(lib)
-            real, ssd.build_kernel = ssd.build_kernel, lambda: (bound, "")
+            lib, _ = fault_variant(source, faults, name, d)
+            bound = module.bind(lib)
+            real, module.build_kernel = module.build_kernel, lambda: (bound, "")
             try:
-                got = ssd.ssd_scan(*args, q, valid_len)
+                got = launch()
             finally:
-                ssd.build_kernel = real
-            state_err, y_err, differ, ok = ssd_errors(got, want)
-            print(f"[fault] ssd {name} (built in {time.perf_counter() - t0:.1f}s): state rel err "
-                  f"{state_err:.3g}, y max abs err {y_err:.4g}, y elements differing {differ:.4%} "
+                module.build_kernel = real
+            summary, ok = judge(got)
+            print(f"[fault] {what} {name} (built in {time.perf_counter() - t0:.1f}s): {summary} "
                   f"-> {'within the limits' if ok else 'refused'}", flush=True)
             if ok:
-                raise SystemExit(f"the SSD's limits let the planted fault {name} pass")
+                raise SystemExit(f"the {what}'s limits let the planted fault {name} pass")
+
+
+def refuse_ssd_faults(args, q: int, valid_len, want) -> None:
+    """The SSD's planted faults (:data:`SSD_FAULTS`) on ``args``, judged
+    against the plain version's ``want`` (:func:`ssd_errors`)."""
+    from repro_torch.kernels import ssd
+
+    def judge(got):
+        state_err, y_err, differ, ok = ssd_errors(got, want)
+        return (f"state rel err {state_err:.3g}, y max abs err {y_err:.4g}, y elements "
+                f"differing {differ:.4%}", ok)
+
+    refuse_fault_variants("ssd", ssd, SSD_CU, SSD_FAULTS,
+                          lambda: ssd.ssd_scan(*args, q, valid_len), judge)
 
 
 def ssd_row(flush) -> dict:
@@ -3593,13 +3654,174 @@ def ssd_row(flush) -> dict:
     }
 
 
-def ssd_only(src: str) -> None:
-    """The SSD's chunked scan alone, on the package under ``src``:
+#: the nemotron-h-47b cell's conv, one layer: rows, bucket and channels
+#: (d_inner 16384 + 2 x 8 groups x state 256), and where they lie in
+#: in_proj's output row (z 16384, xBC, dt 256: 37120 elements)
+CONV_SHAPE = (8, 4096, 20480)
+CONV_SLICE = (16384, 37120)
+#: the kernel against its plain version: both round every product and sum
+#: to bf16 at the same places and compute the SiLU alike, so they may
+#: differ by one bf16 step at most (where a SiLU's f32 value is rounded
+#: apart), and in at most this share of the elements (the kernel differs
+#: in none)
+CONV_STEPS = 1
+CONV_DIFFER = 1e-4
+CONV_CU = os.path.join(SRC, "repro_torch", "kernels", "csrc", "conv.cu")
+#: planted faults the conv's check must refuse: the taps applied in the
+#: wrong order in time (the weights flipped), and the taps summed in f32
+#: and rounded once (not each product and sum rounded to bf16: at most a
+#: step or two off, but on many elements)
+CONV_FAULTS = {
+    "taps_reversed": (
+        "    unpack(load16(a.w + static_cast<int64_t>(i) * a.ch + c0), w[i]);",
+        "    unpack(load16(a.w + static_cast<int64_t>(kWidth - 1 - i) * a.ch + c0), w[i]);",
+    ),
+    "f32_accumulate": (
+        "  uint32_t acc[4] = {0u, 0u, 0u, 0u};\n"
+        "#pragma unroll\n"
+        "  for (int i = 0; i < kWidth; ++i) {\n"
+        "    uint32_t v[4];\n"
+        "    unpack(win[i], v);\n"
+        "#pragma unroll\n"
+        "    for (int m = 0; m < 4; ++m) acc[m] = add_bf16x2(acc[m], mul_bf16x2(v[m], w[i][m]));\n"
+        "  }\n",
+        "  uint32_t acc[4];\n"
+        "  float lo[4] = {}, hi[4] = {};\n"
+        "  for (int i = 0; i < kWidth; ++i) {\n"
+        "    uint32_t v[4];\n"
+        "    unpack(win[i], v);\n"
+        "    for (int m = 0; m < 4; ++m) {\n"
+        "      lo[m] += __uint_as_float(v[m] << 16) * __uint_as_float(w[i][m] << 16);\n"
+        "      hi[m] += __uint_as_float(v[m] & 0xffff0000u)\n"
+        "               * __uint_as_float(w[i][m] & 0xffff0000u);\n"
+        "    }\n"
+        "  }\n"
+        "  for (int m = 0; m < 4; ++m) acc[m] = pack_bf16(lo[m], hi[m]);\n",
+    ),
+}
 
-        python3 chip_smoke.py --ssd-only [path/to/src]
 
-    Prints the card, the source's digest, the ``[sass]`` lines and the
-    ``[time] ssd`` line, and the ``kernels`` row."""
+def conv_operands(gen, b: int, l: int, ch: int, at: int, row: int) -> tuple:
+    """The conv's operands: xBC, ``ch`` channels at ``at`` of ``b`` rows of
+    ``l`` positions of an in_proj output ``row`` elements wide (a strided
+    view, as the block slices it), and the weight and bias, drawn as the
+    nemotron-h cell draws them (0.5 N(0, 1) / sqrt(4), 0.1 N(0, 1)), bf16."""
+    proj = torch.randn((b, l, row), generator=gen, device="cuda").bfloat16()
+    w = (0.25 * torch.randn((4, ch), generator=gen, device="cuda")).bfloat16()
+    bias = (0.1 * torch.randn((ch,), generator=gen, device="cuda")).bfloat16()
+    return proj[..., at:at + ch], w, bias
+
+
+def conv_errors(got, want) -> tuple[int, float, bool]:
+    """The largest gap in bf16 steps, the share of elements that differ,
+    and whether both lie within :data:`CONV_STEPS` and :data:`CONV_DIFFER`."""
+    from repro_torch.kernels.causal_conv import bf16_steps
+
+    steps = bf16_steps(got, want)
+    worst, differ = int(steps.max().item()), (steps > 0).float().mean().item()
+    return worst, differ, worst <= CONV_STEPS and differ <= CONV_DIFFER
+
+
+def check_conv(what: str, args) -> tuple[int, float]:
+    """The conv kernel against its plain version on ``args``; exits outside
+    the limits.  Returns :func:`conv_errors`' two errors."""
+    from repro_torch.kernels import causal_conv as cc
+
+    steps, differ, ok = conv_errors(cc.causal_conv(*args), cc.causal_conv_plain(*args))
+    print(f"[check] {what}: largest gap {steps} bf16 steps, elements differing {differ:.4%} "
+          f"(limits {CONV_STEPS} step, {CONV_DIFFER:.2%})", flush=True)
+    if not ok:
+        raise SystemExit(f"[check] {what}: outside the limits")
+    return steps, differ
+
+
+def refuse_conv_faults(args, want) -> None:
+    """The conv's planted faults (:data:`CONV_FAULTS`) on ``args``, judged
+    against the plain version's ``want`` (:func:`conv_errors`)."""
+    from repro_torch.kernels import causal_conv as cc
+
+    def judge(got):
+        steps, differ, ok = conv_errors(got, want)
+        return f"largest gap {steps} bf16 steps, elements differing {differ:.4%}", ok
+
+    refuse_fault_variants("conv", cc, CONV_CU, CONV_FAULTS, lambda: cc.causal_conv(*args), judge)
+
+
+def conv_row(flush) -> dict:
+    """A ``kernels`` row for the Mamba-2 causal conv at :data:`CONV_SHAPE`
+    (the nemotron-h cell's prefill, one layer, xBC read in place from
+    in_proj's output): ptxas' registers and spills, the kernel held against
+    its plain version (:func:`check_conv`) and the planted faults refused,
+    timed with the L2 flushed (unspun and spun) beside the plain version,
+    ``F.conv1d(groups=ch)`` + ``F.silu`` (the yardstick, used nowhere in the
+    port) and the byte bound (one read and one write of xBC at HBM's
+    rate).  ``launches_check`` is the check's own launch; ``launches``
+    counts the main paths' alone: phase 13 adds every conv launch of the
+    families it serves (``launches_families``, by channel count in
+    ``launches_families_by_channels``), so ``--conv-only`` reads 0."""
+    import torch.nn.functional as F
+
+    from perfbench import work
+    from repro_torch.kernels import causal_conv as cc
+    from repro_torch.kernels import ledger
+
+    _, log = cc.build_kernel()
+    regs = re.search(r"Used (\d+) registers", log)
+    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", log))
+    print(f"[sass] causal_conv_silu: registers {regs.group(1) if regs else '?'}, spill stores "
+          f"{spills} B", flush=True)
+    if spills:
+        raise SystemExit(f"[sass] causal_conv_silu spills {spills} bytes")
+    b, l, ch = CONV_SHAPE
+    args = conv_operands(torch.Generator(device="cuda").manual_seed(31), b, l, ch, *CONV_SLICE)
+    key = (4, ch)
+    before = ledger.launches("conv")[key]
+    steps, differ = check_conv(f"conv {CONV_SHAPE} in rows of {CONV_SLICE[1]}", args)
+    checked = ledger.launches("conv")[key] - before
+    refuse_conv_faults(args, cc.causal_conv_plain(*args))
+    xBC, w, bias = args
+    xt, wt = xBC.transpose(1, 2), w.t().contiguous()[:, None, :]
+    run = lambda: cc.causal_conv(*args)  # noqa: E731
+    plain = lambda: cc.causal_conv_plain(*args)  # noqa: E731
+    library = lambda: F.silu(F.conv1d(xt, wt, bias, padding=3, groups=ch)[..., :l])  # noqa: E731
+    lib_gap = (library().transpose(1, 2).float() - plain().float()).abs().max().item()
+    ms = timed_ms(run, 20, flush)
+    ms_spin = timed_ms(run, 20, flush, spin=True)
+    plain_ms = timed_ms(plain, 3, flush)
+    lib_ms = timed_ms(library, 5, flush)
+    lib_spin = timed_ms(library, 5, flush, spin=True)
+    nbytes = 2 * b * l * ch * xBC.element_size()
+    bound_ms = 1e3 * nbytes / work.PEAK_BYTES_PER_S
+    print(f"[time] conv {CONV_SHAPE} in rows of {CONV_SLICE[1]}: kernel_ms={ms:.4f} spun "
+          f"{ms_spin:.4f}; plain_ms={plain_ms:.4f}; library_ms={lib_ms:.4f} spun {lib_spin:.4f} "
+          f"(F.conv1d groups={ch} + F.silu, max abs gap to plain {lib_gap:.4g}); "
+          f"bound_ms={bound_ms:.4f} ({nbytes:.4g} bytes at HBM's rate); share of the bound spun "
+          f"{bound_ms / ms_spin:.4f}; largest gap {steps} bf16 steps, elements differing "
+          f"{differ:.4%}", flush=True)
+    del args, xBC, xt
+    torch.cuda.empty_cache()
+    return {
+        "name": f"conv[{b}x{l}x{ch}/4]", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/conv.cu",
+        "replaces": "no TPU kernel (src/repro/models/mamba2.py:_causal_conv is plain code, "
+                    "fused by XLA)",
+        "shape": [b, l, ch], "instance": list(key), "launches_check": checked,
+        "launches_families": 0, "launches_families_by_channels": {}, "launches": 0,
+        "max_bf16_steps": steps, "differ_share": differ, "ms": ms, "ms_spin": ms_spin,
+        "plain_ms": plain_ms, "library_ms": lib_ms, "library_ms_spin": lib_spin,
+        "bound_ms": bound_ms, "bound_by": "bytes",
+    }
+
+
+def row_only(src: str, flag: str, source: str, make_row) -> None:
+    """One kernel's row alone, on the package under ``src``:
+
+        python3 chip_smoke.py --ssd-only [path/to/src]   # ssd_row
+        python3 chip_smoke.py --conv-only [path/to/src]  # conv_row
+
+    Prints the card, the digest of ``csrc/<source>``, what ``make_row``
+    prints (its ``[sass]``, ``[check]``, ``[fault]`` and ``[time]`` lines),
+    and the ``kernels`` row."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card is available")
     sys.path.insert(0, os.path.abspath(src))
@@ -3607,10 +3829,9 @@ def ssd_only(src: str) -> None:
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    print(f"[ssd-only] {os.path.abspath(src)} ssd.cu {source_digest('ssd.cu')}", flush=True)
+    print(f"[{flag}] {os.path.abspath(src)} {source} {source_digest(source)}", flush=True)
     flush = torch.empty(100 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    row = ssd_row(flush)
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": [make_row(flush)]}))
 
 
 def flash_f32_row(rand, flush, peak_bytes: float, shape: tuple,
@@ -3881,7 +4102,9 @@ if __name__ == "__main__":
         elif sys.argv[1:2] == ["--flash-f32-only"]:
             flash_f32_only(sys.argv[2] if len(sys.argv) > 2 else SRC)
         elif sys.argv[1:2] == ["--ssd-only"]:
-            ssd_only(sys.argv[2] if len(sys.argv) > 2 else SRC)
+            row_only(sys.argv[2] if len(sys.argv) > 2 else SRC, "ssd-only", "ssd.cu", ssd_row)
+        elif sys.argv[1:2] == ["--conv-only"]:
+            row_only(sys.argv[2] if len(sys.argv) > 2 else SRC, "conv-only", "conv.cu", conv_row)
         else:
             main()
     finally:

@@ -3,7 +3,8 @@
 Each wrapper calls :func:`note_launch` where it launches its kernel on the
 card, and nowhere else.  A launch is counted under its kind and dims
 (``"gemm"``: ``(M, K, N)``; ``"flash"``: ``(seq_q, seq_kv, head_dim)``;
-``"ssd"``: ``(n, q)``, one a chunked-scan call of three kernels), the
+``"ssd"``: ``(n, q)``, one a chunked-scan call of three kernels;
+``"conv"``: ``(width, channels)``, one a causal conv's call), the
 :func:`launch_role` in force on the launching thread and its operands'
 dtype; :func:`launches` sums by any of those fields.
 """

@@ -241,8 +241,8 @@ def flash_blocks(seq_q: int, seq_kv: int, head_dim: int, dtype: torch.dtype,
 
 def launch_counts() -> collections.Counter:
     """The kernels' launch counts, keyed ``("gemm", (M, K, N))``,
-    ``("flash", (seq_q, seq_kv, head_dim))`` and ``("ssd", (n, q))`` (one
-    a chunked-scan call)."""
+    ``("flash", (seq_q, seq_kv, head_dim))``, ``("ssd", (n, q))`` (one
+    a chunked-scan call) and ``("conv", (width, channels))``."""
     return launches(None, "kind", "dims")
 
 

@@ -9,7 +9,11 @@ prefill's SSD, from the raw dt to y with its D skip, is one call to
 ``kernels.ssd.ssd_prefill``, which runs the hand-written chunked-scan
 kernel on a served prefill and the same function in plain PyTorch on
 every other (training's autograd, the CPU), and counts the route in
-``ops.dispatch_stats()["ssd"]``.  The block's in/out projections go through
+``ops.dispatch_stats()["ssd"]``.  The depthwise causal conv before it, with
+its bias and SiLU, is likewise one call, ``kernels.causal_conv.conv_prefill``
+(the hand-written conv kernel on a served prefill, the plain version
+``causal_conv_plain``, re-exported, on every other; counted in
+``ops.dispatch_stats()["conv"]``).  The block's in/out projections go through
 ``cm.dense``, i.e. the hand-written GEMM kernel.  Decode keeps an
 O(1)-in-sequence recurrent state per layer (conv window and SSM state), updated in place
 on the device, with the cache's ``len`` a device tensor, so a decode
@@ -33,7 +37,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.api import constrain, logical
-from repro_torch.kernels import ssd
+from repro_torch.kernels import causal_conv, ssd
+from repro_torch.kernels.causal_conv import causal_conv_plain
 from repro_torch.kernels.ops import closing_product
 from repro_torch.kernels.ssd import ssd_chunked
 from repro_torch.models import common as cm
@@ -46,6 +51,7 @@ __all__ = [
     "mamba_block_prefill",
     "mamba_block_decode",
     "init_mamba_state",
+    "causal_conv_plain",
     "ssd_chunked",
     "ssd_reference",
     "gated_rmsnorm",
@@ -122,16 +128,6 @@ def init_mamba_block(cfg: ArchConfig, gen: torch.Generator, device, lead: tuple)
     }
 
 
-def _causal_conv(xBC, conv_w, conv_b):
-    """Depthwise causal conv over the sequence.  xBC: (b, l, ch)."""
-    w = conv_w.shape[0]
-    pad = F.pad(xBC, (0, 0, w - 1, 0))
-    out = torch.zeros_like(xBC)
-    for i in range(w):  # the width is tiny (4): unrolled taps
-        out = out + pad[:, i:i + xBC.shape[1], :] * conv_w[i][None, None, :]
-    return out + conv_b[None, None, :]
-
-
 def _conv_window(xBC_raw, w: int, valid_len):
     """The conv's inputs at each row's last ``w - 1`` real positions (zeros
     before its first), the window decode continues from; the sequence's
@@ -201,7 +197,7 @@ def mamba_block_prefill(cfg: ArchConfig, p: dict, x: torch.Tensor,
     with span("block.mamba", index):
         z, xBC_raw, dt_raw = _split_proj(cfg, cm.dense(p["in_proj"], xn))
         with span("mamba.conv"):
-            xBC = F.silu(_causal_conv(xBC_raw, p["conv_w"], p["conv_b"]))
+            xBC = causal_conv.conv_prefill(xBC_raw, p["conv_w"], p["conv_b"])
         with span("mamba.ssd"):
             xs, Bm, Cm = _ssm_views(cfg, xBC)
             xs = constrain(xs, logical("dp", None, "tp", None))

@@ -23,8 +23,10 @@ from repro_torch.core.analysis import (
     max_threads_for_reg_tile,
 )
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import causal_conv as cc
 from repro_torch.kernels import gemm, ssd
 from repro_torch.kernels.ledger import current_role, launches, reset_launches
+from test_torch_conv import conv_operands
 
 
 def _card():
@@ -337,6 +339,82 @@ def test_mamba_prefill_on_the_kernel_equals_the_einsum_route_on_card(name, monke
     gap = (out.float() - want.float()).abs()
     assert (gap > 0).float().mean().item() < 0.01, f"{(gap > 0).float().mean().item():.3%} differ"
     assert gap.mean().item() < 2e-5, f"mean abs error {gap.mean().item():.3g}"
+
+
+#: the causal conv's served widths: rows, channels, where xBC starts in an
+#: in_proj output row and that row's width (z, xBC, dt), and the lengths
+#: held (1-3 and one no 64-position tile divides, besides the cell's 4096)
+CONV_WIDTHS = {
+    "nemotron-h-47b": (8, 20480, 16384, 37120),
+    "mamba2-130m": (2, 1792, 1536, 3352),
+    "zamba2-1.2b": (2, 4224, 4096, 8384),
+}
+CONV_CASES = [("nemotron-h-47b", 4096)] + [(name, l) for name in ("mamba2-130m", "zamba2-1.2b")
+                                           for l in (1, 2, 3, 1000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,l", CONV_CASES, ids=[f"{n}-{l}" for n, l in CONV_CASES])
+def test_conv_kernel_matches_plain_on_card(name, l):
+    """The causal conv on xBC read in place from a real in_proj output row
+    against its plain version.  Both round every product and sum to bf16
+    at the same places and compute the SiLU in f32 alike, so every element
+    lies within one bf16 step (where the two SiLUs' f32 values were rounded
+    apart), and at most one element in 10 000 differs (none on an H100
+    80GB HBM3 does).  The taps applied in the wrong order in time (the
+    weights flipped: a planted fault) lie many steps away."""
+    b, ch, at, row = CONV_WIDTHS[name]
+    xBC, w, bias = conv_operands(b, l, ch, row, at, gen=_card(), device="cuda")
+    before = launches("conv")[(4, ch)]
+    y = cc.causal_conv(xBC, w, bias)
+    torch.cuda.synchronize()
+    assert launches("conv")[(4, ch)] == before + 1
+    assert y.shape == (b, l, ch) and y.is_contiguous()
+    want = cc.causal_conv_plain(xBC, w, bias)
+    steps = cc.bf16_steps(y, want)
+    differ = (steps > 0).float().mean().item()
+    print(f"conv {name} ({b}, {l}, {ch}): largest gap {steps.max().item()} bf16 steps, "
+          f"{differ:.4%} of elements differ")
+    assert steps.max().item() <= 1 and differ <= 1e-4
+    assert cc.bf16_steps(cc.causal_conv(xBC, w.flip(0), bias), want).max().item() > 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mamba2-130m", "zamba2-1.2b"])
+def test_mamba_prefill_on_the_conv_kernel_equals_the_plain_route_on_card(name, monkeypatch):
+    """A whole Mamba-2 block's prefill under ``torch.inference_mode()`` (the
+    engine's) runs the conv kernel once, on in_proj's xBC slice in place,
+    and gives the plain route's output and states: the kernel keeps the
+    plain version's roundings."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba2 as mb
+
+    gen = _card()
+    cfg = dataclasses.replace(get_arch(name), n_layers=1)
+    params = mb.init_mamba_block(cfg, gen, "cuda", ())
+    params["conv_b"] = (0.1 * torch.randn(params["conv_b"].shape, generator=gen,
+                                          device="cuda")).bfloat16()
+    x = (torch.randn(2, 1000, cfg.d_model, generator=gen, device="cuda") * 0.5).bfloat16()
+    valid_len = torch.tensor([1000, 611], device="cuda")
+    key = (cfg.ssm_conv_width, mb._shapes(cfg)[-1])
+
+    def routes():
+        stats = ops.dispatch_stats().get("conv", {})
+        return launches("conv")[key], stats.get("heuristic", 0), stats.get("plain", 0)
+
+    with torch.inference_mode():
+        before = routes()
+        out, st = mb.mamba_block_prefill(cfg, params, x, valid_len)
+        assert routes() == (before[0] + 1, before[1] + 1, before[2])
+        monkeypatch.setattr(cc, "takes", lambda *a: False)
+        want, want_st = mb.mamba_block_prefill(cfg, params, x, valid_len)
+        assert routes() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    for k in ("conv", "ssm"):
+        torch.testing.assert_close(st[k], want_st[k], rtol=0, atol=0)
 
 
 @pytest.mark.gpu
